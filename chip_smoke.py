@@ -1,0 +1,607 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``ray_tpu_torch``) on one NVIDIA card.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one
+CUDA device and the CUDA toolkit (``nvcc``); without a card it exits
+non-zero and prints no result.
+
+Phases (none catches a failure and carries on):
+
+1. The card: name and power limit as ``nvidia-smi`` gives them.
+2. Build the paged-attention kernel from ``ray_tpu_torch/csrc`` with
+   nvcc for ``sm_90a``; print the build time and ptxas's register and
+   shared-memory report.
+3. Kernel against its plain PyTorch version at the serving path's shapes
+   (GPT-J-6B decode and chunked prefill, a GQA shape, an f32 shape):
+   on the rows the caller keeps (``pos < lens``), the error of each
+   (row, head) output vector held to a tolerance relative to that
+   vector's own largest element, and
+   ``kernel_ms`` / ``plain_ms`` / ``library_ms`` (one
+   ``scaled_dot_product_attention`` call over the same live K/V, a
+   yardstick the port never calls) from CUDA events over a CUDA graph of
+   many launches, beside ``bound_ms``: the larger of the bytes the
+   function needs (the K/V of the keys its rows see, q, O) over 3.35 TB/s
+   and the attention flops over the dtype's peak.
+4. The server at full GPT-J-6B width: ``LLMEngine`` with the README's
+   serving knobs (32 slots, 32-token blocks, 1024-token window, 256-token
+   prefill chunks) answers 16 seeded requests, 8 of them sharing a
+   256-token prefix, so radix hits and the copy-on-write block copy run.
+   Every stream must reach its length, the block pool must audit clean,
+   and the kernel's launch count must equal 28 x (prefill chunks + decode
+   steps).
+5. Kernel path against plain path end to end at full width: one batch
+   through ``prefill`` and a few ``decode_step`` calls with
+   ``paged_impl="kernel"`` and ``"reference"``; relative L2 error of the
+   logits.
+6. Where the time goes: ms per decode step and per prefill chunk at the
+   server's shapes on both paths, and one profiler window over decode
+   steps (device time by kind, idle share).
+
+The second-to-last line is the ``{"kernels": [...]}`` record; the last
+line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12,          # dense tensor-core bf16
+              torch.float32: 67e12}            # f32 outside tensor cores
+# Kernel vs plain version: for every kept (row, head), max |got - want|
+# over head_dim <= KERNEL_TOL x max |want| over the same vector. bf16: the
+# kernel rounds p to bf16 before P.V and rounds O to bf16 (2^-9 relative
+# each); the plain version stays in f32 until its output is rounded.
+KERNEL_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+E2E_REL_L2_BOUND = 5e-2
+L2_CACHE_BYTES = 50e6
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# --------------------------------------------------------------- phase 1
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    check(bool(out), "nvidia-smi printed no card")
+    return out[0].strip()
+
+
+# --------------------------------------------------------------- timing
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Milliseconds per call of ``fn(i)``: ``iters`` calls captured in one
+    CUDA graph (so host overhead does not pad the device time), timed with
+    CUDA events over ``replays`` replays after a warm-up."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
+# --------------------------------------------------------------- phase 3
+@dataclasses.dataclass
+class Shape:
+    name: str
+    B: int
+    C: int
+    H: int
+    KVH: int
+    D: int
+    bs: int
+    T: int
+    dtype: torch.dtype
+    lens: list
+    starts: list        # first row position per sequence
+
+
+def kernel_shapes():
+    rng = np.random.default_rng(0)
+    decode_lens = [0, 1, 1024, 31, 32, 33] + \
+        rng.integers(1, 1025, 26).tolist()
+    gqa_lens = rng.integers(1, 1025, 32).tolist()
+    return [
+        # GPT-J-6B decode at the serving knobs: 32 slots, 32-token
+        # blocks, 1024-token window, mixed lengths incl. 0 and full
+        Shape("gptj6b_decode", 32, 1, 16, 16, 256, 32, 32, torch.bfloat16,
+              decode_lens, [max(n - 1, 0) for n in decode_lens]),
+        # GPT-J-6B chunked prefill: one 256-token chunk at a start that
+        # is not block aligned
+        Shape("gptj6b_prefill", 1, 256, 16, 16, 256, 32, 32,
+              torch.bfloat16, [300 + 256], [300]),
+        # GQA (Llama-2-70B-style heads: 64/8 -> here 32/8) decode
+        Shape("gqa_h32_kvh8_d128_decode", 32, 1, 32, 8, 128, 32, 32,
+              torch.bfloat16, gqa_lens, [n - 1 for n in gqa_lens]),
+        # f32, large staged page (dynamic shared memory past 48 KB)
+        Shape("f32_d256_decode", 8, 1, 16, 16, 256, 32, 32, torch.float32,
+              [1, 100, 1024, 512, 33, 700, 64, 999],
+              [0, 99, 1023, 511, 32, 699, 63, 998]),
+    ]
+
+
+def live_pages(sh: Shape):
+    """Pages the kernel reads per sequence: max(ceil(lens / bs), 1)."""
+    from ray_tpu_torch.ops import paged_work_pages
+    return [int(paged_work_pages(n, sh.bs)) for n in sh.lens]
+
+
+def bound_ms(sh: Shape):
+    """Least time for the work this call's data needs: K and V of each key
+    a kept row sees (``min(lens, T * bs)`` per sequence, every kv head)
+    read once, q read once, O written once, the table and positions read
+    once; flops = 4 * D per (row, key) pair the rows see (QK^T and P.V),
+    for every query head. The kernel itself reads whole live pages
+    (``live_pages``), a few percent more K/V than this."""
+    elt = torch.empty((), dtype=sh.dtype).element_size()
+    keys = sum(min(max(n, 0), sh.T * sh.bs) for n in sh.lens)
+    kv = 2 * keys * sh.KVH * sh.D * elt
+    qo = 2 * sh.B * sh.C * sh.H * sh.D * elt
+    meta = 4 * (sh.B * sh.T + sh.B * sh.C + sh.B)
+    nbytes = kv + qo + meta
+    pairs = 0
+    for b in range(sh.B):
+        for c in range(sh.C):
+            p = sh.starts[b] + c
+            pairs += min(p + 1, max(sh.lens[b], 0)) if p >= 0 else 0
+    flops = 4 * sh.D * pairs * sh.H
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[sh.dtype] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, flops, keys)
+
+
+def row_errors(got, want, keep):
+    """Max abs error, and the worst over kept (row, head) vectors of
+    max |got - want| / max |want| within the vector."""
+    g, w = got.float()[keep], want.float()[keep]          # [R, H, D]
+    check(bool(torch.isfinite(g).all()), "non-finite kernel output")
+    err = (g - w).abs().amax(-1)
+    scale = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return err.max().item(), (err / scale).max().item()
+
+
+def make_case(sh: Shape, dev, n_sets: int, seed: int):
+    """Inputs of one shape. ``n_sets`` block tables over disjoint blocks
+    of one pool, so that timing loops cycling over them read more than
+    the L2 cache holds, as the model's other layers would leave it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = 1 + sh.B * sh.T * n_sets
+    kc = torch.randn((n, sh.bs, sh.KVH, sh.D), generator=gen, device=dev,
+                     dtype=sh.dtype)
+    vc = torch.randn((n, sh.bs, sh.KVH, sh.D), generator=gen, device=dev,
+                     dtype=sh.dtype)
+    q = torch.randn((sh.B, sh.C, sh.H, sh.D), generator=gen, device=dev,
+                    dtype=sh.dtype)
+    perm = np.random.default_rng(seed).permutation(sh.B * sh.T * n_sets)
+    bts = torch.tensor((1 + perm).reshape(n_sets, sh.B, sh.T),
+                       dtype=torch.int32, device=dev)
+    pos = (torch.tensor(sh.starts, dtype=torch.int32)[:, None]
+           + torch.arange(sh.C, dtype=torch.int32)[None, :]).to(dev)
+    lens = torch.tensor(sh.lens, dtype=torch.int32, device=dev)
+    return q, kc, vc, bts, pos, lens
+
+
+def library_inputs(sh: Shape, q, kc, vc, bt, pos, lens):
+    """The same live K/V gathered into contiguous [B, KVH, Lmax, D] with
+    a boolean mask (key <= row position, key < live length) for one
+    ``scaled_dot_product_attention`` call."""
+    lmax = max(max(sh.lens), 1)
+    pages = -(-lmax // sh.bs)
+    k = kc[bt[:, :pages].long()].reshape(sh.B, pages * sh.bs, sh.KVH, sh.D)
+    v = vc[bt[:, :pages].long()].reshape(sh.B, pages * sh.bs, sh.KVH, sh.D)
+    k = k[:, :lmax].transpose(1, 2).contiguous()
+    v = v[:, :lmax].transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()                   # [B, H, C, D]
+    key = torch.arange(lmax, device=q.device)
+    mask = (key[None, None, :] <= pos[:, :, None].long()) \
+        & (key[None, None, :] < lens[:, None, None].long())
+    return qt, k, v, mask[:, None]                         # [B, 1, C, L]
+
+
+def phase_kernels(dev):
+    from ray_tpu_torch.ops.paged_flash import (paged_flash_attention,
+                                               paged_flash_attention_plain)
+    results = []
+    for idx, sh in enumerate(kernel_shapes()):
+        elt = torch.empty((), dtype=sh.dtype).element_size()
+        pages = live_pages(sh)
+        live_bytes = 2 * sum(pages) * sh.bs * sh.KVH * sh.D * elt
+        n_sets = max(1, min(16, math.ceil(2 * L2_CACHE_BYTES / live_bytes)))
+        q, kc, vc, bts, pos, lens = make_case(sh, dev, n_sets, seed=idx)
+        got = paged_flash_attention(q, kc, vc, bts[0], pos, lens)
+        want = paged_flash_attention_plain(q, kc, vc, bts[0], pos, lens)
+        torch.cuda.synchronize()
+        err, row_rel = row_errors(got, want, pos < lens[:, None])
+        tol = KERNEL_TOL[sh.dtype]
+        check(row_rel <= tol, f"{sh.name}: kernel vs plain error "
+                              f"{row_rel} of a (row, head)'s max > {tol}")
+        lib = [library_inputs(sh, q, kc, vc, bts[i], pos, lens)
+               for i in range(n_sets)]
+        iters = 20
+        k_ms = graph_ms(lambda i: paged_flash_attention(
+            q, kc, vc, bts[i % n_sets], pos, lens), iters)
+        p_ms = graph_ms(lambda i: paged_flash_attention_plain(
+            q, kc, vc, bts[i % n_sets], pos, lens), iters)
+        l_ms = graph_ms(lambda i: F.scaled_dot_product_attention(
+            lib[i % n_sets][0], lib[i % n_sets][1], lib[i % n_sets][2],
+            attn_mask=lib[i % n_sets][3],
+            enable_gqa=sh.H != sh.KVH), iters)
+        b_ms, b_by, nbytes, flops, keys = bound_ms(sh)
+        row = {"shape": sh.name, "dtype": str(sh.dtype).split(".")[-1],
+               "B": sh.B, "C": sh.C, "H": sh.H, "KVH": sh.KVH, "D": sh.D,
+               "bs": sh.bs, "T": sh.T, "live_pages": sum(pages),
+               "keys": keys, "bytes": nbytes, "flops": flops,
+               "max_abs_err": err, "max_row_rel_err": row_rel,
+               "row_rel_tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+        results.append(row)
+        print("kernel " + json.dumps(row), flush=True)
+        del q, kc, vc, bts, lib, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+# --------------------------------------------------------------- phase 4
+def make_requests(seed: int, vocab: int):
+    """16 prompts, 64-700 tokens; 8 start with one shared 256-token
+    prefix (one of them is exactly the prefix: a fully matched,
+    block-aligned prompt, so copy-on-write runs)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, vocab, 256).tolist()
+    prompts = [prefix + rng.integers(1, vocab, 180).tolist(), list(prefix)]
+    for n in rng.integers(1, 700 - 256 + 1, 6):
+        prompts.append(prefix + rng.integers(1, vocab, int(n)).tolist())
+    for n in rng.integers(64, 701, 8):
+        prompts.append(rng.integers(1, vocab, int(n)).tolist())
+    return prompts
+
+
+async def serve_all(engine, prompts, max_new: int):
+    """Stream every prompt through ``LLMEngine.generate``. The first
+    request goes alone until its first token (its prompt's full blocks
+    are then in the radix trie); the other 15 follow together."""
+    ttft = [None] * len(prompts)
+    streams = [[] for _ in prompts]
+    first_seen = asyncio.Event()
+
+    async def one(i):
+        t0 = time.perf_counter()
+        async for tok in engine.generate(prompts[i], max_new):
+            if not streams[i]:
+                ttft[i] = time.perf_counter() - t0
+                if i == 0:
+                    first_seen.set()
+            streams[i].append(tok)
+
+    head = asyncio.ensure_future(one(0))
+    seen = asyncio.ensure_future(first_seen.wait())
+    await asyncio.wait([head, seen], return_when=asyncio.FIRST_COMPLETED)
+    seen.cancel()
+    if head.done():
+        head.result()            # raises if the first request failed
+    await asyncio.wait_for(asyncio.gather(
+        head, *[one(i) for i in range(1, len(prompts))]), timeout=900)
+    return streams, ttft
+
+
+def wait_idle(engine, timeout_s: float = 120.0):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        s = engine.stats()
+        if s["free_slots"] == engine.config.decode_slots \
+                and s["queue_depth"] == 0 and s["prefilling"] == 0:
+            return s
+        time.sleep(0.05)
+    raise SmokeFailure(f"engine never drained: {engine.stats()}")
+
+
+def phase_server(dev, card: str, cfg, params, seed: int):
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+    from ray_tpu_torch.serve import EngineConfig, LLMEngine
+    ec = EngineConfig(decode_slots=32, kv_block_size=32, max_seq_len=1024,
+                      prefill_chunk=256, max_new_tokens=48)
+    prompts = make_requests(seed, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    engine = LLMEngine(cfg, ec, params=params, device=dev)
+    try:
+        kv_gb = ec.resolved_num_blocks * ec.kv_block_size \
+            * ec.kv_bytes_per_token(cfg) / 1e9
+        paged_flash_attention.kernel_launches = 0
+        t0 = time.perf_counter()
+        streams, ttft = asyncio.run(serve_all(engine, prompts, 48))
+        wall = time.perf_counter() - t0
+        launches = paged_flash_attention.kernel_launches
+        s = wait_idle(engine)
+        audit = engine.pool_audit()
+    finally:
+        engine.shutdown()
+    check(all(len(t) == 48 for t in streams),
+          f"stream lengths {[len(t) for t in streams]} != 48")
+    check(all(0 <= tok < cfg.vocab_size for t in streams for tok in t),
+          "token id out of the vocabulary")
+    check(audit == [], f"pool audit after drain: {audit}")
+    check(s["prefix_hit_blocks_total"] > 0, "no prefix hits")
+    check(s["cow_copies_total"] >= 1, "copy-on-write never ran")
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    check(launches > 0 and launches == cfg.n_layers * calls,
+          f"kernel launches {launches} != {cfg.n_layers} x {calls}")
+    tokens = sum(len(t) for t in streams)
+    tt = np.asarray(ttft)
+    out = {"card": card, "requests": len(prompts),
+           "prompt_tokens": sum(len(p) for p in prompts),
+           "generated_tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_p50_s": float(np.percentile(tt, 50)),
+           "ttft_p99_s": float(np.percentile(tt, 99)),
+           "prefill_chunks": s["prefill_chunks"],
+           "decode_steps": s["decode_steps"],
+           "prefill_ms_per_chunk": 1e3 * s["prefill_wall_s"]
+           / max(s["prefill_chunks"], 1),
+           "decode_ms_per_step": 1e3 * s["decode_wall_s"]
+           / max(s["decode_steps"], 1),
+           "prefix_hit_blocks": s["prefix_hit_blocks_total"],
+           "cow_copies": s["cow_copies_total"],
+           "kernel_launches": launches, "kv_pool_gb": kv_gb,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("server " + json.dumps(out), flush=True)
+    return out
+
+
+# --------------------------------------------------------------- phase 5
+def _forward_run(cfg, params, impl, toks, bt, lens, dev, feed=None):
+    """One prefill chunk then 4 decode steps on a fresh cache. Returns
+    the kept logits (flattened, f32) and the decode inputs it used."""
+    from ray_tpu_torch.models import decode_step, init_kv_cache, prefill
+    B, C = toks.shape
+    c = dataclasses.replace(cfg, paged_impl=impl)
+    cache = init_kv_cache(c, 1 + bt.numel(), 32, device=dev)
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        logits, cache = prefill(c, params, toks, cache, bt, start, lens)
+        keep = torch.arange(C, device=dev)[None, :] < lens[:, None]
+        outs = [logits[keep].float()]
+        nxt = logits[torch.arange(B, device=dev), lens.long() - 1] \
+            .argmax(-1).to(torch.int32)
+        seq, fed = lens.clone(), []
+        for step in range(4):
+            tok = feed[step] if feed is not None else nxt
+            fed.append(tok)
+            logits, cache = decode_step(c, params, tok, cache, bt, seq)
+            outs.append(logits.float())
+            nxt = logits.argmax(-1).to(torch.int32)
+            seq = seq + 1
+    return torch.cat([o.reshape(-1) for o in outs]), fed
+
+
+def phase_e2e(dev, cfg, params, seed: int):
+    """Same params, fresh caches: one 256-token prefill chunk over 4
+    sequences then 4 decode steps, the kernel path against the
+    whole-window reference, both fed the kernel path's tokens."""
+    rng = np.random.default_rng(seed + 1)
+    B, C, T = 4, 256, 32
+    lens = torch.tensor([256, 200, 131, 77], dtype=torch.int32, device=dev)
+    toks = torch.tensor(rng.integers(1, cfg.vocab_size, (B, C)),
+                        dtype=torch.int32, device=dev)
+    bt = torch.tensor(1 + rng.permutation(B * T).reshape(B, T),
+                      dtype=torch.int32, device=dev)
+    a, fed = _forward_run(cfg, params, "kernel", toks, bt, lens, dev)
+    b, _ = _forward_run(cfg, params, "reference", toks, bt, lens, dev, fed)
+    check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+          "non-finite logits")
+    rel = ((a - b).norm() / b.norm()).item()
+    check(rel <= E2E_REL_L2_BOUND,
+          f"kernel vs reference logits rel L2 {rel} > {E2E_REL_L2_BOUND}")
+    out = {"rel_l2": rel, "bound": E2E_REL_L2_BOUND,
+           "logits_compared": int(a.numel())}
+    print("e2e " + json.dumps(out), flush=True)
+    return out
+
+
+# --------------------------------------------------------------- phase 6
+def _kind(name: str) -> str:
+    if "paged_attention" in name:
+        return "paged_attention"
+    low = name.lower()
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "gemv",
+                              "cublas", "wgmma", "sm90")):
+        return "matmul"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def phase_profile(dev, cfg, params, seed: int):
+    """Where the time goes at the server's shapes: ms per decode step
+    (32 slots, 64-1000-token contexts) and per 256-token prefill chunk
+    (at position 512), kernel path and reference path, from CUDA events;
+    then one torch.profiler window over decode steps of the kernel path:
+    device time by kind and the device's idle share."""
+    from ray_tpu_torch.models import decode_step, init_kv_cache, prefill
+    rng = np.random.default_rng(seed + 2)
+    B, bs, T = 32, 32, 32
+    lens = torch.tensor(rng.integers(64, 1000, B), dtype=torch.int32,
+                        device=dev)
+    toks = torch.tensor(rng.integers(1, cfg.vocab_size, B),
+                        dtype=torch.int32, device=dev)
+    bt = torch.tensor(1 + rng.permutation(B * T).reshape(B, T),
+                      dtype=torch.int32, device=dev)
+    chunk = torch.tensor(rng.integers(1, cfg.vocab_size, (1, 256)),
+                         dtype=torch.int32, device=dev)
+    out = {}
+    with torch.inference_mode():
+        for impl in ("kernel", "reference"):
+            c = dataclasses.replace(cfg, paged_impl=impl)
+            cache = init_kv_cache(c, 1 + B * T, bs, device=dev)
+
+            def step():
+                decode_step(c, params, toks, cache, bt, lens)
+
+            def chunk_call():
+                prefill(c, params, chunk, cache, bt[:1],
+                        torch.tensor([512], dtype=torch.int32, device=dev),
+                        torch.tensor([256], dtype=torch.int32, device=dev))
+
+            for fn, key, n in ((step, "decode_step_ms", 10),
+                               (chunk_call, "prefill_chunk_ms", 5)):
+                fn()
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(n):
+                    fn()
+                e1.record()
+                torch.cuda.synchronize()
+                out[f"{impl}_{key}"] = e0.elapsed_time(e1) / n
+            if impl == "kernel":
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        step()
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                by_kind = {}
+                for evt in prof.key_averages():
+                    dt = getattr(evt, "self_device_time_total", 0) or 0
+                    if dt > 0 and evt.device_type is not None \
+                            and "cuda" in str(evt.device_type).lower():
+                        k = _kind(evt.key)
+                        by_kind[k] = by_kind.get(k, 0.0) + dt / 1e3
+                busy = sum(by_kind.values())
+                out["profile_decode_steps"] = 3
+                out["profile_wall_ms"] = wall_ms
+                out["profile_device_ms_by_kind"] = by_kind
+                out["profile_device_busy_ms"] = busy
+                # the profiler slows the host, so its own window
+                # overstates idle time; the share below sets the device
+                # busy time per step against the unprofiled step time
+                out["profile_idle_share"] = (1 - busy / wall_ms
+                                             if busy else None)
+                out["idle_share_unprofiled"] = (
+                    1 - busy / 3 / out["kernel_decode_step_ms"]
+                    if busy else None)
+            del cache
+            torch.cuda.empty_cache()
+    print("profile " + json.dumps(out), flush=True)
+    return out
+
+
+# ----------------------------------------------------------------- main
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke runs only on "
+              "the card", file=sys.stderr)
+        return 2
+    from ray_tpu_torch import _build
+    from ray_tpu_torch.models import get_config, init_params
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch.cuda.get_device_name(0)={name} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    _build.load_library("paged_attention.cu")
+    log = _build.build_logs.get("paged_attention.cu")
+    print(f"build: paged_attention.cu loaded in "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"({'built' if log else 'already built in this checkout'})",
+          flush=True)
+    if log:
+        for line in str(log["log"]).splitlines():
+            if "registers" in line or "Compiling entry" in line \
+                    or "spill" in line:
+                print("ptxas: " + line.strip(), flush=True)
+
+    shapes = phase_kernels(dev)
+
+    cfg = get_config("gptj-6b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    pbytes = sum(t.numel() * t.element_size() for grp in params.values()
+                 for t in (grp.values() if isinstance(grp, dict) else [grp]))
+    print(f"params: gptj-6b {cfg.num_params / 1e9:.3f} B parameters, "
+          f"{pbytes / 1e9:.2f} GB, made in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    server = phase_server(dev, card, cfg, params, args.seed)
+    phase_e2e(dev, cfg, params, args.seed)
+    phase_profile(dev, cfg, params, args.seed)
+
+    main_shape = shapes[0]              # gptj-6b decode: 28 per step
+    kernels = [{
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "ray_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "ray_tpu/ops/paged_flash.py:71",
+        "launches": server["kernel_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "max_row_rel_err": max(r["max_row_rel_err"] for r in shapes),
+        "ms": main_shape["kernel_ms"],
+        "kernel_ms": main_shape["kernel_ms"],
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "timed_shape": main_shape["shape"],
+        "shapes": shapes,
+    }]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,188 @@
+"""The hand-written paged-attention kernel against its plain PyTorch
+version, on the card.
+
+Every test here needs a CUDA device and the CUDA toolkit (the kernel is
+built with nvcc at first use); without a card each skips. Run on the
+card with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
+
+Tolerances hold each kept (row, head) output vector: max |got - want|
+over head_dim <= TOL x max |want| over that same vector, so a long row
+(small outputs) is held as tightly as a short one. float32 holds 1e-5
+(the kernel sums in another order than the plain version). bfloat16
+holds 2e-2: the kernel rounds p to bf16 before P.V, as the TPU kernel
+did, while the plain version stays in f32, and the output itself is
+rounded to bf16 (2^-9 relative).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.models import (decode_step, get_config, init_kv_cache,
+                                  init_params, prefill)
+from ray_tpu_torch.ops import paged_attention
+from ray_tpu_torch.ops.paged_flash import (paged_flash_attention,
+                                           paged_flash_attention_plain)
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(device, seed, B, C, H, KVH, D, bs, T, dtype, lens, starts=None):
+    """A shuffled paged pool with block 0 as the engine's trash block.
+    Decode (C=1) puts each row at lens-1; prefill puts row i at
+    start+i with lens = start + C."""
+    rng = np.random.default_rng(seed)
+    n = 1 + B * T
+    kc = rng.standard_normal((n, bs, KVH, D)).astype(np.float32)
+    vc = rng.standard_normal((n, bs, KVH, D)).astype(np.float32)
+    q = rng.standard_normal((B, C, H, D)).astype(np.float32)
+    bt = (1 + rng.permutation(B * T)).astype(np.int32).reshape(B, T)
+    lens = np.asarray(lens, np.int32)
+    if starts is None:
+        pos = np.maximum(lens - 1, 0)[:, None].astype(np.int32)
+    else:
+        pos = (np.asarray(starts, np.int32)[:, None]
+               + np.arange(C, dtype=np.int32)[None, :])
+    dev = dict(device=device)
+    return (torch.tensor(q, **dev).to(dtype),
+            torch.tensor(kc, **dev).to(dtype),
+            torch.tensor(vc, **dev).to(dtype),
+            torch.tensor(bt, **dev), torch.tensor(pos, **dev),
+            torch.tensor(lens, **dev))
+
+
+def _check(q, kc, vc, bt, pos, lens):
+    before = paged_flash_attention.kernel_launches
+    got = paged_flash_attention(q, kc, vc, bt, pos, lens)
+    torch.cuda.synchronize()
+    assert paged_flash_attention.kernel_launches == before + 1
+    want = paged_flash_attention_plain(q, kc, vc, bt, pos, lens)
+    live = (pos < lens[:, None])                      # rows compared
+    assert live.any()
+    g, w = got.float()[live], want.float()[live]           # [R, H, D]
+    assert torch.isfinite(g).all()
+    err = (g - w).abs().amax(-1)
+    scale = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    worst = (err / scale).max().item()
+    assert worst <= TOL[q.dtype], worst
+
+
+_rng = np.random.default_rng(7)
+_GPTJ_DECODE_LENS = np.concatenate([[0, 1, 1024, 31, 32, 33],
+                                    _rng.integers(1, 1025, 26)])
+CASES = {
+    # name: (B, C, H, KVH, D, bs, T, dtype, lens, starts)
+    "gptj6b_decode": (32, 1, 16, 16, 256, 32, 32, torch.bfloat16,
+                      _GPTJ_DECODE_LENS, None),
+    "gptj6b_prefill": (1, 256, 16, 16, 256, 32, 32, torch.bfloat16,
+                       [300 + 256], [300]),
+    "gqa_decode": (8, 1, 32, 8, 128, 16, 16, torch.bfloat16,
+                   [1, 5, 16, 17, 100, 200, 255, 256], None),
+    "gqa_prefill": (2, 64, 32, 8, 128, 16, 16, torch.bfloat16,
+                    [77 + 64, 64], [77, 0]),
+    "f32_decode": (4, 1, 8, 8, 64, 16, 8, torch.float32,
+                   [0, 3, 64, 128], None),
+    "f32_prefill": (2, 24, 8, 2, 64, 16, 8, torch.float32,
+                    [40 + 24, 24], [40, 0]),
+    "tiny_d8": (4, 8, 2, 2, 8, 4, 12, torch.float32,
+                [8, 13, 30, 48], [0, 5, 22, 40]),
+    "tiny_d16_gqa": (3, 1, 4, 2, 16, 4, 6, torch.float32,
+                     [1, 9, 24], None),
+    # odd block size: staged bf16 V rows start 8-byte aligned only
+    "odd_block_bf16_prefill": (3, 5, 4, 2, 8, 5, 5, torch.bfloat16,
+                               [7, 11, 23], [2, 6, 18]),
+    "odd_block_f32_decode": (3, 1, 6, 3, 24, 7, 4, torch.float32,
+                             [1, 15, 28], None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_matches_plain(cuda, name):
+    B, C, H, KVH, D, bs, T, dtype, lens, starts = CASES[name]
+    _check(*_case(cuda, 0, B, C, H, KVH, D, bs, T, dtype, lens, starts))
+
+
+@pytest.mark.parametrize("block_r", [4, 8, 32])
+def test_kernel_row_blocks(cuda, block_r):
+    """Every row-block size the wrapper takes gives the same answer."""
+    q, kc, vc, bt, pos, lens = _case(cuda, 4, 2, 40, 8, 4, 32, 8, 8,
+                                     torch.float32, [40 + 17, 40],
+                                     [17, 0])
+    got = paged_flash_attention(q, kc, vc, bt, pos, lens, block_r=block_r)
+    want = paged_flash_attention_plain(q, kc, vc, bt, pos, lens)
+    live = pos < lens[:, None]
+    torch.testing.assert_close(got[live], want[live], rtol=1e-5, atol=1e-5)
+
+
+def test_auto_dispatch_launches_kernel(cuda):
+    q, kc, vc, bt, pos, lens = _case(cuda, 1, 2, 1, 4, 2, 16, 4, 4,
+                                     torch.float32, [3, 16])
+    before = paged_flash_attention.kernel_launches
+    got = paged_attention(q, kc, vc, bt, pos, lens=lens)
+    ref = paged_attention(q, kc, vc, bt, pos, impl="reference")
+    assert paged_flash_attention.kernel_launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "block_size", "dtype"])
+def test_kernel_rejects_what_it_cannot_take(cuda, bad):
+    D, bs, dtype = 16, 4, torch.float32
+    if bad == "head_dim":
+        D = 12
+    elif bad == "block_size":
+        bs = 64
+    else:
+        dtype = torch.float16
+    q, kc, vc, bt, pos, lens = _case(cuda, 2, 1, 1, 2, 2, D, bs, 2,
+                                     torch.float32, [3])
+    q, kc, vc = q.to(dtype), kc.to(dtype), vc.to(dtype)
+    with pytest.raises((ValueError, TypeError)):
+        paged_flash_attention(q, kc, vc, bt, pos, lens)
+
+
+@pytest.mark.parametrize("name", ["gptj-tiny", "llama2-tiny"])
+def test_tiny_model_kernel_path_matches_reference(cuda, name):
+    """Chunked prefill then decode steps of a tiny f32 model on the card:
+    the kernel path's logits and cache hold 1e-5 against the
+    whole-window reference path (only attention differs)."""
+    rng = np.random.default_rng(3)
+    B, C, bs, T = 2, 8, 4, 8
+    params = init_params(get_config(name), 0, device=cuda)
+    toks = torch.tensor(rng.integers(1, 512, (B, C)), dtype=torch.int32,
+                        device=cuda)
+    bt = torch.tensor(1 + rng.permutation(B * T).reshape(B, T),
+                      dtype=torch.int32, device=cuda)
+    lens = torch.tensor([8, 5], dtype=torch.int32, device=cuda)
+    step_toks = torch.tensor(rng.integers(1, 512, (3, B)),
+                             dtype=torch.int32, device=cuda)
+    runs = {}
+    for impl in ("kernel", "reference"):
+        cfg = get_config(name, paged_impl=impl)
+        cache = init_kv_cache(cfg, 1 + B * T, bs, device=cuda)
+        start = torch.zeros(B, dtype=torch.int32, device=cuda)
+        logits, cache = prefill(cfg, params, toks, cache, bt, start, lens)
+        keep = torch.arange(C, device=cuda)[None, :] < lens[:, None]
+        outs = [logits[keep]]
+        seq = lens.clone()
+        for i in range(3):
+            logits, cache = decode_step(cfg, params, step_toks[i], cache,
+                                        bt, seq)
+            outs.append(logits)
+            seq = seq + 1
+        runs[impl] = (outs, cache)
+    for a, b in zip(runs["kernel"][0], runs["reference"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for key in ("k", "v"):
+        torch.testing.assert_close(runs["kernel"][1][key],
+                                   runs["reference"][1][key],
+                                   rtol=1e-5, atol=1e-5)
