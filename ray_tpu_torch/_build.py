@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -53,33 +54,52 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+def _paths(source: str):
+    src = CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def _compile(src: Path, lib_path: Path) -> Dict[str, object]:
+    tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)   # atomic: a concurrent build wins
+    return {"seconds": seconds, "log": proc.stdout + proc.stderr}
+
+
+def build(sources) -> None:
+    """Compile every source of ``csrc/`` named in ``sources`` that has no
+    library yet, one ``nvcc`` process per source, all started together.
+    Raises with nvcc's output if a build fails."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = {}
+        for source in sources:
+            src, lib_path = _paths(source)
+            if source not in _loaded and not lib_path.exists():
+                todo[source] = (src, lib_path)
+        if not todo:
+            return
+        with ThreadPoolExecutor(len(todo)) as pool:
+            futures = {s: pool.submit(_compile, *paths)
+                       for s, paths in todo.items()}
+        for source, fut in futures.items():
+            build_logs[source] = fut.result()
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` once (keyed by a hash of its text and
     the flags) and return the loaded library."""
+    if source not in _loaded:
+        build([source])
     with _lock:
-        if source in _loaded:
-            return _loaded[source]
-        src = CSRC / source
-        text = src.read_bytes()
-        digest = hashlib.sha256(
-            text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
-        if not lib_path.exists():
-            nvcc = find_nvcc()
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)   # atomic: a concurrent build wins
-            build_logs[source] = {"seconds": seconds,
-                                  "log": proc.stdout + proc.stderr}
-        lib = ctypes.CDLL(str(lib_path))
-        _loaded[source] = lib
-        return lib
+        if source not in _loaded:
+            _loaded[source] = ctypes.CDLL(str(_paths(source)[1]))
+        return _loaded[source]

@@ -1,12 +1,21 @@
-"""Models of the port: the decoder-only transformer's serving path and
-the named configurations."""
+"""Models of the port: the decoder-only transformer (serving and
+training paths), its train step and the named configurations."""
 
 from ray_tpu_torch.models.registry import MODEL_CONFIGS, get_config
-from ray_tpu_torch.models.transformer import (TransformerConfig,
-                                              decode_step, init_kv_cache,
-                                              init_params, prefill,
-                                              resolve_device)
+from ray_tpu_torch.models.training import (ClipAdamW, TrainStepBundle,
+                                           default_optimizer,
+                                           make_eval_step, make_train_step)
+from ray_tpu_torch.models.transformer import (Transformer,
+                                              TransformerConfig, apply,
+                                              decode_step, hidden_states,
+                                              init_kv_cache, init_params,
+                                              lm_loss, prefill,
+                                              remat_policy_fn,
+                                              resolve_device, run_layers)
 
-__all__ = ["MODEL_CONFIGS", "TransformerConfig", "decode_step",
-           "get_config", "init_kv_cache", "init_params", "prefill",
-           "resolve_device"]
+__all__ = ["ClipAdamW", "MODEL_CONFIGS", "TrainStepBundle", "Transformer",
+           "TransformerConfig", "apply", "decode_step",
+           "default_optimizer", "get_config", "hidden_states",
+           "init_kv_cache", "init_params", "lm_loss", "make_eval_step",
+           "make_train_step", "prefill", "remat_policy_fn",
+           "resolve_device", "run_layers"]

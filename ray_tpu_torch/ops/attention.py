@@ -1,9 +1,10 @@
 """Model-facing attention API, layout (batch, seq, heads, head_dim) as
 in ``ray_tpu/ops/attention.py``.
 
-Dispatch for paged attention: a CUDA tensor goes to the hand-written
-kernel (:mod:`ray_tpu_torch.ops.paged_flash`), a CPU tensor to the plain
-PyTorch gather. There is no fallback from the kernel on the card: what
+Dispatch: a CUDA tensor goes to the hand-written kernels (paged
+attention, :mod:`ray_tpu_torch.ops.paged_flash`; flash attention,
+:mod:`ray_tpu_torch.ops.flash_attention`), a CPU tensor to their plain
+PyTorch versions. There is no fallback from a kernel on the card: what
 the kernel cannot take raises.
 """
 
@@ -14,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from ray_tpu_torch.ops.flash_attention import (check_flash_blocks,
+                                               flash_attention_bshd)
 from ray_tpu_torch.ops.paged_flash import (paged_flash_attention,
                                            paged_flash_attention_plain)
 
@@ -90,3 +93,38 @@ def paged_attention(q: torch.Tensor, k_cache: torch.Tensor,
         q, k_cache, v_cache, block_tables, q_positions,
         torch.full((q.shape[0],), window, dtype=torch.int32,
                    device=q.device), sm_scale=sm_scale)
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        mask: Optional[torch.Tensor] = None,
+                        impl: str = "auto",
+                        block_q: Optional[int] = None,
+                        block_k: Optional[int] = None) -> torch.Tensor:
+    """Attention over (batch, seq, heads, head_dim), differentiable.
+
+    ``impl``:
+    - ``"auto"``: the flash kernels for a CUDA tensor (forward, and delta,
+      dK/dV, dQ in the backward), their plain versions for a CPU tensor;
+      what the kernels cannot take raises (head_dim a multiple of 8 up to
+      256; a causal call needs ``sq <= sk``); any sequence length;
+    - ``"kernel"`` (or the JAX package's ``"flash"``): the kernels; raises
+      for a CPU tensor (the port has no interpret mode);
+    - ``"reference"``: :func:`attention_reference`, on any device.
+    An explicit ``mask`` always takes the reference path (the kernels
+    handle only the causal structure). ``block_q``/``block_k`` of
+    ``None`` (or 0) take the kernels' fixed tiles.
+    """
+    if impl == "reference" or mask is not None:
+        return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   mask=mask)
+    if impl not in ("auto", "kernel", "flash"):
+        raise ValueError(f"unknown attention impl: {impl!r}")
+    if impl != "auto" and q.device.type != "cuda":
+        raise ValueError(
+            f"impl={impl!r} needs a CUDA tensor, got {q.device}: the "
+            f"port's kernels have no interpret mode (use impl='auto' or "
+            f"'reference' on the CPU)")
+    check_flash_blocks(block_q, block_k)
+    return flash_attention_bshd(q, k, v, causal=causal, sm_scale=sm_scale)

@@ -145,7 +145,8 @@ class LLMEngine:
             raise ValueError("prefill_chunk and decode_slots must be >= 1")
         self.device = resolve_device(device)
         self._params = params if params is not None \
-            else init_params(model_config, seed, self.device)
+            else init_params(model_config, seed, self.device,
+                             dtype=model_config.dtype)
         if self._params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {self._params['embed'].device}, the "

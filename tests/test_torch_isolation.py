@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``ray_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the port imports
-and serves with both made unimportable."""
+``chip_smoke.py`` imports JAX or the JAX package, and the port imports,
+serves and takes a train step with both made unimportable."""
 
 import ast
 import os
@@ -61,6 +61,12 @@ def test_port_serves_with_jax_and_ray_tpu_unimportable():
             assert eng.pool_audit() == []
         finally:
             eng.shutdown()
+        from ray_tpu_torch.models import make_train_step
+        bundle = make_train_step(cfg, learning_rate=1e-3, device="cpu")
+        state = bundle.init(seed=0)
+        state, m = bundle.step(state, {"input_ids": torch.randint(
+            0, 64, (2, 16), generator=torch.Generator().manual_seed(0))})
+        assert torch.isfinite(m["loss"]) and int(state["step"]) == 1, m
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "ray_tpu")
                   and sys.modules[m] is not None]

@@ -186,3 +186,166 @@ def test_tiny_model_kernel_path_matches_reference(cuda, name):
         torch.testing.assert_close(runs["kernel"][1][key],
                                    runs["reference"][1][key],
                                    rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------ flash attention
+# The four flash kernels against their plain versions. Each (row, head)
+# vector of O, dQ, dK, dV is held on its own: max |got - want| <= TOL x
+# max |want| of that vector (floored at 1% of the tensor's max). bf16
+# holds 2e-2: the forward rounds P to bf16 before P.V (as the TPU kernel
+# did), the backward rounds P and dS to bf16 for its tensor-core products
+# (the TPU kernel kept them in f32), and outputs are rounded to bf16
+# (2^-9). f32 runs exact f32 FMAs, in another order than the plain
+# version where the forward rescales its running sums: 1e-5. LSE and
+# delta are f32 sums of exact products: absolute 1e-4 (bf16 inputs) /
+# 1e-5 (f32) x (1 + |want|).
+
+from ray_tpu_torch.ops import multihead_attention  # noqa: E402
+from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_bshd, flash_delta, flash_delta_plain, flash_dkdv,
+    flash_dkdv_plain, flash_dq, flash_dq_plain, flash_fwd, flash_fwd_plain)
+
+FLASH_CASES = {
+    # name: (B, Sq, Sk, H, D, dtype, causal)
+    "gptj_d256_causal_bf16": (1, 512, 512, 2, 256, torch.bfloat16, True),
+    "entry_d128_bf16": (2, 256, 256, 4, 128, torch.bfloat16, False),
+    "entry_d128_causal_bf16": (2, 256, 256, 4, 128, torch.bfloat16, True),
+    "cross_len_causal_d128_bf16": (1, 128, 384, 2, 128, torch.bfloat16,
+                                   True),
+    "ragged_d64_f32": (2, 200, 200, 2, 64, torch.float32, False),
+    "ragged_causal_d64_bf16": (1, 77, 77, 3, 64, torch.bfloat16, True),
+    "ragged_cross_d256_f32": (1, 50, 131, 2, 256, torch.float32, True),
+    "d40_f32": (1, 33, 70, 1, 40, torch.float32, False),
+    "d8_bf16": (2, 19, 19, 2, 8, torch.bfloat16, True),
+}
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+FLASH_ABS = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+
+
+def _flash_inputs(device, seed, B, Sq, Sk, H, D, dtype):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=device).to(dtype)
+    return t(B, Sq, H, D), t(B, Sk, H, D), t(B, Sk, H, D), t(B, Sq, H, D)
+
+
+def _vec_rel(got, want):
+    """Worst (row, head) error over max(that vector's max |want|, 1% of
+    the tensor's): the floor keeps a vector that is zero in exact
+    arithmetic (dQ of a causal row that sees one key) from dividing
+    rounding noise by rounding noise."""
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    assert w.abs().max() > 0                 # no pass on all-zero outputs
+    err = (g - w).abs().amax(-1)
+    scale = w.abs().amax(-1).clamp_min(
+        max(1e-2 * w.abs().max().item(), torch.finfo(torch.float32).tiny))
+    return (err / scale).max().item()
+
+
+def _abs_ok(got, want, tol):
+    return bool(((got - want).abs() <= tol * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, name):
+    B, Sq, Sk, H, D, dtype, causal = FLASH_CASES[name]
+    q, k, v, do = _flash_inputs(cuda, 5, B, Sq, Sk, H, D, dtype)
+    tol, atol = FLASH_TOL[dtype], FLASH_ABS[dtype]
+    launches = [f.kernel_launches for f in (flash_fwd, flash_delta,
+                                            flash_dkdv, flash_dq)]
+    o, lse = flash_fwd(q, k, v, causal=causal)
+    o_p, lse_p = flash_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _vec_rel(o, o_p) <= tol
+    assert _abs_ok(lse, lse_p, atol)
+
+    delta = flash_delta(o_p, do)
+    delta_p = flash_delta_plain(o_p, do)
+    torch.cuda.synchronize()
+    assert _abs_ok(delta, delta_p, atol * max(D / 64, 1))
+
+    dk, dv = flash_dkdv(q, k, v, do, lse_p, delta_p, causal=causal)
+    dk_p, dv_p = flash_dkdv_plain(q, k, v, do, lse_p, delta_p, causal=causal)
+    dq = flash_dq(q, k, v, do, lse_p, delta_p, causal=causal)
+    dq_p = flash_dq_plain(q, k, v, do, lse_p, delta_p, causal=causal)
+    torch.cuda.synchronize()
+    for got, want in ((dk, dk_p), (dv, dv_p), (dq, dq_p)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _vec_rel(got, want) <= tol
+    after = [f.kernel_launches for f in (flash_fwd, flash_delta,
+                                         flash_dkdv, flash_dq)]
+    assert after == [n + 1 for n in launches]
+
+
+def test_flash_autograd_launches_every_kernel(cuda):
+    q, k, v, do = _flash_inputs(cuda, 6, 2, 96, 96, 2, 64, torch.float32)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = [f.kernel_launches for f in (flash_fwd, flash_delta,
+                                          flash_dkdv, flash_dq)]
+    o = multihead_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad((o * do).sum(), (q, k, v))
+    after = [f.kernel_launches for f in (flash_fwd, flash_delta,
+                                         flash_dkdv, flash_dq)]
+    assert after == [n + 1 for n in before]
+    ref = multihead_attention(q, k, v, causal=True, impl="reference")
+    ref_grads = torch.autograd.grad((ref * do).sum(), (q, k, v))
+    torch.testing.assert_close(o, ref, rtol=1e-5, atol=1e-5)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "strided", "causal"])
+def test_flash_rejects_what_it_cannot_take(cuda, bad):
+    D, dtype, Sq = 16, torch.float32, 32
+    if bad == "head_dim":
+        D = 12
+    elif bad == "dtype":
+        dtype = torch.float16
+    elif bad == "causal":
+        Sq = 48
+    q, k, v, _ = _flash_inputs(cuda, 7, 1, Sq, 32, 2, D, torch.float32)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    if bad == "strided":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises((ValueError, TypeError)):
+        flash_fwd(q, k, v, causal=True)
+    with pytest.raises((ValueError, TypeError)):
+        flash_attention_bshd(q, k, v, causal=True) if bad != "strided" \
+            else flash_dq(q, k, v, q, torch.zeros(1, 2, Sq, device=cuda),
+                          torch.zeros(1, 2, Sq, device=cuda), causal=True)
+
+
+@pytest.mark.parametrize("name", ["gptj-tiny", "llama2-tiny"])
+def test_tiny_model_train_path_matches_reference(cuda, name):
+    """A tiny f32 model's loss and gradients on the card: the flash
+    kernels (one forward launch per layer under "dots", one of each
+    backward kernel) hold 1e-5 against the reference attention path."""
+    import dataclasses
+
+    from ray_tpu_torch.models import lm_loss
+    cfg = get_config(name)
+    params = init_params(cfg, 0, device=cuda)
+    leaves = [t.requires_grad_() for grp in params.values()
+              for t in (grp.values() if isinstance(grp, dict) else [grp])]
+    ids = torch.tensor(np.random.default_rng(9).integers(0, 512, (2, 40)),
+                       device=cuda)
+    runs = {}
+    for impl in ("auto", "reference"):
+        c = dataclasses.replace(cfg, attn_impl=impl, remat=None,
+                                remat_policy="dots")
+        before = [f.kernel_launches for f in (flash_fwd, flash_delta,
+                                              flash_dkdv, flash_dq)]
+        loss, _ = lm_loss(c, params, {"input_ids": ids})
+        grads = torch.autograd.grad(loss, leaves)
+        after = [f.kernel_launches for f in (flash_fwd, flash_delta,
+                                             flash_dkdv, flash_dq)]
+        runs[impl] = (loss, grads, [a - b for a, b in zip(after, before)])
+    assert runs["auto"][2] == [cfg.n_layers] * 4
+    assert runs["reference"][2] == [0] * 4
+    torch.testing.assert_close(runs["auto"][0], runs["reference"][0],
+                               rtol=1e-5, atol=1e-5)
+    for g, r in zip(runs["auto"][1], runs["reference"][1]):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
