@@ -8,9 +8,11 @@ non-zero and prints no result.
 Phases (none catches a failure and carries on):
 
 1. The card: name and power limit as ``nvidia-smi`` gives them.
-2. Build both kernel libraries from ``ray_tpu_torch/csrc`` with nvcc for
-   ``sm_90a``, one nvcc per source, started together; print each build's
-   time and ptxas's register, shared-memory and spill report.
+2. Build the three kernel libraries from ``ray_tpu_torch/csrc`` with
+   nvcc for ``sm_90a``, one nvcc per source, started together; print each
+   build's time and ptxas's register, shared-memory and spill report for
+   every kernel (with the wgmma forward's and the paged kernel's own
+   lines), and fail on a spill in the bf16 forward.
 3. Paged kernel against its plain PyTorch version at the serving path's
    shapes (GPT-J-6B decode and chunked prefill, a GQA shape, an f32
    shape): on the rows the caller keeps (``pos < lens``), the error of
@@ -20,7 +22,9 @@ Phases (none catches a failure and carries on):
    same live K/V, a yardstick the port never calls) from CUDA events over
    a CUDA graph of many launches, beside ``bound_ms``: the larger of the
    bytes the function needs (the K/V of the keys its rows see, q, O) over
-   3.35 TB/s and the attention flops over the dtype's peak.
+   3.35 TB/s and the attention flops over the dtype's peak; each row also
+   carries the achieved share of the bound, GB/s and TFLOP/s, and the
+   kernel's split count and row tile at that shape.
 4. The server at full GPT-J-6B width: ``LLMEngine`` with the README's
    serving knobs (32 slots, 32-token blocks, 1024-token window, 256-token
    prefill chunks) answers 16 seeded requests, 8 of them sharing a
@@ -33,8 +37,9 @@ Phases (none catches a failure and carries on):
    ``paged_impl="kernel"`` and ``"reference"``; relative L2 error of the
    logits.
 6. Where the time goes in serving: ms per decode step and per prefill
-   chunk at the server's shapes on both paths, and one profiler window
-   over decode steps (device time by kind, idle share).
+   chunk at the server's shapes on both paths, and profiler windows over
+   decode steps and over prefill chunks (device busy ms per decode step
+   and per prefill chunk, device time by kind, idle share).
    The serving weights and KV pool are released before the trainer's
    phases.
 7. The four flash kernels (forward, delta, dK/dV, dQ) against their plain
@@ -47,7 +52,8 @@ Phases (none catches a failure and carries on):
    ``bound_ms`` (from the products each kernel does on the causal pairs
    of this run, or for delta the bytes of O and dO) and ``library_ms``
    (SDPA with ``is_causal=True`` for the forward; SDPA's backward, timed
-   as forward+backward minus forward, for the three backward kernels);
+   as forward+backward minus forward, for the three backward kernels),
+   the achieved share of the bound and TFLOP/s (GB/s for delta);
    kernels timed over a CUDA graph of 20 launches, the others with CUDA
    events around calls.
 8. The trainer: ``make_train_step`` at GPT-J-6B width cut to 8 of its 28
@@ -292,8 +298,9 @@ def library_inputs(sh: Shape, q, kc, vc, bt, pos, lens):
 
 
 def phase_kernels(dev):
-    from ray_tpu_torch.ops.paged_flash import (paged_flash_attention,
-                                               paged_flash_attention_plain)
+    from ray_tpu_torch.ops.paged_flash import (
+        default_paged_block_r, paged_flash_attention,
+        paged_flash_attention_plain, paged_row_tile, paged_split_plan)
     results = []
     for idx, sh in enumerate(kernel_shapes()):
         elt = torch.empty((), dtype=sh.dtype).element_size()
@@ -320,13 +327,19 @@ def phase_kernels(dev):
             attn_mask=lib[i % n_sets][3],
             enable_gqa=sh.H != sh.KVH), iters)
         b_ms, b_by, nbytes, flops, keys = bound_ms(sh)
+        tile = paged_row_tile(default_paged_block_r(sh.C * (sh.H // sh.KVH)))
         row = {"shape": sh.name, "dtype": str(sh.dtype).split(".")[-1],
                "B": sh.B, "C": sh.C, "H": sh.H, "KVH": sh.KVH, "D": sh.D,
                "bs": sh.bs, "T": sh.T, "live_pages": sum(pages),
                "keys": keys, "bytes": nbytes, "flops": flops,
                "max_abs_err": err, "max_row_rel_err": row_rel,
                "row_rel_tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
-               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / k_ms,
+               "achieved_gb_s": nbytes / k_ms / 1e6,
+               "achieved_tflop_s": flops / k_ms / 1e9,
+               "splits": paged_split_plan(sh.T * sh.bs)[0],
+               "row_tile": tile}
         results.append(row)
         print("kernel " + json.dumps(row), flush=True)
         del q, kc, vc, bts, lib, got, want
@@ -492,7 +505,7 @@ def phase_e2e(dev, cfg, params, seed: int):
 
 # --------------------------------------------------------------- phase 6
 def _kind(name: str) -> str:
-    if "paged_attention" in name:
+    if "paged_attention" in name or "paged_combine" in name:
         return "paged_attention"
     low = name.lower()
     if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet", "gemv",
@@ -503,12 +516,35 @@ def _kind(name: str) -> str:
     return "other"
 
 
+def _profile_window(fn, n: int):
+    """(wall ms, device ms by kind) of one torch.profiler window over
+    ``n`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind = {}
+    for evt in prof.key_averages():
+        dt = getattr(evt, "self_device_time_total", 0) or 0
+        if dt > 0 and evt.device_type is not None \
+                and "cuda" in str(evt.device_type).lower():
+            k = _kind(evt.key)
+            by_kind[k] = by_kind.get(k, 0.0) + dt / 1e3
+    return wall_ms, by_kind
+
+
 def phase_profile(dev, cfg, params, seed: int):
     """Where the time goes at the server's shapes: ms per decode step
     (32 slots, 64-1000-token contexts) and per 256-token prefill chunk
     (at position 512), kernel path and reference path, from CUDA events;
-    then one torch.profiler window over decode steps of the kernel path:
-    device time by kind and the device's idle share."""
+    then torch.profiler windows over 3 decode steps and over 3 prefill
+    chunks of the kernel path: device busy ms per step and per chunk, time
+    by kind and the device's idle share."""
     from ray_tpu_torch.models import decode_step, init_kv_cache, prefill
     rng = np.random.default_rng(seed + 2)
     B, bs, T = 32, 32, 32
@@ -547,27 +583,21 @@ def phase_profile(dev, cfg, params, seed: int):
                 torch.cuda.synchronize()
                 out[f"{impl}_{key}"] = e0.elapsed_time(e1) / n
             if impl == "kernel":
-                from torch.profiler import ProfilerActivity, profile
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    for _ in range(3):
-                        step()
-                    torch.cuda.synchronize()
-                    wall_ms = (time.perf_counter() - t0) * 1e3
-                by_kind = {}
-                for evt in prof.key_averages():
-                    dt = getattr(evt, "self_device_time_total", 0) or 0
-                    if dt > 0 and evt.device_type is not None \
-                            and "cuda" in str(evt.device_type).lower():
-                        k = _kind(evt.key)
-                        by_kind[k] = by_kind.get(k, 0.0) + dt / 1e3
+                wall_ms, by_kind = _profile_window(step, 3)
                 busy = sum(by_kind.values())
                 out["profile_decode_steps"] = 3
                 out["profile_wall_ms"] = wall_ms
                 out["profile_device_ms_by_kind"] = by_kind
                 out["profile_device_busy_ms"] = busy
+                out["device_busy_ms_per_decode_step"] = busy / 3
+                out["paged_ms_per_decode_step"] = \
+                    by_kind.get("paged_attention", 0.0) / 3
+                _, chunk_kinds = _profile_window(chunk_call, 3)
+                out["profile_prefill_device_ms_by_kind"] = chunk_kinds
+                out["device_busy_ms_per_prefill_chunk"] = \
+                    sum(chunk_kinds.values()) / 3
+                out["paged_ms_per_prefill_chunk"] = \
+                    chunk_kinds.get("paged_attention", 0.0) / 3
                 # the profiler slows the host, so its own window
                 # overstates idle time; the share below sets the device
                 # busy time per step against the unprofiled step time
@@ -583,7 +613,27 @@ def phase_profile(dev, cfg, params, seed: int):
 
 
 # --------------------------------------------------------------- phase 2
-SOURCES = ("paged_attention.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "flash_fwd_sm90.cu", "flash_attention.cu")
+
+
+def ptxas_report(log: str):
+    """(kernel, registers, spill bytes, shared bytes) of each entry in
+    ptxas's ``-v`` report."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out.append([name, None, 0, 0])
+        elif name and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            out[-1][2] = sum(int(words[i - 2]) for i, w in enumerate(words)
+                             if w == "spill")
+        elif name and "registers" in line:
+            words = line.replace(",", " ").split()
+            out[-1][1] = int(words[words.index("registers") - 1])
+            if "smem" in words:
+                out[-1][3] = int(words[words.index("smem") - 2])
+    return out
 
 
 def phase_build():
@@ -596,12 +646,17 @@ def phase_build():
         print(f"build: {source} "
               + (f"built in {log['seconds']:.2f} s" if log
                  else "already built in this checkout"), flush=True)
-        if log:
-            for line in str(log["log"]).splitlines():
-                if "registers" in line or "Compiling entry" in line \
-                        or "spill" in line:
-                    print("ptxas: " + line.strip(), flush=True)
-    print(f"build: both libraries loaded in "
+        if not log:
+            continue
+        for line in str(log["log"]).splitlines():
+            if "warning" in line.lower():
+                print("nvcc: " + line.strip(), flush=True)
+        for name, regs, spill, smem in ptxas_report(str(log["log"])):
+            print(f"ptxas: {source} {name}: {regs} registers, {spill} "
+                  f"bytes spilled, {smem} bytes static smem", flush=True)
+            check(not ("flash_fwd_sm90" in name and spill),
+                  f"ptxas spilled {spill} bytes in {name}")
+    print(f"build: {len(SOURCES)} libraries loaded in "
           f"{time.perf_counter() - t0:.2f} s (wall)", flush=True)
 
 
@@ -638,6 +693,10 @@ def serving_phases(dev, card: str, seed: int):
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        "bound_share": main_shape["bound_share"],
+        "splits": main_shape["splits"],
+        "prefill_ms": shapes[1]["kernel_ms"],
+        "prefill_library_ms": shapes[1]["library_ms"],
         "timed_shape": main_shape["shape"],
         "shapes": shapes,
     }
@@ -671,6 +730,8 @@ def flash_shapes():
     ]
 
 
+# where each wrapper's bf16 kernel lives (the others: flash_attention.cu)
+FLASH_SOURCES = {"flash_fwd": "ray_tpu_torch/csrc/flash_fwd_sm90.cu"}
 FLASH_KERNELS = {
     # wrapper name: the TPU kernel it replaces (file:line of its body)
     "flash_fwd": "ray_tpu/ops/flash_attention.py:59",
@@ -845,12 +906,15 @@ def time_flash(sh, q, k, v, do, o, lse, delta):
         # the kernel over a CUDA graph (delta takes ~20 us, less than its
         # wrapper's host time); the plain versions and SDPA are
         # millisecond-scale or one launch, so events around calls do
-        out[name] = {"kernel_ms": graph_ms(lambda i: kernel(), 20),
+        k_ms = graph_ms(lambda i: kernel(), 20)
+        out[name] = {"kernel_ms": k_ms,
                      "plain_ms": events_ms(plain, 3, warmup=1),
                      "library_ms": lib_fwd if name == "flash_fwd"
                      else lib_bwd,
                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                     "flops": flops}
+                     "flops": flops, "bound_share": b_ms / k_ms,
+                     "achieved_tflop_s": flops / k_ms / 1e9,
+                     "achieved_gb_s": nbytes / k_ms / 1e6}
     out["library_fwd_bwd_ms"] = lib_fwd + lib_bwd
     return out
 
@@ -1031,7 +1095,7 @@ def phase_train_e2e(dev, seed: int):
 
 # -------------------------------------------------------------- phase 10
 def _train_kind(name: str) -> str:
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd" in name:
         return "flash_forward"
     if any(k in name for k in ("flash_delta_kernel", "flash_dkdv_kernel",
                                "flash_dq_kernel")):
@@ -1086,7 +1150,8 @@ def training_phases(dev, card: str, seed: int):
         records.append({
             "name": name,
             "route": "cuda",
-            "source": "ray_tpu_torch/csrc/flash_attention.cu",
+            "source": FLASH_SOURCES.get(
+                name, "ray_tpu_torch/csrc/flash_attention.cu"),
             "replaces": replaces,
             "launches": trainer["launches"][name],
             "max_abs_err": max(r["errors"][name]["max_abs_err"]
@@ -1099,6 +1164,7 @@ def training_phases(dev, card: str, seed: int):
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "bound_share": t["bound_share"],
             "timed_shape": flash[0]["shape"],
         })
     return records

@@ -4,8 +4,9 @@ Each source under ``csrc/`` exposes a plain C interface. It is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/ray_tpu_torch/`` at the repository root, at first use, and
 loaded with :mod:`ctypes`. The library's file name carries a hash of
-the source and the flags, so an edited source builds anew and an
-unchanged one is built once and then reused. Nothing here runs when the
+the source, of the ``csrc/*.cuh`` headers it includes and of the flags,
+so an edited source or header builds anew and an unchanged one is built
+once and then reused. Nothing here runs when the
 module is imported.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -54,11 +56,34 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources_of(src: Path) -> List[Path]:
+    """``src`` and every file it includes with ``#include "..."`` from
+    its own directory, recursively (the shared ``csrc/*.cuh`` headers)."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / name.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
 def _paths(source: str):
+    """The source's path and its library's: the name carries a hash of
+    the source, of every header it includes, and of the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources_of(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return src, BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(src: Path, lib_path: Path) -> Dict[str, object]:
@@ -95,8 +120,8 @@ def build(sources) -> None:
 
 
 def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` once (keyed by a hash of its text and
-    the flags) and return the loaded library."""
+    """Compile ``csrc/<source>`` once (keyed by a hash of its text, its
+    headers and the flags) and return the loaded library."""
     if source not in _loaded:
         build([source])
     with _lock:

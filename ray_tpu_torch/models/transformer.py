@@ -78,9 +78,10 @@ class TransformerConfig:
     # Paged attention (serving): "auto" runs the CUDA kernel on a CUDA
     # tensor and its plain version on the CPU; "kernel" forces the
     # kernel; "reference" the whole-window gather. The two block_r
-    # fields carry the JAX autotuner's result, which the port does not
-    # have: they are accepted and unused (the kernel's wrapper picks
-    # ops.paged_flash.default_paged_block_r).
+    # fields mirror the JAX package's: the kernel's rows per block tile
+    # (decode, and prefill chunks when set), rounded up to 16, 32 or 64;
+    # 0 picks ops.paged_flash.default_paged_block_r. The JAX autotuner
+    # that fills them is not ported.
     paged_impl: str = "auto"
     paged_block_r: int = 0
     paged_block_r_prefill: int = 0
@@ -469,8 +470,12 @@ def _paged_attn_sublayer(c: TransformerConfig, h, lp, sin, cos, layout,
     kc.view(n * bs, c.kv_heads, c.head_dim).index_copy_(0, dst, k_new)
     vc.view(n * bs, c.kv_heads, c.head_dim).index_copy_(0, dst, v_new)
 
+    # a prefill chunk (s > 1) may carry its own row tile, as in the JAX
+    # package; 0 picks ops.paged_flash.default_paged_block_r
+    br = c.paged_block_r_prefill if (s > 1 and c.paged_block_r_prefill) \
+        else c.paged_block_r
     att = paged_attention(q.contiguous(), kc, vc, block_tables, positions,
-                          lens=lens, impl=c.paged_impl)
+                          lens=lens, impl=c.paged_impl, block_r=br or None)
     return att.reshape(b, s, c.n_heads * c.head_dim) @ lp["wo"].to(c.dtype)
 
 

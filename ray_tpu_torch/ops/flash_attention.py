@@ -3,15 +3,19 @@ kernels, with the autograd op the model calls.
 
 Replaces the Pallas TPU kernels of ``ray_tpu/ops/flash_attention.py``
 (``_fwd_kernel``, ``_delta_kernel``, ``_dkdv_kernel``, ``_dq_kernel``)
-with hand-written CUDA kernels in ``csrc/flash_attention.cu``, built for
-Hopper (``sm_90a``) at first use and bound with :mod:`ctypes`.
+with hand-written CUDA kernels, built for Hopper (``sm_90a``) at first
+use and bound with :mod:`ctypes`: the bf16 forward in
+``csrc/flash_fwd_sm90.cu`` (warp-specialised, TMA ring, ``wgmma``), the
+f32 forward and the three backward kernels in ``csrc/flash_attention.cu``
+(``mma.sync``). Each dtype has exactly one forward kernel.
 
 What bounds them on the H100: operations. The forward and the dK/dV and
 dQ passes do 4, 8 and 6 x head_dim flops per (row, key) pair against a
 few bytes per pair, far above the ~295 flop/B at which the bf16 tensor
 cores become the limit, so their products run on the tensor cores
-(``mma.sync``) from tiles staged once in shared memory, and causal tiles
-above the diagonal are skipped. ``delta = rowsum(dO * O)`` is bound by
+(``wgmma`` for the bf16 forward, ``mma.sync`` elsewhere) from tiles
+staged once in shared memory, and causal tiles above the diagonal are
+skipped. ``delta = rowsum(dO * O)`` is bound by
 the bytes of O and dO. See the source for the tiles.
 
 Layout: the kernels read ``(batch, seq, heads, head_dim)`` as the model's
@@ -41,10 +45,13 @@ import torch
 
 _NEG_INF = -1e30
 _SOURCE = "flash_attention.cu"
+_SM90_SOURCE = "flash_fwd_sm90.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
-#: the forward kernel's tile: query rows x keys per step (the backward
-#: kernels use their own fixed tiles, see the source)
+#: the forward kernel's tile: query rows x keys per step, per warp group
+#: of the bf16 kernel (a block holds two of them, 128 rows) and per block
+#: of the f32 kernel (the backward kernels use their own fixed tiles, see
+#: the sources)
 BLOCK_Q = 64
 BLOCK_K = 64
 
@@ -150,6 +157,17 @@ def _library():
     return lib
 
 
+def _sm90_library():
+    from ray_tpu_torch._build import load_library
+    lib = load_library(_SM90_SOURCE)
+    if lib.flash_fwd_sm90.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q k v o lse; B Sq Sk H D; scale causal stream
+        lib.flash_fwd_sm90.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i, p]
+        lib.flash_fwd_sm90.restype = ctypes.c_int
+    return lib
+
+
 def _check_qkv(q, k, v, causal: bool) -> None:
     """Shape rules of every flash function, on any device."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -206,7 +224,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = False, sm_scale: Optional[float] = None):
     """Flash forward: ``q [B, Sq, H, D]``, ``k, v [B, Sk, H, D]`` ->
     ``(O [B, Sq, H, D] in q's dtype, LSE [B, H, Sq] f32)``. A CUDA tensor
-    goes to the kernel; a CPU tensor to :func:`flash_fwd_plain`."""
+    goes to its dtype's kernel (bf16: ``flash_fwd_sm90``; f32: the
+    ``mma.sync`` kernel), and one it cannot take raises; a CPU tensor
+    goes to :func:`flash_fwd_plain`."""
     _check_qkv(q, k, v, causal)
     scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
@@ -215,11 +235,20 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, sq, k.shape[1], h, d, scale, int(causal))
     with torch.cuda.device(dev):
-        err = _library().flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, sq, k.shape[1], h, d, scale, int(causal),
-            _DTYPE_CODES[q.dtype], _stream(dev))
+        if q.dtype == torch.bfloat16:
+            # wgmma, TMA and setmaxnreg exist only on sm_90
+            cap = torch.cuda.get_device_capability(dev)
+            if cap != (9, 0):
+                raise RuntimeError(f"the bf16 flash forward kernel needs an "
+                                   f"sm_90 card (H100/H200), got sm_"
+                                   f"{cap[0]}{cap[1]}")
+            err = _sm90_library().flash_fwd_sm90(*args, _stream(dev))
+        else:
+            err = _library().flash_fwd(*args, _DTYPE_CODES[q.dtype],
+                                       _stream(dev))
     _raise_on(err, "flash_fwd")
     flash_fwd.kernel_launches += 1
     return o, lse

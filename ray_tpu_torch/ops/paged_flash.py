@@ -6,14 +6,17 @@ _paged_kernel`` (launched by that module's ``paged_flash_attention``)
 with the hand-written CUDA kernel in ``csrc/paged_attention.cu``, built
 for Hopper (``sm_90a``) at first use and bound with :mod:`ctypes`.
 
-What bounds it on the H100: bytes. Decode reads every live K/V page once
-per (sequence, kv head) and does about two flops per byte read, far
-below the ~295 flops per byte at which bf16 tensor cores become the
-limit. The kernel therefore reads only live pages (``paged_work_pages``)
-and, within a block, stages each page once in shared memory for all of
-the block's query rows; it also stops at the last page any of its rows
-may see (causal skip for chunked prefill). See the source for the
-layout.
+What bounds it on the H100: bytes at decode, which reads every live K/V
+row once per (sequence, kv head) and does about two flops per byte read,
+far below the ~295 flops per byte at which bf16 tensor cores become the
+limit; the tensor cores at chunked prefill. The kernel reads only live
+pages (``paged_work_pages``) and keys some row of its block may see,
+stages 64-key tiles with ``cp.async`` in a ring of shared-memory stages
+for every row of the block, runs both products on the tensor cores
+(``mma.sync``), and splits each sequence's keys over blocks of
+:data:`PAGED_SPLIT_KEYS` keys (:func:`paged_split_plan`), whose f32
+partials a second kernel merges (:func:`paged_combine_plain` is that
+merge in plain PyTorch). See the source for the layout.
 
 :func:`paged_flash_attention` launches the kernel for a CUDA tensor and
 raises if it cannot; for a CPU tensor it runs
@@ -35,8 +38,16 @@ _NEG_INF = -1e30
 _SOURCE = "paged_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
+#: the wrapper's contract on kv_block_size (the engine's block sizes); the
+#: key-tile kernel itself has no limit of its own
 _MAX_BLOCK_SIZE = 32
-_MAX_BLOCK_R = 32
+_ROW_TILES = (16, 32, 64)
+#: keys one block of the kernel covers: a sequence's keys are split over
+#: ``ceil(T * bs / PAGED_SPLIT_KEYS)`` blocks (a multiple of the kernel's
+#: 64-key tile, at most 256). Smaller splits mean more blocks but more f32
+#: partials to write and merge, which at prefill's many rows cost more
+#: than the parallelism gains beyond a few splits.
+PAGED_SPLIT_KEYS = 256
 
 
 def paged_work_pages(lens, block_size: int):
@@ -48,15 +59,33 @@ def paged_work_pages(lens, block_size: int):
     return max(-(-lens // block_size), 1)
 
 
+def paged_row_tile(block_r: int) -> int:
+    """The kernel's row tile for a ``block_r``: rounded up to the 16-row
+    mma tile, then to 32 or 64 (a block's 4 warps are ``tile / 16`` row
+    tiles x ``64 / tile`` key slices)."""
+    for tile in _ROW_TILES:
+        if 1 <= block_r <= tile:
+            return tile
+    raise ValueError(f"block_r must be in [1, {_ROW_TILES[-1]}], got "
+                     f"{block_r}")
+
+
 def default_paged_block_r(rows: int) -> int:
-    """Query rows per CUDA block on the H100: a warp scores four rows
-    together against a staged page, and up to four row warps share it.
-    Decode has ``rows = H / KVH`` (1 for GPT-J, 4 for 32/8 GQA), so one
-    warp; chunked prefill has ``C * H / KVH`` rows, so 16 rows per block.
-    At D = 256 that keeps the f32 query tile (16 KB) and a staged bf16
-    K/V page pair (2 x 32 x 260 x 2 B, 33 KB) near 50 KB, which leaves
-    room for four blocks per SM."""
-    return min(-(-rows // 4) * 4, 16)
+    """Query rows per CUDA block on the H100, for ``rows = C * H / KVH``
+    rows per (sequence, kv head). Decode has 1 (GPT-J) or 4 (32/8 GQA)
+    rows: one 16-row tile, so the 4 warps take 16 keys each of every
+    staged 64-key tile and every warp loads and computes. Chunked prefill
+    has hundreds: 64-row tiles, so each staged key serves 64 rows (4 row
+    warps), which quarters the K/V re-reads of 16-row tiles."""
+    return paged_row_tile(min(max(rows, 1), _ROW_TILES[-1]))
+
+
+def paged_split_plan(window_keys: int,
+                     split_keys: int = PAGED_SPLIT_KEYS):
+    """``(n_splits, split_keys)`` for a table window of ``window_keys =
+    T * bs`` keys: split ``i`` covers keys ``[i * split_keys, (i + 1) *
+    split_keys)``; a split past a sequence's live keys does nothing."""
+    return max(-(-window_keys // split_keys), 1), split_keys
 
 
 def _library():
@@ -66,8 +95,10 @@ def _library():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, p,          # q k v bt pos lens out
+                       p, p, p,                      # part_o part_lse part_n
                        i, i, i, i, i, i, i, i,       # B C H KVH D bs T N
-                       ctypes.c_float, i, i, p]      # scale block_r dtype stream
+                       ctypes.c_float, i, i, i,      # scale block_r splits keys
+                       i, p]                         # dtype stream
         fn.restype = ctypes.c_int
     return fn
 
@@ -92,9 +123,7 @@ def _check(q, k_cache, v_cache, block_tables, q_positions, lens,
     if bs > _MAX_BLOCK_SIZE:
         raise ValueError(f"paged kernel takes kv_block_size up to "
                          f"{_MAX_BLOCK_SIZE}, got {bs}")
-    if block_r % 4 or not 4 <= block_r <= _MAX_BLOCK_R:
-        raise ValueError(f"block_r must be a multiple of 4 in "
-                         f"[4, {_MAX_BLOCK_R}], got {block_r}")
+    paged_row_tile(block_r)   # raises outside [1, 64]
     if block_tables.shape[0] != b or q_positions.shape != (b, c) \
             or lens.shape != (b,):
         raise ValueError("block_tables [B, T], q_positions [B, C] and "
@@ -147,18 +176,30 @@ def paged_flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
     t = block_tables.shape[1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    rows = c * (h // max(g, 1))
     if not block_r:
-        block_r = default_paged_block_r(c * (h // max(g, 1)))
+        block_r = default_paged_block_r(rows)
     _check(q, k_cache, v_cache, block_tables, q_positions, lens, block_r)
+    tile = paged_row_tile(block_r)
+    n_splits, split_keys = paged_split_plan(t * bs)
     out = torch.empty_like(q)
+    parts = (0, 0, 0)
+    if n_splits > 1:   # f32 partials of each split, merged by a 2nd kernel
+        part_o = torch.empty((n_splits, b, g, rows, d), dtype=torch.float32,
+                             device=q.device)
+        part_lse = torch.empty((n_splits, b, g, rows), dtype=torch.float32,
+                               device=q.device)
+        part_n = torch.empty((b, g, -(-rows // tile)), dtype=torch.int32,
+                             device=q.device)
+        parts = (part_o.data_ptr(), part_lse.data_ptr(), part_n.data_ptr())
     fn = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                  block_tables.data_ptr(), q_positions.data_ptr(),
-                 lens.data_ptr(), out.data_ptr(),
-                 b, c, h, g, d, bs, t, n, float(sm_scale), int(block_r),
-                 _DTYPE_CODES[q.dtype], stream)
+                 lens.data_ptr(), out.data_ptr(), *parts,
+                 b, c, h, g, d, bs, t, n, float(sm_scale), tile, n_splits,
+                 split_keys, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -201,3 +242,79 @@ def paged_flash_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqk,bkgd->bqgrd", p, v)
     return o.reshape(b, c, h, d).to(q.dtype)
+
+
+def paged_split_partials_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               q_positions: torch.Tensor,
+                               lens: torch.Tensor, *,
+                               sm_scale: Optional[float] = None,
+                               split_keys: int = PAGED_SPLIT_KEYS):
+    """Each split's f32 partials, as the kernel's blocks leave them:
+    ``part_o [S, B, C, H, D]`` (that split's softmax-weighted V, already
+    divided by its own denominator) and ``part_lse [S, B, C, H]`` (``m +
+    log l`` over the split's keys; ``-inf`` where the row sees none of
+    them). ``S`` is :func:`paged_split_plan` of the table window."""
+    b, c, h, d = q.shape
+    n, bs, g, _ = k_cache.shape
+    t = block_tables.shape[1]
+    rep = h // g
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    n_splits, split_keys = paged_split_plan(t * bs, split_keys)
+    bt = block_tables.long()
+    k = k_cache[bt].reshape(b, t * bs, g, d).float()
+    v = v_cache[bt].reshape(b, t * bs, g, d).float()
+    key_pos = torch.arange(t * bs, device=q.device)
+    pages = paged_work_pages(lens.long(), bs)
+    live = key_pos[None, :] < (pages * bs)[:, None]
+    mask = (key_pos[None, None, :] <= q_positions.long()[:, :, None]) \
+        & live[:, None, :]
+    qg = q.reshape(b, c, g, rep, d).float()
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k) * sm_scale
+    s = s.masked_fill(~mask[:, None, None], -math.inf)
+    outs, lses = [], []
+    for i in range(n_splits):
+        keys = slice(i * split_keys, (i + 1) * split_keys)
+        si = s[..., keys]
+        m = si.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(si - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bgrqk,bkgd->bqgrd", p, v[:, keys])
+        l_q = l.squeeze(-1).permute(0, 3, 1, 2)[..., None]   # [B, C, G, R, 1]
+        outs.append((o / torch.where(l_q > 0, l_q, torch.ones_like(l_q)))
+                    .reshape(b, c, h, d))
+        lse = torch.where(l > 0, m + torch.log(l),
+                          torch.full_like(l, -math.inf))
+        lses.append(lse.squeeze(-1).permute(0, 3, 1, 2).reshape(b, c, h))
+    return torch.stack(outs), torch.stack(lses)
+
+
+def paged_combine_plain(part_o: torch.Tensor,
+                        part_lse: torch.Tensor) -> torch.Tensor:
+    """Merge split partials (leading axis) into f32 outputs: weights
+    ``exp(lse_s - max_s lse)``, a split with ``lse = -inf`` weighs 0, and
+    a row no split saw is 0 (never NaN). The function the card's merge
+    kernel computes."""
+    top = part_lse.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(part_lse - top)              # exp(-inf) = 0
+    total = w.sum(dim=0)
+    o = (w[..., None] * part_o).sum(dim=0)
+    return o / torch.where(total > 0, total, torch.ones_like(total))[..., None]
+
+
+def paged_flash_attention_split_plain(q, k_cache, v_cache, block_tables,
+                                      q_positions, lens, *,
+                                      sm_scale: Optional[float] = None,
+                                      split_keys: int = PAGED_SPLIT_KEYS
+                                      ) -> torch.Tensor:
+    """:func:`paged_flash_attention_plain` computed as the kernel splits
+    it: per-split partials, then :func:`paged_combine_plain`. Same inputs
+    and output."""
+    part_o, part_lse = paged_split_partials_plain(
+        q, k_cache, v_cache, block_tables, q_positions, lens,
+        sm_scale=sm_scale, split_keys=split_keys)
+    return paged_combine_plain(part_o, part_lse).to(q.dtype)

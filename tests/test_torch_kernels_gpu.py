@@ -1,5 +1,5 @@
-"""The hand-written paged-attention kernel against its plain PyTorch
-version, on the card.
+"""The hand-written kernels (paged attention, the flash forward and
+backward) against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernel is
 built with nvcc at first use); without a card each skips. Run on the
@@ -21,8 +21,9 @@ import torch
 from ray_tpu_torch.models import (decode_step, get_config, init_kv_cache,
                                   init_params, prefill)
 from ray_tpu_torch.ops import paged_attention
-from ray_tpu_torch.ops.paged_flash import (paged_flash_attention,
-                                           paged_flash_attention_plain)
+from ray_tpu_torch.ops.paged_flash import (
+    paged_flash_attention, paged_flash_attention_plain,
+    paged_flash_attention_split_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -66,15 +67,19 @@ def _check(q, kc, vc, bt, pos, lens):
     got = paged_flash_attention(q, kc, vc, bt, pos, lens)
     torch.cuda.synchronize()
     assert paged_flash_attention.kernel_launches == before + 1
-    want = paged_flash_attention_plain(q, kc, vc, bt, pos, lens)
     live = (pos < lens[:, None])                      # rows compared
     assert live.any()
-    g, w = got.float()[live], want.float()[live]           # [R, H, D]
-    assert torch.isfinite(g).all()
-    err = (g - w).abs().amax(-1)
-    scale = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
-    worst = (err / scale).max().item()
-    assert worst <= TOL[q.dtype], worst
+    # the plain version, and the same computed split by split and merged
+    # as the kernel's blocks and merge pass do
+    for plain in (paged_flash_attention_plain,
+                  paged_flash_attention_split_plain):
+        want = plain(q, kc, vc, bt, pos, lens)
+        g, w = got.float()[live], want.float()[live]       # [R, H, D]
+        assert torch.isfinite(g).all()
+        err = (g - w).abs().amax(-1)
+        scale = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+        worst = (err / scale).max().item()
+        assert worst <= TOL[q.dtype], worst
 
 
 _rng = np.random.default_rng(7)
@@ -103,6 +108,19 @@ CASES = {
                                [7, 11, 23], [2, 6, 18]),
     "odd_block_f32_decode": (3, 1, 6, 3, 24, 7, 4, torch.float32,
                              [1, 15, 28], None),
+    # split-K over keys (256 keys a split): a 1024-key window gives 4
+    # splits; lens 0 (the trash page), 1, a split boundary and either
+    # side of it, and a full window
+    "split_decode": (8, 1, 16, 16, 128, 16, 64, torch.bfloat16,
+                     [0, 1, 255, 256, 257, 512, 700, 1024], None),
+    "split_decode_f32": (3, 1, 4, 2, 64, 32, 24, torch.float32,
+                         [0, 256, 700], None),
+    # GQA chunked prefill across two splits, 64-row tiles (384 rows)
+    "split_gqa_prefill": (2, 96, 32, 8, 128, 16, 32, torch.bfloat16,
+                          [200 + 96, 96], [200, 0]),
+    # odd block size: a split boundary falls inside a page
+    "split_odd_block_prefill": (2, 3, 6, 3, 24, 7, 60, torch.float32,
+                                [263, 417], [260, 414]),
 }
 
 
@@ -188,6 +206,34 @@ def test_tiny_model_kernel_path_matches_reference(cuda, name):
                                    rtol=1e-5, atol=1e-5)
 
 
+def test_config_row_tiles_reach_the_kernel(cuda):
+    """``paged_block_r`` (decode) and ``paged_block_r_prefill`` (chunks)
+    pick the kernel's row tile, as in the JAX package; every tile gives
+    the reference path's logits."""
+    rng = np.random.default_rng(4)
+    B, C, bs, T = 2, 8, 4, 8
+    params = init_params(get_config("llama2-tiny"), 0, device=cuda)
+    toks = torch.tensor(rng.integers(1, 512, (B, C)), dtype=torch.int32,
+                        device=cuda)
+    bt = torch.tensor(1 + rng.permutation(B * T).reshape(B, T),
+                      dtype=torch.int32, device=cuda)
+    lens = torch.tensor([8, 5], dtype=torch.int32, device=cuda)
+    outs = {}
+    for impl, br, br_prefill in (("reference", 0, 0), ("kernel", 32, 64),
+                                 ("kernel", 64, 16)):
+        cfg = get_config("llama2-tiny", paged_impl=impl, paged_block_r=br,
+                         paged_block_r_prefill=br_prefill)
+        cache = init_kv_cache(cfg, 1 + B * T, bs, device=cuda)
+        start = torch.zeros(B, dtype=torch.int32, device=cuda)
+        logits, cache = prefill(cfg, params, toks, cache, bt, start, lens)
+        keep = torch.arange(C, device=cuda)[None, :] < lens[:, None]
+        step, _ = decode_step(cfg, params, toks[:, 0], cache, bt, lens)
+        outs[(impl, br)] = (logits[keep], step)
+    for key in (("kernel", 32), ("kernel", 64)):
+        for got, want in zip(outs[key], outs[("reference", 0)]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------ flash attention
 # The four flash kernels against their plain versions. Each (row, head)
 # vector of O, dQ, dK, dV is held on its own: max |got - want| <= TOL x
@@ -217,6 +263,16 @@ FLASH_CASES = {
     "ragged_cross_d256_f32": (1, 50, 131, 2, 256, torch.float32, True),
     "d40_f32": (1, 33, 70, 1, 40, torch.float32, False),
     "d8_bf16": (2, 19, 19, 2, 8, torch.bfloat16, True),
+    # the bf16 forward's 128-row tiles: D in {64, 128, 256} with S not a
+    # multiple of 128, cross-length causal, and more blocks than one wave
+    # of 132 SMs (8 tiles x 9 heads x 2)
+    "sm90_d64_s200_causal_bf16": (1, 200, 200, 2, 64, torch.bfloat16, True),
+    "sm90_d128_s333_bf16": (1, 333, 333, 2, 128, torch.bfloat16, False),
+    "sm90_d256_s129_causal_bf16": (2, 129, 129, 2, 256, torch.bfloat16,
+                                   True),
+    "sm90_cross_d256_bf16": (1, 100, 300, 2, 256, torch.bfloat16, True),
+    "sm90_over_one_wave_bf16": (2, 1024, 1024, 9, 128, torch.bfloat16,
+                                True),
 }
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FLASH_ABS = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
@@ -316,6 +372,17 @@ def test_flash_rejects_what_it_cannot_take(cuda, bad):
         flash_attention_bshd(q, k, v, causal=True) if bad != "strided" \
             else flash_dq(q, k, v, q, torch.zeros(1, 2, Sq, device=cuda),
                           torch.zeros(1, 2, Sq, device=cuda), causal=True)
+
+
+@pytest.mark.parametrize("d", [12, 264])
+def test_flash_fwd_bf16_rejects_what_the_sm90_kernel_cannot_take(cuda, d):
+    """A bf16 head dim the wgmma kernel cannot take raises; nothing
+    falls back to another kernel or to the plain version."""
+    q, k, v, _ = _flash_inputs(cuda, 8, 1, 64, 64, 2, d, torch.bfloat16)
+    before = flash_fwd.kernel_launches
+    with pytest.raises(ValueError):
+        flash_fwd(q, k, v, causal=True)
+    assert flash_fwd.kernel_launches == before
 
 
 @pytest.mark.parametrize("name", ["gptj-tiny", "llama2-tiny"])
