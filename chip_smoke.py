@@ -8,11 +8,12 @@ non-zero and prints no result.
 Phases (none catches a failure and carries on):
 
 1. The card: name and power limit as ``nvidia-smi`` gives them.
-2. Build the three kernel libraries from ``ray_tpu_torch/csrc`` with
+2. Build the four kernel libraries from ``ray_tpu_torch/csrc`` with
    nvcc for ``sm_90a``, one nvcc per source, started together; print each
    build's time and ptxas's register, shared-memory and spill report for
-   every kernel (with the wgmma forward's and the paged kernel's own
-   lines), and fail on a spill in the bf16 forward.
+   every kernel, the dynamic shared memory of the wgmma backward kernels,
+   and fail on a spill in any ``*_sm90*`` kernel (the bf16 forward, dK/dV
+   and dQ).
 3. Paged kernel against its plain PyTorch version at the serving path's
    shapes (GPT-J-6B decode and chunked prefill, a GQA shape, an f32
    shape): on the rows the caller keeps (``pos < lens``), the error of
@@ -52,10 +53,12 @@ Phases (none catches a failure and carries on):
    ``bound_ms`` (from the products each kernel does on the causal pairs
    of this run, or for delta the bytes of O and dO) and ``library_ms``
    (SDPA with ``is_causal=True`` for the forward; SDPA's backward, timed
-   as forward+backward minus forward, for the three backward kernels),
-   the achieved share of the bound and TFLOP/s (GB/s for delta);
-   kernels timed over a CUDA graph of 20 launches, the others with CUDA
-   events around calls.
+   as forward+backward minus forward, the median of 5 windows of 20
+   calls with their minimum and maximum, for the three backward
+   kernels), the achieved share of the bound and TFLOP/s (GB/s for
+   delta), and ``flash_backward_total`` (delta + dK/dV + dQ against
+   14 x D flops a pair and SDPA's backward); kernels timed over a CUDA
+   graph of 20 launches, the others with CUDA events around calls.
 8. The trainer: ``make_train_step`` at GPT-J-6B width cut to 8 of its 28
    layers (f32 masters and AdamW moments for all 28 would not fit 80 GB),
    batch 2 x 2048, remat ``"dots"``, lr 1e-4, fused CE in 512-token
@@ -613,7 +616,8 @@ def phase_profile(dev, cfg, params, seed: int):
 
 
 # --------------------------------------------------------------- phase 2
-SOURCES = ("paged_attention.cu", "flash_fwd_sm90.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
+           "flash_attention.cu")
 
 
 def ptxas_report(log: str):
@@ -654,8 +658,14 @@ def phase_build():
         for name, regs, spill, smem in ptxas_report(str(log["log"])):
             print(f"ptxas: {source} {name}: {regs} registers, {spill} "
                   f"bytes spilled, {smem} bytes static smem", flush=True)
-            check(not ("flash_fwd_sm90" in name and spill),
+            check(not ("_sm90" in name and spill),
                   f"ptxas spilled {spill} bytes in {name}")
+    lib = _build.load_library("flash_bwd_sm90.cu")
+    for kernel, name in enumerate(("flash_dkdv_sm90_kernel",
+                                   "flash_dq_sm90_kernel")):
+        print(f"smem: {name}: " + ", ".join(
+            f"D<={d} {lib.flash_bwd_sm90_smem(kernel, d)} B dynamic"
+            for d in (64, 128, 256)), flush=True)
     print(f"build: {len(SOURCES)} libraries loaded in "
           f"{time.perf_counter() - t0:.2f} s (wall)", flush=True)
 
@@ -731,7 +741,9 @@ def flash_shapes():
 
 
 # where each wrapper's bf16 kernel lives (the others: flash_attention.cu)
-FLASH_SOURCES = {"flash_fwd": "ray_tpu_torch/csrc/flash_fwd_sm90.cu"}
+FLASH_SOURCES = {"flash_fwd": "ray_tpu_torch/csrc/flash_fwd_sm90.cu",
+                 "flash_dkdv": "ray_tpu_torch/csrc/flash_bwd_sm90.cu",
+                 "flash_dq": "ray_tpu_torch/csrc/flash_bwd_sm90.cu"}
 FLASH_KERNELS = {
     # wrapper name: the TPU kernel it replaces (file:line of its body)
     "flash_fwd": "ray_tpu/ops/flash_attention.py:59",
@@ -754,7 +766,9 @@ def flash_bounds(sh: FlashShape):
     """Per kernel: (bound_ms, bound_by, bytes, flops). Bytes: each input
     read once, each output written once. Flops: the products on the
     pairs the rows see (forward 4*D per pair, dK/dV 8*D, dQ 6*D; delta
-    2*D per row)."""
+    2*D per row). ``flash_backward_total`` is the whole backward (delta,
+    dK/dV, dQ): q, k, v, O, dO and the LSE in, dQ, dK, dV out, 14*D flops
+    a pair."""
     elt = torch.empty((), dtype=sh.dtype).element_size()
     qo = sh.B * sh.Sq * sh.H * sh.D * elt
     kv = sh.B * sh.Sk * sh.H * sh.D * elt
@@ -766,6 +780,7 @@ def flash_bounds(sh: FlashShape):
         "flash_dkdv": (2 * qo + 2 * kv + 2 * row + 2 * kv,
                        8 * sh.D * pairs),
         "flash_dq": (2 * qo + 2 * kv + 2 * row + qo, 6 * sh.D * pairs),
+        "flash_backward_total": (4 * qo + 4 * kv + row, 14 * sh.D * pairs),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -897,8 +912,14 @@ def time_flash(sh, q, k, v, do, o, lse, delta):
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=sh.causal)
         torch.autograd.grad(out, (qg, kg, vg), dot)
 
+    # SDPA's backward spreads from window to window: the median of 5
+    # windows of 20 calls, each its forward+backward minus the forward
     lib_fwd = events_ms(sdpa_fwd, 20)
-    lib_bwd = events_ms(sdpa_fwd_bwd, 20) - lib_fwd
+    windows = []
+    for _ in range(5):
+        f = events_ms(sdpa_fwd, 20)
+        windows.append(events_ms(sdpa_fwd_bwd, 20) - f)
+    lib_bwd = float(np.median(windows))
     bounds = flash_bounds(sh)
     out = {}
     for name, (kernel, plain) in calls.items():
@@ -916,6 +937,16 @@ def time_flash(sh, q, k, v, do, o, lse, delta):
                      "achieved_tflop_s": flops / k_ms / 1e9,
                      "achieved_gb_s": nbytes / k_ms / 1e6}
     out["library_fwd_bwd_ms"] = lib_fwd + lib_bwd
+    out["library_bwd_ms_windows"] = {"median": lib_bwd, "min": min(windows),
+                                     "max": max(windows), "all": windows}
+    b_ms, b_by, nbytes, flops = bounds["flash_backward_total"]
+    k_ms = sum(out[n]["kernel_ms"] for n in ("flash_delta", "flash_dkdv",
+                                             "flash_dq"))
+    out["flash_backward_total"] = {
+        "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": nbytes, "flops": flops, "bound_share": b_ms / k_ms,
+        "achieved_tflop_s": flops / k_ms / 1e9, "library_ms": lib_bwd,
+        "ratio_to_library": k_ms / lib_bwd}
     return out
 
 
@@ -1097,8 +1128,8 @@ def phase_train_e2e(dev, seed: int):
 def _train_kind(name: str) -> str:
     if "flash_fwd" in name:
         return "flash_forward"
-    if any(k in name for k in ("flash_delta_kernel", "flash_dkdv_kernel",
-                               "flash_dq_kernel")):
+    if any(k in name for k in ("flash_delta_kernel", "flash_dkdv",
+                               "flash_dq")):
         return "flash_backward"
     return _kind(name)
 

@@ -1,56 +1,42 @@
-// Flash attention forward and its three backward kernels, for Hopper
-// (sm_90a).
+// Flash attention for f32 inputs (forward, dK/dV, dQ) and the delta
+// kernel for both dtypes, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
 //   flash_fwd_kernel   <- _fwd_kernel   (_fwd_pallas)
 //   flash_delta_kernel <- _delta_kernel (_delta_pallas)
 //   flash_dkdv_kernel  <- _dkdv_kernel  (_bwd_pallas, first pallas_call)
 //   flash_dq_kernel    <- _dq_kernel    (_bwd_pallas, second pallas_call)
-// Same contract, with the layout the model's projections produce: q, O, dO
-// are [B, Sq, H, D], k, v, dK, dV are [B, Sk, H, D], all contiguous, in
-// one dtype (bf16 or f32); LSE and delta are [B, H, Sq] f32. Causality is
+// for f32 inputs; bf16 inputs go to the wgmma kernels of flash_fwd_sm90.cu
+// (forward) and flash_bwd_sm90.cu (dK/dV, dQ), and only delta serves both
+// dtypes here. Same contract, with the layout the model's projections
+// produce: q, O, dO are [B, Sq, H, D], k, v, dK, dV are [B, Sk, H, D], all
+// contiguous, in one dtype; LSE and delta are [B, H, Sq] f32. Causality is
 // end-aligned (offset = Sk - Sq >= 0): query row i sees keys <= i + offset.
 // Scores and every accumulator are f32.
 //
-// What bounds them on the H100: operations. At the trainer's shape (B=2,
-// H=16, S=2048, D=256, bf16, causal) the forward does 4*D flops per
-// (row, key) pair the rows see, dK/dV 8*D and dQ 6*D, against the bytes of
-// q, k, v, O and dO read once: an arithmetic intensity of about 1000
-// flop/B, far above the ~295 flop/B at which bf16 tensor cores become the
-// limit. So the products run on the tensor cores (mma.sync m16n8k16, bf16
-// in, f32 accumulate), tiles are staged once in shared memory and reused
-// by every warp of the block, and causal tiles above the diagonal are
-// skipped. delta is the exception: a row reduction of O * dO, bound by
-// the bytes of O and dO, one warp per (token, head) with 16-byte loads.
+// What bounds them on the H100: operations for the forward (4*D flops per
+// (row, key) pair the rows see), dK/dV (8*D) and dQ (6*D), against a few
+// bytes per pair; delta, a row reduction of O * dO, is bound by the bytes
+// of O and dO (one warp per (token, head) with 16-byte loads). The f32
+// products run an exact f32 emulation of mma.sync m16n8k16 (warp shuffles
+// and FMAs; mma_sm80.cuh): slow, and only for tests and f32 callers; tiles
+// are staged once in shared memory and reused by every warp of the block,
+// and causal tiles above the diagonal are skipped.
 //
 // Design. The Pallas grids run their last axis in order on one core and
 // carry accumulators in VMEM across it; CUDA blocks share nothing, so
 // that axis is a loop inside each block:
-// - forward (f32 inputs only; bf16 inputs go to flash_fwd_sm90.cu, the
-//   wgmma and TMA kernel): one block (4 warps) per (q tile of 64 rows,
-//   head, batch);
+// - forward: one block (4 warps) per (q tile of 64 rows, head, batch);
 //   each warp owns 16 rows, loops over the 64-key tiles up to the last one
-//   its tile's last row can see, keeps m, l and O in registers (f32) and
-//   rounds P to the input dtype before P.V, as the TPU kernel does;
+//   its tile's last row can see, keeps m, l and O in registers;
 // - dK/dV: one block (8 warps) per (k tile of 32 keys, head, batch),
 //   looping over 64-row q tiles from the first that sees the k tile; each
 //   pass recomputes S^T and P^T from the LSE and dP^T = V dO^T, writes P^T
 //   and dS^T to shared memory, then every warp accumulates its slice of
-//   dV += P^T dO and dK += dS^T Q in f32 registers; written once, no
-//   atomics;
+//   dV += P^T dO and dK += dS^T Q in registers; written once, no atomics;
 // - dQ: one block (8 warps) per (q tile of 64 rows, head, batch), looping
 //   over 32-key tiles up to the diagonal; dS goes through shared memory
-//   and dQ += dS K accumulates in f32 registers.
-// The TPU backward keeps P and dS in f32 for its products; here they are
-// rounded to bf16 for the tensor cores when the inputs are bf16 (the
-// tolerance of the kernel checks says so). For f32 inputs the same code
-// runs with an exact f32 emulation of the mma (warp shuffles and FMAs):
-// slow, and only for tests and f32 callers.
-// At D = 256 the bf16 backward tiles need about 100-110 KB of dynamic
-// shared memory per block (two blocks per SM). Later work for the
-// backward: wgmma, TMA and cp.async pipelining, warp specialisation.
-// The mma fragment helpers live in mma_sm80.cuh, shared with the paged
-// kernel.
+//   and dQ += dS K accumulates in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -616,26 +602,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // Plain C entry points (loaded with ctypes). dtype: 0 = float32,
 // 1 = bfloat16. Each returns the cudaError_t of its launch (0 = success).
 // The caller has checked: D % 8 == 0, D <= 256, Sk >= Sq when causal, all
-// tensors contiguous, on one device and 16-byte aligned.
-#define RT_DISPATCH(FN, ...)                                              \
-  do {                                                                    \
-    if (dtype == 1) {                                                     \
-      if (D <= 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);           \
-      return FN<__nv_bfloat16, 256>(__VA_ARGS__);                         \
-    }                                                                     \
-    if (dtype == 0) {                                                     \
-      if (D <= 128) return FN<float, 128>(__VA_ARGS__);                   \
-      return FN<float, 256>(__VA_ARGS__);                                 \
-    }                                                                     \
-    return (int)cudaErrorInvalidValue;                                    \
-  } while (0)
-
+// tensors contiguous, on one device and 16-byte aligned. The forward, dK/dV
+// and dQ take f32 only (bf16: flash_fwd_sm90.cu, flash_bwd_sm90.cu), so each
+// dtype has exactly one kernel of each; delta takes both.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int Sq, int Sk, int H, int D,
                          float scale, int causal, int dtype, void* stream) {
   const Shape sh = make_shape(Sq, Sk, H, D, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // f32 only: the bf16 forward is flash_fwd_sm90 (flash_fwd_sm90.cu)
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   if (D <= 128) return launch_fwd<float, 128>(q, k, v, o, lse, B, sh, s);
   return launch_fwd<float, 256>(q, k, v, o, lse, B, sh, s);
@@ -655,7 +629,10 @@ extern "C" int flash_dkdv(const void* q, const void* k, const void* v,
                           float scale, int causal, int dtype, void* stream) {
   const Shape sh = make_shape(Sq, Sk, H, D, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_DISPATCH(launch_dkdv, q, k, v, dout, lse, delta, dk, dv, B, sh, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (D <= 128)
+    return launch_dkdv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, sh, s);
+  return launch_dkdv<float, 256>(q, k, v, dout, lse, delta, dk, dv, B, sh, s);
 }
 
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
@@ -664,5 +641,7 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         int causal, int dtype, void* stream) {
   const Shape sh = make_shape(Sq, Sk, H, D, scale, causal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RT_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, B, sh, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (D <= 128) return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, sh, s);
+  return launch_dq<float, 256>(q, k, v, dout, lse, delta, dq, B, sh, s);
 }

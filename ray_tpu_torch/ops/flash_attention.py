@@ -4,19 +4,21 @@ kernels, with the autograd op the model calls.
 Replaces the Pallas TPU kernels of ``ray_tpu/ops/flash_attention.py``
 (``_fwd_kernel``, ``_delta_kernel``, ``_dkdv_kernel``, ``_dq_kernel``)
 with hand-written CUDA kernels, built for Hopper (``sm_90a``) at first
-use and bound with :mod:`ctypes`: the bf16 forward in
-``csrc/flash_fwd_sm90.cu`` (warp-specialised, TMA ring, ``wgmma``), the
-f32 forward and the three backward kernels in ``csrc/flash_attention.cu``
-(``mma.sync``). Each dtype has exactly one forward kernel.
+use and bound with :mod:`ctypes`. bf16 goes to the warp-specialised
+``wgmma`` kernels (a TMA producer warp feeding a shared-memory ring,
+consumer warpgroups on the tensor cores): the forward in
+``csrc/flash_fwd_sm90.cu``, dK/dV and dQ in ``csrc/flash_bwd_sm90.cu``.
+f32 goes to the ``mma.sync`` kernels of ``csrc/flash_attention.cu``
+(an exact f32 emulation), and delta runs there for both dtypes. Each
+dtype has exactly one kernel of each kind.
 
 What bounds them on the H100: operations. The forward and the dK/dV and
 dQ passes do 4, 8 and 6 x head_dim flops per (row, key) pair against a
 few bytes per pair, far above the ~295 flop/B at which the bf16 tensor
-cores become the limit, so their products run on the tensor cores
-(``wgmma`` for the bf16 forward, ``mma.sync`` elsewhere) from tiles
-staged once in shared memory, and causal tiles above the diagonal are
-skipped. ``delta = rowsum(dO * O)`` is bound by
-the bytes of O and dO. See the source for the tiles.
+cores become the limit, so their products run on the tensor cores from
+tiles staged in shared memory, and causal tiles above the diagonal are
+skipped. ``delta = rowsum(dO * O)`` is bound by the bytes of O and dO.
+See the sources for the tiles.
 
 Layout: the kernels read ``(batch, seq, heads, head_dim)`` as the model's
 projections produce it, and write LSE and delta as ``[B, H, Sq]`` f32.
@@ -24,9 +26,9 @@ Causality is end-aligned (query i sees keys ``<= i + sk - sq``); a causal
 call with ``sq > sk`` would leave rows with no visible key and is
 rejected. Each wrapper (:func:`flash_fwd`, :func:`flash_delta`,
 :func:`flash_dkdv`, :func:`flash_dq`) launches its kernel for a CUDA
-tensor and raises if it cannot, runs its plain PyTorch version
-(``*_plain``) for a CPU tensor, and counts launches in
-``<wrapper>.kernel_launches``.
+tensor and raises if it cannot (a bf16 call on a card other than sm_90
+included), runs its plain PyTorch version (``*_plain``) for a CPU
+tensor, and counts launches in ``<wrapper>.kernel_launches``.
 
 The forward is registered as the custom op
 ``ray_tpu_torch::flash_attention_fwd`` with its backward (delta, dK/dV,
@@ -46,6 +48,7 @@ import torch
 _NEG_INF = -1e30
 _SOURCE = "flash_attention.cu"
 _SM90_SOURCE = "flash_fwd_sm90.cu"
+_SM90_BWD_SOURCE = "flash_bwd_sm90.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
 #: the forward kernel's tile: query rows x keys per step, per warp group
@@ -168,6 +171,32 @@ def _sm90_library():
     return lib
 
 
+def _sm90_bwd_library():
+    from ray_tpu_torch._build import load_library
+    lib = load_library(_SM90_BWD_SOURCE)
+    if lib.flash_dkdv_sm90.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q k v do lse delta, outputs; B Sq Sk H D; scale causal stream
+        lib.flash_dkdv_sm90.argtypes = [p, p, p, p, p, p, p, p,
+                                        i, i, i, i, i, f, i, p]
+        lib.flash_dq_sm90.argtypes = [p, p, p, p, p, p, p,
+                                      i, i, i, i, i, f, i, p]
+        lib.flash_bwd_sm90_smem.argtypes = [i, i]
+        for fn in (lib.flash_dkdv_sm90, lib.flash_dq_sm90,
+                   lib.flash_bwd_sm90_smem):
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _require_sm90(dev: torch.device, name: str) -> None:
+    """The bf16 kernels use wgmma, TMA and setmaxnreg, which exist only on
+    sm_90 (H100/H200): raise on any other card."""
+    cap = torch.cuda.get_device_capability(dev)
+    if cap != (9, 0):
+        raise RuntimeError(f"the bf16 {name} kernel needs an sm_90 card "
+                           f"(H100/H200), got sm_{cap[0]}{cap[1]}")
+
+
 def _check_qkv(q, k, v, causal: bool) -> None:
     """Shape rules of every flash function, on any device."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -239,12 +268,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lse.data_ptr(), b, sq, k.shape[1], h, d, scale, int(causal))
     with torch.cuda.device(dev):
         if q.dtype == torch.bfloat16:
-            # wgmma, TMA and setmaxnreg exist only on sm_90
-            cap = torch.cuda.get_device_capability(dev)
-            if cap != (9, 0):
-                raise RuntimeError(f"the bf16 flash forward kernel needs an "
-                                   f"sm_90 card (H100/H200), got sm_"
-                                   f"{cap[0]}{cap[1]}")
+            _require_sm90(dev, "flash forward")
             err = _sm90_library().flash_fwd_sm90(*args, _stream(dev))
         else:
             err = _library().flash_fwd(*args, _DTYPE_CODES[q.dtype],
@@ -296,8 +320,9 @@ def _check_bwd(q, k, v, do, lse, delta, causal: bool) -> None:
 def flash_dkdv(q, k, v, do, lse, delta, *, causal: bool = False,
                sm_scale: Optional[float] = None):
     """dK and dV (``[B, Sk, H, D]`` in k's and v's dtypes) from the saved
-    LSE and delta. A CUDA tensor goes to the kernel; a CPU tensor to
-    :func:`flash_dkdv_plain`."""
+    LSE and delta. A CUDA tensor goes to its dtype's kernel (bf16:
+    ``flash_dkdv_sm90``; f32: the ``mma.sync`` kernel), and one it cannot
+    take raises; a CPU tensor goes to :func:`flash_dkdv_plain`."""
     _check_bwd(q, k, v, do, lse, delta, causal)
     scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
@@ -308,12 +333,16 @@ def flash_dkdv(q, k, v, do, lse, delta, *, causal: bool = False,
         ("delta", delta)))
     b, sq, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(dev):
-        err = _library().flash_dkdv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, sq, k.shape[1], h, d, scale, int(causal),
-            _DTYPE_CODES[q.dtype], _stream(dev))
+            b, sq, k.shape[1], h, d, scale, int(causal))
+    with torch.cuda.device(dev):
+        if q.dtype == torch.bfloat16:
+            _require_sm90(dev, "flash dK/dV")
+            err = _sm90_bwd_library().flash_dkdv_sm90(*args, _stream(dev))
+        else:
+            err = _library().flash_dkdv(*args, _DTYPE_CODES[q.dtype],
+                                        _stream(dev))
     _raise_on(err, "flash_dkdv")
     flash_dkdv.kernel_launches += 1
     return dk, dv
@@ -325,8 +354,9 @@ flash_dkdv.kernel_launches = 0
 def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
              sm_scale: Optional[float] = None) -> torch.Tensor:
     """dQ (``[B, Sq, H, D]`` in q's dtype) from the saved LSE and delta.
-    A CUDA tensor goes to the kernel; a CPU tensor to
-    :func:`flash_dq_plain`."""
+    A CUDA tensor goes to its dtype's kernel (bf16: ``flash_dq_sm90``;
+    f32: the ``mma.sync`` kernel), and one it cannot take raises; a CPU
+    tensor goes to :func:`flash_dq_plain`."""
     _check_bwd(q, k, v, do, lse, delta, causal)
     scale = _scale(q, sm_scale)
     if q.device.type == "cpu":
@@ -337,12 +367,16 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = False,
         ("delta", delta)))
     b, sq, h, d = q.shape
     dq = torch.empty_like(q)
-    with torch.cuda.device(dev):
-        err = _library().flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, sq, k.shape[1], h, d, scale, int(causal),
-            _DTYPE_CODES[q.dtype], _stream(dev))
+            b, sq, k.shape[1], h, d, scale, int(causal))
+    with torch.cuda.device(dev):
+        if q.dtype == torch.bfloat16:
+            _require_sm90(dev, "flash dQ")
+            err = _sm90_bwd_library().flash_dq_sm90(*args, _stream(dev))
+        else:
+            err = _library().flash_dq(*args, _DTYPE_CODES[q.dtype],
+                                      _stream(dev))
     _raise_on(err, "flash_dq")
     flash_dq.kernel_launches += 1
     return dq

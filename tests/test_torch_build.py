@@ -42,9 +42,29 @@ def test_flags_change_the_library(csrc, monkeypatch):
     assert _build._paths("kernel.cu")[1] != before
 
 
-def test_the_ports_sources_hash_their_shared_header():
-    for source in ("paged_attention.cu", "flash_attention.cu"):
-        names = [p.name for p in _build._sources_of(_build.CSRC / source)]
-        assert names[0] == source and "mma_sm80.cuh" in names
-    assert [p.name for p in _build._sources_of(
-        _build.CSRC / "flash_fwd_sm90.cu")] == ["flash_fwd_sm90.cu"]
+@pytest.mark.parametrize("source,headers", [
+    ("paged_attention.cu", ["mma_sm80.cuh"]),
+    ("flash_attention.cu", ["mma_sm80.cuh"]),
+    ("flash_fwd_sm90.cu", ["sm90.cuh"]),
+    ("flash_bwd_sm90.cu", ["sm90.cuh"]),
+])
+def test_the_ports_sources_hash_their_shared_header(source, headers):
+    names = [p.name for p in _build._sources_of(_build.CSRC / source)]
+    assert names == [source] + headers
+
+
+def test_editing_the_sm90_header_rebuilds_both_wgmma_libraries(
+        tmp_path, monkeypatch):
+    """The forward and the backward share ``sm90.cuh``: an edit there
+    gives both a new library, and leaves the mma.sync sources alone."""
+    for path in _build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    sources = ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
+               "flash_attention.cu", "paged_attention.cu")
+    before = {s: _build._paths(s)[1] for s in sources}
+    header = tmp_path / "sm90.cuh"
+    header.write_text(header.read_text() + "// edit\n")
+    after = {s: _build._paths(s)[1] for s in sources}
+    assert [after[s] != before[s] for s in sources] == [True, True, False,
+                                                         False]

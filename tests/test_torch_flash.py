@@ -116,6 +116,37 @@ def test_backward_matches_jax_pallas_kernels():
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("causal,sq,sk", [(False, 128, 128), (True, 64, 192)])
+def test_bf16_backward_on_cpu_runs_plain_with_zero_launches(causal, sq, sk):
+    """bf16 tensors on the CPU: :func:`flash_dkdv` and :func:`flash_dq`
+    run their plain versions (no launch; on the card bf16 goes to the
+    sm_90 kernels) and return bf16 gradients that match JAX's backward on
+    the same bf16-rounded values up to the rounding of the outputs to
+    bf16 (2^-9 relative; held at 1e-2 of each tensor's largest entry)."""
+    bf = [torch.tensor(np.swapaxes(a, 1, 2)).to(torch.bfloat16)
+          for a in _inputs(10, sq, sk)]              # [B, S, H, D]
+    q32, k32, v32, do32 = (x.float() for x in bf)
+    o, lse = flash_fwd(q32, k32, v32, causal=causal)
+    delta = flash_delta(o, do32)
+    before = _launches()
+    dk, dv = flash_dkdv(*bf, lse, delta, causal=causal)
+    dq = flash_dq(*bf, lse, delta, causal=causal)
+    assert _launches() == before
+    assert [g.dtype for g in (dq, dk, dv)] == [torch.bfloat16] * 3
+
+    def f(q, k, v):
+        return jax_flash(q, k, v, causal=causal, block_q=64, block_k=64,
+                         interpret=True, backward="xla")
+    _, vjp = jax.vjp(f, *(np.swapaxes(x.numpy(), 1, 2)
+                          for x in (q32, k32, v32)))
+    jgrads = vjp(jnp.asarray(np.swapaxes(do32.numpy(), 1, 2)))
+    for name, g, jg in zip(("dq", "dk", "dv"), (dq, dk, dv), jgrads):
+        want = np.swapaxes(np.asarray(jg), 1, 2)
+        np.testing.assert_allclose(g.float().numpy(), want, rtol=1e-2,
+                                   atol=1e-2 * np.abs(want).max(),
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_cpu_dispatch_runs_plain_with_zero_launches(causal):
     """``multihead_attention(impl="auto")`` on a CPU tensor goes through

@@ -1,5 +1,6 @@
 """The hand-written kernels (paged attention, the flash forward and
-backward) against their plain PyTorch versions, on the card.
+backward, bf16 on the wgmma kernels and f32 on the mma.sync ones)
+against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and the CUDA toolkit (the kernel is
 built with nvcc at first use); without a card each skips. Run on the
@@ -273,6 +274,24 @@ FLASH_CASES = {
     "sm90_cross_d256_bf16": (1, 100, 300, 2, 256, torch.bfloat16, True),
     "sm90_over_one_wave_bf16": (2, 1024, 1024, 9, 128, torch.bfloat16,
                                 True),
+    # the bf16 backward's tiles (dK/dV: 64 keys a block, 64-row q tiles;
+    # dQ: 128 rows a block, 32-key tiles): D in {64, 128, 256} with S not
+    # a multiple of 64, cross-length causal and non-causal at D = 256,
+    # Sq < 64, head dims that TMA pads, and more blocks than one wave of
+    # 132 SMs with causal tiles (16 key tiles x 9 heads x 2)
+    "sm90_bwd_d64_s100_causal_bf16": (2, 100, 100, 2, 64, torch.bfloat16,
+                                      True),
+    "sm90_bwd_d128_s190_bf16": (1, 190, 190, 3, 128, torch.bfloat16, False),
+    "sm90_bwd_d256_s161_causal_bf16": (1, 161, 161, 2, 256, torch.bfloat16,
+                                       True),
+    "sm90_bwd_cross_d256_bf16": (2, 77, 205, 2, 256, torch.bfloat16, True),
+    "sm90_bwd_noncausal_d256_bf16": (1, 300, 200, 2, 256, torch.bfloat16,
+                                     False),
+    "sm90_bwd_sq40_d256_bf16": (2, 40, 100, 2, 256, torch.bfloat16, True),
+    "sm90_bwd_d8_bf16": (1, 70, 70, 2, 8, torch.bfloat16, False),
+    "sm90_bwd_d40_causal_bf16": (2, 90, 150, 2, 40, torch.bfloat16, True),
+    "sm90_bwd_over_one_wave_bf16": (2, 1024, 1024, 9, 256, torch.bfloat16,
+                                    True),
 }
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FLASH_ABS = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
@@ -383,6 +402,21 @@ def test_flash_fwd_bf16_rejects_what_the_sm90_kernel_cannot_take(cuda, d):
     with pytest.raises(ValueError):
         flash_fwd(q, k, v, causal=True)
     assert flash_fwd.kernel_launches == before
+
+
+@pytest.mark.parametrize("d", [12, 264])
+def test_flash_bwd_bf16_rejects_what_the_sm90_kernels_cannot_take(cuda, d):
+    """A bf16 head dim the wgmma dK/dV and dQ kernels cannot take raises;
+    nothing falls back to another kernel or to the plain version."""
+    q, k, v, do = _flash_inputs(cuda, 10, 1, 64, 64, 2, d, torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    delta = torch.zeros(1, 2, 64, device=cuda)
+    before = [flash_dkdv.kernel_launches, flash_dq.kernel_launches]
+    with pytest.raises(ValueError):
+        flash_dkdv(q, k, v, do, lse, delta, causal=True)
+    with pytest.raises(ValueError):
+        flash_dq(q, k, v, do, lse, delta, causal=True)
+    assert [flash_dkdv.kernel_launches, flash_dq.kernel_launches] == before
 
 
 @pytest.mark.parametrize("name", ["gptj-tiny", "llama2-tiny"])
