@@ -15,7 +15,8 @@ Phases (none catches a failure and carries on):
    and fail on a spill in any ``*_sm90*`` kernel (the bf16 forward, dK/dV
    and dQ).
 3. Paged kernel against its plain PyTorch version at the serving path's
-   shapes (GPT-J-6B decode and chunked prefill, a GQA shape, an f32
+   shapes (GPT-J-6B decode, chunked prefill and the speculative verify of
+   32 slots x 5 rows with 0-4 drafts a slot, a GQA shape, an f32
    shape): on the rows the caller keeps (``pos < lens``), the error of
    each (row, head) output vector held to a tolerance relative to that
    vector's own largest element, and ``kernel_ms`` / ``plain_ms`` /
@@ -41,7 +42,41 @@ Phases (none catches a failure and carries on):
    chunk at the server's shapes on both paths, and profiler windows over
    decode steps and over prefill chunks (device busy ms per decode step
    and per prefill chunk, device time by kind, idle share).
-   The serving weights and KV pool are released before the trainer's
+6a. Speculative serving: one profiler window over 3 decode steps and one
+   over 3 verify calls (``prefill`` at 32 x 5) at the server's shapes
+   (device busy per step each); then 16 seeded prompts of 64-700 tokens
+   that repeat a 16-48-token segment with ~5% of it replaced, 48 new
+   tokens each, through an engine with phase 4's knobs and
+   ``spec_tokens=4`` and through a spec-off engine with the same
+   weights: tokens/s, TTFT p50/p99, ms per decode (verify) step, drafted
+   and accepted tokens, tokens per step. Streams reach their length,
+   pools audit clean, drafts were made, paged launches = 28 x (prefill
+   chunks + decode steps), and each spec-on stream equals its spec-off
+   stream or first leaves it at a near tie (the verify's matmuls have
+   5x the rows and may round otherwise): a replay of the spec-off step
+   picks the spec-off token, the spec-on token scores within 1% of the
+   top logit's magnitude there, and the request served alone through a
+   speculative engine picks the spec-on token again; each divergence
+   printed.
+6b. Log-probabilities and weight staging: ``capture_logprobs=True`` with
+   ``detailed`` streams over the same prompts; tokens equal the spec-off
+   run's, logprobs finite and <= 0, each first token's logprob within
+   2e-2 of a log-softmax of direct ``prefill`` logits; mid-run,
+   ``stage_weights(version=1)`` of the tree with its LM head doubled,
+   written on a side stream behind a device sleep: every later token is
+   stamped 1, its logprob is that of the doubled logits (so the staged
+   tree is the one used, and only after the side stream's writes), one
+   swap, no sync stall.
+6c. KV hand-off: ``prefill_export`` on one engine, ``submit_adopt`` on
+   another sharing the weights, for the 4 longest prompts on the bf16
+   and the int8 wire: bf16 streams equal the colocated ones and
+   ``wire_bytes == kv_ship_bytes``; int8 first tokens exact and each
+   quant block's round-trip error within scale/2; export and adopt ms
+   and bytes per hand-off.
+6d. Tracing: every request sampled on an ``enable_trace=True`` engine;
+   each waterfall has QUEUED, ADMITTED, PREFILL, FIRST_TOKEN, DECODE and
+   DONE; tokens/s with tracing on against the spec-off (tracing off) run.
+   The serving weights and KV pools are released before the trainer's
    phases.
 7. The four flash kernels (forward, delta, dK/dV, dQ) against their plain
    versions at GPT-J-6B's training shape (B=2, H=16, S=2048, D=256, bf16,
@@ -78,8 +113,10 @@ Phases (none catches a failure and carries on):
     by kind (flash forward, flash backward, matmul, other) and the idle
     share.
 
-The second-to-last line is the ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``.
+Before them the script's total wall is printed. The second-to-last line
+is the ``{"kernels": [...]}`` record (the paged kernel's carries the
+verify shape's ``verify_*`` fields); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -197,11 +234,31 @@ class Shape:
     starts: list        # first row position per sequence
 
 
+def verify_starts(lens, drafts):
+    """First row position of each slot of a speculative verify call: a
+    slot with ``lens`` live tokens after the call's writes and ``d``
+    drafts (cut to ``lens - 1``) has rows ``lens - 1 - d .. lens - 1``
+    kept and the rest of its ``C`` rows padded; an idle slot (``lens`` 0)
+    sits at position 0 with every row padded."""
+    return [max(n - 1 - min(d, n - 1), 0) for n, d in zip(lens, drafts)]
+
+
+def verify_shape(rng, lens, spec_tokens: int = 4):
+    """GPT-J-6B's speculative verify at the serving knobs: 32 slots x
+    ``spec_tokens + 1`` rows, each slot a random draft length of 0 to
+    ``spec_tokens``, so that some rows are padded."""
+    drafts = rng.integers(0, spec_tokens + 1, len(lens)).tolist()
+    return Shape("gptj6b_verify", len(lens), spec_tokens + 1, 16, 16, 256,
+                 32, 32, torch.bfloat16, list(lens),
+                 verify_starts(lens, drafts))
+
+
 def kernel_shapes():
     rng = np.random.default_rng(0)
     decode_lens = [0, 1, 1024, 31, 32, 33] + \
         rng.integers(1, 1025, 26).tolist()
     gqa_lens = rng.integers(1, 1025, 32).tolist()
+    verify = verify_shape(np.random.default_rng(1), decode_lens)
     return [
         # GPT-J-6B decode at the serving knobs: 32 slots, 32-token
         # blocks, 1024-token window, mixed lengths incl. 0 and full
@@ -218,6 +275,8 @@ def kernel_shapes():
         Shape("f32_d256_decode", 8, 1, 16, 16, 256, 32, 32, torch.float32,
               [1, 100, 1024, 512, 33, 700, 64, 999],
               [0, 99, 1023, 511, 32, 699, 63, 998]),
+        # the speculative verify: decode's lens, 5 rows a slot
+        verify,
     ]
 
 
@@ -231,9 +290,10 @@ def bound_ms(sh: Shape):
     """Least time for the work this call's data needs: K and V of each key
     a kept row sees (``min(lens, T * bs)`` per sequence, every kv head)
     read once, q read once, O written once, the table and positions read
-    once; flops = 4 * D per (row, key) pair the rows see (QK^T and P.V),
-    for every query head. The kernel itself reads whole live pages
-    (``live_pages``), a few percent more K/V than this."""
+    once; flops = 4 * D per (row, key) pair the kept rows (``pos <
+    lens``) see (QK^T and P.V), for every query head. The kernel itself
+    reads whole live pages (``live_pages``), a few percent more K/V than
+    this, and computes the padded rows too."""
     elt = torch.empty((), dtype=sh.dtype).element_size()
     keys = sum(min(max(n, 0), sh.T * sh.bs) for n in sh.lens)
     kv = 2 * keys * sh.KVH * sh.D * elt
@@ -244,7 +304,8 @@ def bound_ms(sh: Shape):
     for b in range(sh.B):
         for c in range(sh.C):
             p = sh.starts[b] + c
-            pairs += min(p + 1, max(sh.lens[b], 0)) if p >= 0 else 0
+            if 0 <= p < sh.lens[b]:
+                pairs += p + 1
     flops = 4 * sh.D * pairs * sh.H
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[sh.dtype] * 1e3
@@ -615,6 +676,578 @@ def phase_profile(dev, cfg, params, seed: int):
     return out
 
 
+# ------------------------------------------------------ phases 6a - 6d
+SPEC_TOKENS = 4
+SPEC_NEW = 48
+NEAR_TIE_SHARE = 1e-2           # spec-on token within 1% of the top logit
+LOGPROB_ABS_TOL = 2e-2
+STAGED_CHECKS = 4               # streams whose first staged token is held
+STAGE_SLEEP_CYCLES = 100_000_000   # about 50 ms of the staging stream
+HANDOFF_PROMPTS = 4
+# int8 round trip: |x - q * scale| <= scale / 2, plus the f32 rounding of
+# x / scale and of q * scale (each at most 127 * scale * 2^-24)
+INT8_ROUND_TRIP = 1 + 2 ** -14
+WATERFALL = ("QUEUED", "ADMITTED", "PREFILL", "FIRST_TOKEN", "DECODE",
+             "DONE")
+
+
+def serving_knobs(**kw):
+    """Phase 4's engine knobs, with ``kw`` on top."""
+    from ray_tpu_torch.serve import EngineConfig
+    return EngineConfig(**dict(dict(
+        decode_slots=32, kv_block_size=32, max_seq_len=1024,
+        prefill_chunk=256, max_new_tokens=SPEC_NEW), **kw))
+
+
+def make_spec_requests(seed: int, vocab: int, n: int = 16):
+    """``n`` prompts of 64-700 tokens, each a seeded 16-48-token segment
+    repeated, with about 5% of its tokens replaced: text that prompt
+    lookup serves (code edits, answers quoting a retrieved document)."""
+    rng = np.random.default_rng(seed + 7)
+    prompts = []
+    for _ in range(n):
+        seg = rng.integers(1, vocab, int(rng.integers(16, 49)))
+        length = int(rng.integers(64, 701))
+        p = np.resize(seg, length)
+        swap = rng.random(length) < 0.05
+        p[swap] = rng.integers(1, vocab, int(swap.sum()))
+        prompts.append(p.tolist())
+    return prompts
+
+
+def first_divergence(a, b):
+    """Index of the first token where two streams differ, None if one is
+    a prefix of the other."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None
+
+
+def near_tie(off_row, spec_on: int, spec_off: int, on_pick: int):
+    """Whether a stream that emits ``spec_on`` with speculation and
+    ``spec_off`` without it flipped at a near tie, not at a fault. All
+    three must hold: the spec-off step's logits ``off_row`` (replayed at
+    its own shapes) pick ``spec_off``; ``spec_on`` scores within
+    ``NEAR_TIE_SHARE`` of the top logit's magnitude below it there; and
+    the spec-on path replayed (the request alone through a speculative
+    engine, so at the verify shape) picks ``spec_on`` (``on_pick``).
+    Returns the verdict with its numbers."""
+    row = off_row.float()
+    top2 = torch.topk(row, 2).values
+    top = top2[0].item()
+    pick = int(torch.argmax(off_row))
+    gap = top - row[spec_on].item()
+    return {"top_logit": top, "top2_gap": (top2[0] - top2[1]).item(),
+            "spec_on_gap": gap, "replay_off_pick": pick,
+            "replay_on_pick": on_pick,
+            "near_tie": pick == spec_off and on_pick == spec_on
+            and gap < NEAR_TIE_SHARE * abs(top)}
+
+
+def handoff_bytes(plen: int, wire: str, cfg, block_size: int = 32) -> int:
+    """Wire bytes of one hand-off of a ``plen``-token prompt."""
+    from ray_tpu_torch.serve import kv_ship_bytes
+    elt = torch.empty((), dtype=cfg.dtype).element_size()
+    return kv_ship_bytes(-(-plen // block_size), block_size, cfg.kv_heads,
+                         cfg.head_dim, cfg.n_layers, wire, dtype_bytes=elt)
+
+
+def serve_threads(engine, prompts, max_new: int, ctxs=None, on_token=None,
+                  detailed: bool = False, timeout_s: float = 600.0):
+    """Every prompt through ``generate_sync`` on its own thread, all
+    started together; ``on_token(engine, i, n)`` after request ``i``'s
+    ``n``-th item. Returns (streams, TTFT s of each, wall s)."""
+    import threading
+    streams = [[] for _ in prompts]
+    ttft = [None] * len(prompts)
+    errors = []
+
+    def client(i):
+        try:
+            t0 = time.perf_counter()
+            for item in engine.generate_sync(
+                    prompts[i], max_new, detailed=detailed,
+                    trace_ctx=ctxs[i] if ctxs else None,
+                    timeout_s=timeout_s):
+                if ttft[i] is None:
+                    ttft[i] = time.perf_counter() - t0
+                streams[i].append(item)
+                if on_token is not None:
+                    on_token(engine, i, len(streams[i]))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client never ended")
+    if errors:
+        raise errors[0]
+    return streams, ttft, wall
+
+
+def served(engine, cfg, prompts, max_new, streams, ttft, wall, launches,
+           name):
+    """The run's numbers and its checks: every stream at its length, a
+    clean pool, and 28 paged launches per prefill chunk and decode (or
+    verify) step."""
+    s = wait_idle(engine)
+    audit = engine.pool_audit()
+    check(all(len(t) == max_new for t in streams),
+          f"{name}: stream lengths {[len(t) for t in streams]}")
+    check(audit == [], f"{name}: pool audit after drain: {audit}")
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    check(launches > 0 and launches == cfg.n_layers * calls,
+          f"{name}: paged launches {launches} != {cfg.n_layers} x {calls}")
+    tokens = sum(len(t) for t in streams)
+    slot_steps = sum(k * v for k, v in s["occupancy_hist"].items())
+    tt = np.asarray(ttft, dtype=float)
+    out = {"requests": len(prompts),
+           "prompt_tokens": sum(len(p) for p in prompts),
+           "generated_tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "ttft_p50_s": float(np.percentile(tt, 50)),
+           "ttft_p99_s": float(np.percentile(tt, 99)),
+           "prefill_chunks": s["prefill_chunks"],
+           "decode_steps": s["decode_steps"],
+           "decode_ms_per_step": 1e3 * s["decode_wall_s"]
+           / max(s["decode_steps"], 1),
+           "decode_tokens_per_step": (tokens - len(prompts))
+           / max(s["decode_steps"], 1),
+           "decode_tokens_per_slot_step": (tokens - len(prompts))
+           / max(slot_steps, 1),
+           "paged_launches": launches}
+    if "spec" in s:
+        out["spec"] = s["spec"]
+    return out, s
+
+
+def run_server(dev, cfg, params, prompts, name, ctxs=None, on_token=None,
+               detailed: bool = False, **knobs):
+    """Build an engine at phase 4's knobs plus ``knobs``, warm it up,
+    then serve ``prompts`` with the paged launch count set to 0 just
+    before and read just after. Returns (numbers, stats, streams,
+    engine); the caller shuts the engine down."""
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+    from ray_tpu_torch.serve import LLMEngine
+    engine = LLMEngine(cfg, serving_knobs(**knobs), params=params,
+                       device=dev)
+    try:
+        engine.warmup()
+        paged_flash_attention.kernel_launches = 0
+        streams, ttft, wall = serve_threads(
+            engine, prompts, SPEC_NEW, ctxs=ctxs, on_token=on_token,
+            detailed=detailed)
+        launches = paged_flash_attention.kernel_launches
+        toks = [[t[0] for t in st] for st in streams] if detailed \
+            else streams
+        out, s = served(engine, cfg, prompts, SPEC_NEW, toks, ttft, wall,
+                        launches, name)
+    except BaseException:
+        engine.shutdown()
+        raise
+    return out, s, streams, engine
+
+
+def release(engine):
+    engine.shutdown()
+    del engine._cache
+    torch.cuda.empty_cache()
+
+
+def direct_logits(dev, cfg, params, tokens, chunk: int = 256, feed=(),
+                  slots: int = 32):
+    """The logits an engine computed for the token after ``tokens`` and
+    ``feed``, replayed at the engine's own shapes on a scratch cache:
+    ``tokens`` (a prompt) through ``prefill`` calls of ``chunk`` tokens
+    of one sequence from position 0, then each token of ``feed`` (the
+    tokens the engine generated so far) through a ``decode_step`` over
+    ``slots`` slots, the others idle on the trash block."""
+    from ray_tpu_torch.models import decode_step, init_kv_cache, prefill
+    T = 32
+    cache = init_kv_cache(cfg, 1 + T, 32, device=dev)
+    bt = torch.zeros((slots, T), dtype=torch.int32, device=dev)
+    bt[0] = torch.arange(1, T + 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        for start in range(0, len(tokens), chunk):
+            part = tokens[start:start + chunk]
+            toks = torch.zeros((1, chunk), dtype=torch.int32, device=dev)
+            toks[0, :len(part)] = torch.tensor(part, dtype=torch.int32)
+            logits, cache = prefill(
+                cfg, params, toks, cache, bt[:1],
+                torch.tensor([start], dtype=torch.int32, device=dev),
+                torch.tensor([len(part)], dtype=torch.int32, device=dev))
+        row = logits[0, len(part) - 1]
+        for i, tok in enumerate(feed):
+            toks = torch.zeros(slots, dtype=torch.int32, device=dev)
+            lens = torch.zeros(slots, dtype=torch.int32, device=dev)
+            toks[0], lens[0] = int(tok), len(tokens) + i
+            logits, cache = decode_step(cfg, params, toks, cache, bt, lens)
+            row = logits[0]
+        return row.float()
+
+
+def phase_verify_profile(dev, cfg, params, seed: int):
+    """Device busy per decode step against per verify step: one profiler
+    window each over 3 calls at the server's shapes (32 slots at
+    64-1000-token contexts; the verify with 0-4 drafts a slot), and
+    CUDA-event ms per call."""
+    from ray_tpu_torch.models import decode_step, init_kv_cache, prefill
+    rng = np.random.default_rng(seed + 8)
+    B, bs, T, L = 32, 32, 32, SPEC_TOKENS + 1
+    lens = torch.tensor(rng.integers(64, 1000, B), dtype=torch.int32,
+                        device=dev)
+    drafts = torch.tensor(rng.integers(0, L, B), dtype=torch.int32,
+                          device=dev)
+    toks = torch.tensor(rng.integers(1, cfg.vocab_size, (B, L)),
+                        dtype=torch.int32, device=dev)
+    bt = torch.tensor(1 + rng.permutation(B * T).reshape(B, T),
+                      dtype=torch.int32, device=dev)
+    cache = init_kv_cache(cfg, 1 + B * T, bs, device=dev)
+    calls = {
+        "decode": lambda: decode_step(cfg, params, toks[:, 0], cache, bt,
+                                      lens),
+        "verify": lambda: prefill(cfg, params, toks, cache, bt, lens,
+                                  1 + drafts),
+    }
+    out = {"drafts_per_slot": drafts.float().mean().item()}
+    with torch.inference_mode():
+        for name, fn in calls.items():
+            out[f"{name}_ms"] = events_ms(fn, 5)
+            wall_ms, by_kind = _profile_window(fn, 3)
+            busy = sum(by_kind.values())
+            check(busy > 0, f"the profiler saw no device time ({name})")
+            out[f"device_busy_ms_per_{name}_step"] = busy / 3
+            out[f"{name}_device_ms_by_kind"] = {
+                k: v / 3 for k, v in by_kind.items()}
+    out["verify_over_decode_device"] = \
+        out["device_busy_ms_per_verify_step"] \
+        / out["device_busy_ms_per_decode_step"]
+    del cache
+    torch.cuda.empty_cache()
+    print("verify_profile " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_spec_server(dev, card: str, cfg, params, seed: int, prompts):
+    """6a: the same prompts through a speculative engine (phase 4's knobs
+    plus ``spec_tokens=4``) and a spec-off one with the same weights,
+    both with tracing off so that they differ only in speculation. Every
+    stream reaches its length, the pools audit clean, drafts were made,
+    paged launches = 28 x (prefill chunks + decode steps), and each
+    spec-on stream equals its spec-off stream or first leaves it at a
+    near tie (``near_tie``): the spec-off step's logits are recomputed
+    by ``prefill`` over the prompt, then ``decode_step`` over the stream
+    up to there (the spec-off engine's own shapes), and the spec-on path
+    by serving the request alone through a new speculative engine.
+    Returns the spec-off streams (the reference of phases 6b-6d) and the
+    numbers."""
+    from ray_tpu_torch.serve import LLMEngine
+    on, s_on, spec_streams, eng = run_server(
+        dev, cfg, params, prompts, "spec_on", spec_tokens=SPEC_TOKENS,
+        enable_trace=False)
+    release(eng)
+    off, _, ref, eng = run_server(dev, cfg, params, prompts, "spec_off",
+                                  enable_trace=False)
+    release(eng)
+    check(s_on["spec"]["drafted"] > 0, "speculation never drafted")
+    diverged = [(i, first_divergence(a, b))
+                for i, (a, b) in enumerate(zip(spec_streams, ref))]
+    diverged = [(i, pos) for i, pos in diverged if pos is not None]
+    divergences = []
+    if diverged:
+        solo = LLMEngine(cfg, serving_knobs(spec_tokens=SPEC_TOKENS,
+                                            enable_trace=False),
+                         params=params, device=dev)
+        try:
+            solo.warmup()
+            for i, pos in diverged:
+                a, b = spec_streams[i], ref[i]
+                again = list(solo.generate_sync(prompts[i], SPEC_NEW))
+                v = near_tie(direct_logits(dev, cfg, params, prompts[i],
+                                           feed=b[:pos]),
+                             a[pos], b[pos], again[pos])
+                divergences.append(dict(request=i, position=pos,
+                                        spec_on=a[pos], spec_off=b[pos],
+                                        **v))
+                print(f"spec divergence: request {i} position {pos}: "
+                      f"spec-on {a[pos]}, spec-off {b[pos]}; the spec-off "
+                      f"replay picks {v['replay_off_pick']} (top logit "
+                      f"{v['top_logit']:.4f}, top-two gap "
+                      f"{v['top2_gap']:.5f}, spec-on token "
+                      f"{v['spec_on_gap']:.5f} below), the spec-on "
+                      f"replay picks {again[pos]} "
+                      f"({'near tie' if v['near_tie'] else 'NOT a near tie'})",
+                      flush=True)
+        finally:
+            release(solo)
+    out = {"card": card, "spec_tokens": SPEC_TOKENS, "spec_on": on,
+           "spec_off": off, "streams_equal": len(prompts) - len(divergences),
+           "divergences": divergences,
+           "acceptance_rate": s_on["spec"]["acceptance_rate"],
+           "tokens_per_s_ratio": on["tokens_per_s"] / off["tokens_per_s"]}
+    print("spec_server " + json.dumps(out), flush=True)
+    check(all(d["near_tie"] for d in divergences),
+          f"spec-on streams leave spec-off streams away from a near tie: "
+          f"{divergences}")
+    return ref, out
+
+
+def doubled_head(params):
+    """``params`` with the LM head (weight and bias) doubled: the logits
+    double exactly (a power of two commutes with every rounding), so the
+    greedy tokens stay and the log-probabilities change."""
+    return dict(params, lm_head={k: v * 2
+                                 for k, v in params["lm_head"].items()})
+
+
+def phase_logprobs(dev, cfg, params, prompts, ref):
+    """6b: ``capture_logprobs=True`` with ``detailed`` streams: the greedy
+    tokens equal the capture-off run's; every logprob is finite and at
+    most 0; mid-run, ``stage_weights(version=1)`` of ``doubled_head``'s
+    tree, computed on a side stream behind a device sleep and staged from
+    it, so the engine reads it only if its stream waits for the staging
+    stream. Every stream's stamps go 0 then 1 and never back,
+    ``weight_swaps == 1`` and ``sync_stall_s == 0``. Each first token's
+    logprob, and the first token stamped 1 of the ``STAGED_CHECKS``
+    streams that reach the staged tree soonest, match a log-softmax of
+    direct ``prefill`` (then ``decode_step``) logits of the tree of their
+    stamp within ``LOGPROB_ABS_TOL``; for the latter the two trees'
+    logprobs differ by over 10x that."""
+    import threading
+    staged = threading.Event()
+    side = torch.cuda.Stream(dev)
+
+    def on_token(engine, i, n):
+        # request 0's client stages the refresh after its 8th token: the
+        # swap lands mid-run; the staged head is still being written on
+        # the side stream when stage_weights returns
+        if i == 0 and n == 8 and not staged.is_set():
+            staged.set()
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(STAGE_SLEEP_CYCLES)
+                engine.stage_weights(doubled_head(params), 1)
+
+    out, s, streams, eng = run_server(
+        dev, cfg, params, prompts, "logprobs", on_token=on_token,
+        detailed=True, capture_logprobs=True, enable_trace=False)
+    release(eng)
+    check(staged.is_set(), "weights were never staged")
+    toks = [[t for t, _, _ in st] for st in streams]
+    check(toks == ref, "capture_logprobs or the staged tree changed the "
+          "greedy tokens")
+    lps = [lp for st in streams for _, _, lp in st]
+    check(all(lp is not None and math.isfinite(lp) and lp <= 0
+              for lp in lps), "a logprob is missing, non-finite or > 0")
+    stamped = 0
+    for st in streams:
+        vs = [v for _, v, _ in st]
+        check(vs == sorted(vs) and set(vs) <= {0, 1},
+              f"version stamps go back or are unknown: {vs}")
+        stamped += sum(vs)
+    check(stamped > 0, "no token was stamped with the staged version")
+    check(s["weight_swaps"] == 1 and s["weight_version"] == 1,
+          f"weight swaps {s['weight_swaps']}, version "
+          f"{s['weight_version']}")
+    check(s["sync_stall_s"] == 0.0, f"sync stall {s['sync_stall_s']} s")
+
+    def want(p, st, j):
+        """Logprobs of token ``j`` of ``st`` under the old tree and under
+        the tree of its stamp."""
+        logits = direct_logits(dev, cfg, params, p,
+                               feed=[t for t, _, _ in st[:j]])
+        lp = [torch.log_softmax(x * logits, -1)[st[j][0]].item()
+              for x in (1, 2)]
+        return lp[0], lp[st[j][1]]
+
+    errs = []
+    for p, st in zip(prompts, streams):
+        errs.append(abs(st[0][2] - want(p, st, 0)[1]))
+    check(max(errs) <= LOGPROB_ABS_TOL,
+          f"first-token logprob off by {max(errs)} > {LOGPROB_ABS_TOL}")
+    swapped = sorted((next(j for j, t in enumerate(st) if t[1]), i)
+                     for i, st in enumerate(streams) if st[-1][1])
+    swapped = [(j, i) for j, i in swapped if j > 0][:STAGED_CHECKS]
+    check(swapped, "no stream decoded a token on the staged tree")
+    staged_errs, apart = [], []
+    for j, i in swapped:
+        old, new = want(prompts[i], streams[i], j)
+        staged_errs.append(abs(streams[i][j][2] - new))
+        apart.append(abs(new - old))
+    check(max(staged_errs) <= LOGPROB_ABS_TOL and
+          min(apart) > 10 * LOGPROB_ABS_TOL,
+          f"tokens on the staged tree: logprobs off by {staged_errs} "
+          f"(the two trees' differ by {apart})")
+    out.update({"logprob_first_max_abs_err": max(errs),
+                "logprob_staged_max_abs_err": max(staged_errs),
+                "logprob_staged_vs_old_min_gap": min(apart),
+                "staged_checked_at": [[i, j] for j, i in swapped],
+                "logprob_min": min(lps), "logprob_mean": float(np.mean(lps)),
+                "tokens_stamped_1": stamped,
+                "tokens_total": sum(len(st) for st in streams),
+                "weight_swaps": s["weight_swaps"],
+                "weight_swap_wall_s": s["weight_swap_wall_s"],
+                "sync_stall_s": s["sync_stall_s"]})
+    print("logprobs " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_handoff(dev, card: str, cfg, params, prompts, ref):
+    """6c: ``prefill_export`` on one engine and ``submit_adopt`` on
+    another that shares the weights (smaller pools), for the longest
+    ``HANDOFF_PROMPTS`` prompts, on the bf16 and on the int8 wire. bf16:
+    each stream equals the colocated (spec-off) stream and ``wire_bytes
+    == kv_ship_bytes``. int8: the first token is exact and each quant
+    block's round-trip error is within its ``scale / 2``; the first
+    divergence from the colocated stream, if any, is printed. Export and
+    adopt ms and bytes per hand-off."""
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+    from ray_tpu_torch.serve import LLMEngine, unpack_kv_blocks
+    order = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))
+    picks = order[:HANDOFF_PROMPTS]
+    pool = 1 + HANDOFF_PROMPTS * 32
+    engines = {"bf16": LLMEngine(cfg, serving_knobs(
+                   decode_slots=4, num_kv_blocks=pool, kv_wire="bf16",
+                   enable_trace=False), params=params, device=dev),
+               "int8": LLMEngine(cfg, serving_knobs(
+                   decode_slots=4, num_kv_blocks=pool, kv_wire="int8",
+                   enable_trace=False), params=params, device=dev),
+               "adopt": LLMEngine(cfg, serving_knobs(
+                   num_kv_blocks=pool, enable_trace=False), params=params,
+                   device=dev)}
+    out = {"card": card, "prompts": [len(prompts[i]) for i in picks]}
+    try:
+        for e in engines.values():
+            e.warmup()
+        paged_flash_attention.kernel_launches = 0
+        payloads = {}
+        for wire in ("bf16", "int8"):
+            exp, dec = engines[wire], engines["adopt"]
+            rows = []
+            for i in picks:
+                a0 = dec.stats()
+                payload = exp.prefill_export(prompts[i])
+                want_bytes = handoff_bytes(len(prompts[i]), wire, cfg)
+                check(payload["wire_bytes"] == want_bytes,
+                      f"{wire}: wire_bytes {payload['wire_bytes']} != "
+                      f"kv_ship_bytes {want_bytes}")
+                toks = list(dec._items(dec.submit_adopt(payload, SPEC_NEW),
+                                       "adopt", 600))   # its stream
+                a1 = dec.stats()
+                rows.append({"prompt_tokens": len(prompts[i]),
+                             "blocks": payload["n_blocks"],
+                             "wire_bytes": payload["wire_bytes"],
+                             "adopt_ms": 1e3 * (a1["kv_adopt_wall_s"]
+                                                - a0["kv_adopt_wall_s"]),
+                             "first_divergence": first_divergence(
+                                 toks, ref[i]),
+                             "equal": toks == ref[i]})
+                check(len(toks) == SPEC_NEW, f"{wire}: adopted stream "
+                      f"of {len(toks)} tokens")
+                check(toks[0] == ref[i][0], f"{wire}: first token "
+                      f"{toks[0]} != colocated {ref[i][0]}")
+                if wire == "bf16":
+                    check(toks == ref[i], f"bf16 hand-off stream differs "
+                          f"from the colocated stream at "
+                          f"{first_divergence(toks, ref[i])}")
+                payloads[(wire, i)] = payload
+            s = exp.stats()
+            out[wire] = {"handoffs": rows,
+                         "export_ms_mean": 1e3 * s["kv_export_wall_s"]
+                         / s["kv_exports"],
+                         "adopt_ms_mean": float(np.mean(
+                             [r["adopt_ms"] for r in rows])),
+                         "bytes_mean": float(np.mean(
+                             [r["wire_bytes"] for r in rows])),
+                         "streams_equal": sum(r["equal"] for r in rows)}
+        launches = paged_flash_attention.kernel_launches
+        calls = sum(e.stats()["prefill_chunks"] + e.stats()["decode_steps"]
+                    for e in engines.values())
+        check(launches == cfg.n_layers * calls,
+              f"hand-off paged launches {launches} != {cfg.n_layers} x "
+              f"{calls}")
+        for e in engines.values():
+            wait_idle(e)
+            check(e.pool_audit() == [], "hand-off pool audit")
+        # int8 round trip against the bit-exact bf16 slab of one prompt
+        i = picks[0]
+        worst = 0.0
+        for name in ("k", "v"):
+            exact = unpack_kv_blocks(payloads[("bf16", i)]["kv"],
+                                     dtype=torch.float32, device=dev)
+            got = unpack_kv_blocks(payloads[("int8", i)]["kv"],
+                                   dtype=torch.float32, device=dev)
+            idx = 0 if name == "k" else 1
+            x, y = exact[idx].reshape(-1), got[idx].reshape(-1)
+            scales = torch.from_numpy(
+                payloads[("int8", i)]["kv"][name + "_scales"]).to(dev)
+            err = F.pad((x - y).abs(), (0, scales.numel() * 256 - x.numel()))
+            share = (err.view(-1, 256).amax(1) / (scales / 2)).max().item()
+            worst = max(worst, share)
+        check(worst <= INT8_ROUND_TRIP, f"int8 round-trip error "
+              f"{worst} x scale/2 > {INT8_ROUND_TRIP}")
+        out["int8_round_trip_max_over_half_scale"] = worst
+        out["paged_launches"] = launches
+    finally:
+        for e in engines.values():
+            release(e)
+    print("handoff " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_tracing(dev, card: str, cfg, params, prompts, ref, off):
+    """6d: an engine with ``enable_trace=True``, every request sampled:
+    each waterfall in the tracer's local deque has QUEUED, ADMITTED,
+    PREFILL, FIRST_TOKEN, DECODE and DONE; the streams equal the spec-off
+    (tracing off) run's; tokens/s with tracing on against off."""
+    from ray_tpu_torch.serve import new_request_id
+    ctxs = [{"request_id": new_request_id(), "sampled": True}
+            for _ in prompts]
+    on, _, streams, eng = run_server(dev, cfg, params, prompts, "traced",
+                                     ctxs=ctxs, enable_trace=True)
+    shipped = list(eng._tracer.shipped_local)
+    release(eng)
+    check(streams == ref, "tracing changed the streams")
+    by_id = {p["request_id"]: p for p in shipped}
+    check(set(by_id) == {c["request_id"] for c in ctxs},
+          f"{len(by_id)} waterfalls shipped for {len(ctxs)} requests")
+    spans = []
+    for p in by_id.values():
+        phases = [s["phase"] for s in p["spans"]]
+        missing = set(WATERFALL) - set(phases)
+        check(not missing and p["status"] == "DONE",
+              f"waterfall {p['request_id']} lacks {sorted(missing)}")
+        spans.append(len(phases))
+    out = {"card": card, "tokens_per_s_on": on["tokens_per_s"],
+           "tokens_per_s_off": off["tokens_per_s"],
+           "on_over_off": on["tokens_per_s"] / off["tokens_per_s"],
+           "decode_ms_per_step_on": on["decode_ms_per_step"],
+           "decode_ms_per_step_off": off["decode_ms_per_step"],
+           "waterfalls": len(by_id), "spans_per_waterfall_mean":
+           float(np.mean(spans))}
+    print("tracing " + json.dumps(out), flush=True)
+    return out
+
+
+def serving_features(dev, card: str, cfg, params, seed: int):
+    """Phases 6a-6d on the serving weights."""
+    prompts = make_spec_requests(seed, cfg.vocab_size)
+    verify = phase_verify_profile(dev, cfg, params, seed)
+    ref, spec = phase_spec_server(dev, card, cfg, params, seed, prompts)
+    logprobs = phase_logprobs(dev, cfg, params, prompts, ref)
+    handoff = phase_handoff(dev, card, cfg, params, prompts, ref)
+    tracing = phase_tracing(dev, card, cfg, params, prompts, ref,
+                            spec["spec_off"])
+    return {"verify_profile": verify, "spec": spec, "logprobs": logprobs,
+            "handoff": handoff, "tracing": tracing}
+
+
 # --------------------------------------------------------------- phase 2
 SOURCES = ("paged_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
            "flash_attention.cu")
@@ -671,7 +1304,7 @@ def phase_build():
 
 
 def serving_phases(dev, card: str, seed: int):
-    """Phases 3-6 on GPT-J-6B's serving weights (bf16, 12 GB); the
+    """Phases 3-6d on GPT-J-6B's serving weights (bf16, 12 GB); the
     weights are released when this returns. Returns the paged kernel's
     record."""
     from ray_tpu_torch.models import get_config, init_params
@@ -688,7 +1321,10 @@ def serving_phases(dev, card: str, seed: int):
     server = phase_server(dev, card, cfg, params, seed)
     phase_e2e(dev, cfg, params, seed)
     phase_profile(dev, cfg, params, seed)
-    main_shape = shapes[0]              # gptj-6b decode: 28 per step
+    serving_features(dev, card, cfg, params, seed)
+    by_name = {r["shape"]: r for r in shapes}
+    main_shape = by_name["gptj6b_decode"]    # 28 per step
+    verify = by_name["gptj6b_verify"]
     return {
         "name": "paged_attention",
         "route": "cuda",
@@ -705,8 +1341,15 @@ def serving_phases(dev, card: str, seed: int):
         "library_ms": main_shape["library_ms"],
         "bound_share": main_shape["bound_share"],
         "splits": main_shape["splits"],
-        "prefill_ms": shapes[1]["kernel_ms"],
-        "prefill_library_ms": shapes[1]["library_ms"],
+        "prefill_ms": by_name["gptj6b_prefill"]["kernel_ms"],
+        "prefill_library_ms": by_name["gptj6b_prefill"]["library_ms"],
+        "verify_ms": verify["kernel_ms"],
+        "verify_plain_ms": verify["plain_ms"],
+        "verify_library_ms": verify["library_ms"],
+        "verify_bound_ms": verify["bound_ms"],
+        "verify_bound_by": verify["bound_by"],
+        "verify_bound_share": verify["bound_share"],
+        "verify_max_row_rel_err": verify["max_row_rel_err"],
         "timed_shape": main_shape["shape"],
         "shapes": shapes,
     }
@@ -1206,6 +1849,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on "
               "the card", file=sys.stderr)
@@ -1227,6 +1871,7 @@ def main(argv=None) -> int:
           f" GB still allocated", flush=True)
     kernels.extend(training_phases(dev, card, args.seed))
 
+    print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,8 +26,7 @@ partial tail of a fully-matched prompt is handled by the engine with a
 copy-on-write block copy (see ``LLMEngine._admit``).
 
 The port's copy of ``ray_tpu/serve/prefix_cache.py`` (the port imports
-nothing from the JAX package), without the warm-prefix migration export
-and the router's prefix fingerprints, which the port does not serve yet.
+nothing from the JAX package).
 
 Thread model: the pool is NOT internally locked — the engine calls it
 with its scheduler lock held (all mutations happen on the step
@@ -37,7 +36,23 @@ thread).
 from __future__ import annotations
 
 import collections
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
+
+
+def prefix_fingerprint(tokens: Sequence[int],
+                       block_size: int) -> Optional[int]:
+    """Stable fingerprint of a prompt's FIRST full KV-block chunk
+    (crc32 of the token bytes — deterministic across processes, unlike
+    ``hash``). ``None`` when the prompt has no full block. Routers
+    compare this against :meth:`PrefixBlockPool.root_fingerprints` to
+    place a COLD session on the replica whose radix trie already holds
+    its prefix."""
+    if block_size < 1 or len(tokens) < block_size:
+        return None
+    data = b"".join(int(t).to_bytes(8, "little", signed=True)
+                    for t in tokens[:block_size])
+    return zlib.crc32(data)
 
 
 class _TrieNode:
@@ -46,7 +61,7 @@ class _TrieNode:
     physical block holding that chunk's KV."""
 
     __slots__ = ("children", "parent", "key", "block", "touch",
-                 "detached")
+                 "detached", "hits")
 
     def __init__(self, parent: Optional["_TrieNode"],
                  key: Optional[tuple], block: Optional[int]):
@@ -56,6 +71,7 @@ class _TrieNode:
         self.block = block
         self.touch = 0          # LRU clock stamp
         self.detached = False   # evicted — inserts under it must abort
+        self.hits = 0           # prefix-match count (migration floor)
 
 
 class PrefixBlockPool:
@@ -127,6 +143,7 @@ class PrefixBlockPool:
             blocks.append(node.block)
             self.incref(node.block)
             self._touch(node)
+            node.hits += 1
         # hits_total is NOT bumped here: a match may be released when
         # allocation fails (admission wait) and retried — the engine
         # counts hits once, on successful admission (count_hits)
@@ -205,7 +222,81 @@ class PrefixBlockPool:
         self.inserts_total += 1
         return node, True
 
+    def drop_index(self) -> int:
+        """Forget the whole prefix index, as when the weights that wrote
+        its KV are replaced: cached (ref-0) blocks go back to the free
+        list, referenced ones stay with their holders as private blocks,
+        and inserts under any old node (the root included) abort.
+        Returns the number of blocks the index held."""
+        n = len(self._node_of)
+        for block, node in self._node_of.items():
+            node.detached = True
+            if block not in self._ref:
+                self._free.append(block)
+        self._node_of.clear()
+        self._root.detached = True
+        self._root = _TrieNode(None, None, None)
+        return n
+
+    # ------------------------------------------------------- migration
+    def export_chains(self, min_hits: int = 1,
+                      max_blocks: int = 0) -> List[List[Tuple[tuple, int]]]:
+        """Warm prefix chains worth migrating off a draining replica.
+
+        A chain is a contiguous root-anchored trie path of ref-0
+        (cached) nodes whose ``hits`` meet the floor — exactly the
+        blocks that would die with this replica but have proven reuse.
+        Chains truncate at the first node that is referenced (a live
+        request still writes against it), below the hit floor, or
+        detached: an importer re-inserts from its own root, so a gap
+        would orphan everything deeper. Returns
+        ``[[(chunk_tokens, block_id), ...], ...]`` ordered hottest
+        chain first; ``max_blocks > 0`` caps the total block count.
+        """
+        chains: List[List[Tuple[tuple, int]]] = []
+
+        def walk(node: _TrieNode, path: List[Tuple[tuple, int]]):
+            extended = False
+            for child in sorted(node.children.values(),
+                                key=lambda n: -n.hits):
+                if (child.detached or child.block in self._ref
+                        or child.hits < min_hits):
+                    continue
+                walk(child, path + [(child.key, child.block)])
+                extended = True
+            if not extended and path:
+                chains.append(path)
+
+        walk(self._root, [])
+        chains.sort(key=lambda c: -len(c))
+        if max_blocks > 0:
+            out, n = [], 0
+            for c in chains:
+                if n + len(c) > max_blocks:
+                    c = c[:max_blocks - n]
+                if not c:
+                    break
+                out.append(c)
+                n += len(c)
+            chains = out
+        return chains
+
     # -------------------------------------------------------- introspection
+    def root_fingerprints(self, limit: int = 64) -> List[int]:
+        """Fingerprints of the trie ROOT's children — the first-block
+        chunks this pool holds warm. O(root fan-out), capped at
+        ``limit`` (most-recently-touched first): cheap enough for every
+        ``Replica.stats()`` probe, rich enough for a router to place a
+        cold session where its system prompt already lives."""
+        kids = sorted(self._root.children.values(),
+                      key=lambda n: -n.touch)[:limit]
+        out = []
+        for node in kids:
+            fp = prefix_fingerprint(node.key, self.block_size)
+            if fp is not None:
+                out.append(fp)
+        return out
+
     def stats(self) -> Dict[str, int]:
         cached = sum(1 for b in self._node_of if b not in self._ref)
         shared = sum(1 for b, r in self._ref.items() if r > 1)

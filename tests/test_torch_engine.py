@@ -86,9 +86,14 @@ def test_greedy_streams_match_jax_engine(weights):
                base[:8] + rng.integers(1, 64, 5).tolist(),   # prefix hit
                rng.integers(1, 64, 7).tolist(),
                rng.integers(1, 64, 30).tolist()]      # 4 prefill chunks
+    # the JAX engine one request at a time: its batched decode step also
+    # writes for slots still in prefill (token 0 over position 0 of their
+    # first block, which may be a shared prefix block), so its streams
+    # served concurrently carry that corruption (ROADMAP Queue 3); the
+    # port, served concurrently, must match its fault-free streams
     jeng = JaxEngine(jcfg, JaxEngineConfig(**ENGINE_KW), params=jparams)
     try:
-        want = _serve(jeng, prompts)
+        want = [list(jeng.generate_sync(p, timeout_s=300)) for p in prompts]
     finally:
         jeng.shutdown()
     teng = _port_engine(tree)
@@ -142,3 +147,60 @@ def test_engine_needs_cuda_unless_told_cpu(weights):
     cfg = TransformerConfig(**MODEL_KW, dtype=torch.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         LLMEngine(cfg, EngineConfig(**ENGINE_KW))
+
+
+def _prefill_beside_a_neighbour(engine, prompts, new_tokens=8):
+    """Detailed streams of ``prompts`` (a, b, c): ``a`` alone, ``b``
+    while a neighbour decodes (its prefill chunks run beside decode
+    steps), then ``c`` alone."""
+    a, b, c = prompts
+    runs = [list(engine.generate_sync(a, new_tokens, detailed=True))]
+    nb = engine.submit([5, 6, 7], 40)
+    nb.out.get(timeout=60)                 # the neighbour is decoding
+    runs.append(list(engine.generate_sync(b, new_tokens, detailed=True)))
+    engine.cancel(nb)
+    _wait_idle(engine)
+    runs.append(list(engine.generate_sync(c, new_tokens, detailed=True)))
+    return runs
+
+
+def _lp_diffs(got, want):
+    """Max |logprob difference| of each pair of detailed streams (inf
+    where their tokens differ)."""
+    out = []
+    for a, b in zip(got, want):
+        same = [t for t, _, _ in a] == [t for t, _, _ in b]
+        out.append(max(abs(x[2] - y[2]) for x, y in zip(a, b)) if same
+                   else float("inf"))
+    return out
+
+
+def test_decode_does_not_write_into_prefilling_slots(weights):
+    """A slot still in prefill has seq_len 0: the batched decode step must
+    not write its token 0 over position 0 of its first block, here a
+    prefix block that three prompts share. The port gives every prompt the
+    stream and logprobs of a run with no neighbour, and the shared block
+    stays intact for the next request; the JAX engine does not (its
+    decode writes every slot: ROADMAP Queue 3)."""
+    jcfg, jparams, tree = weights
+    rng = np.random.default_rng(1)
+    base = rng.integers(1, 64, 8).tolist()                 # 2 full blocks
+    prompts = [base + rng.integers(1, 64, 22).tolist() for _ in range(3)]
+    diffs = {}
+    for pkg in ("port", "jax"):
+        engs = [_port_engine(tree, capture_logprobs=True) if pkg == "port"
+                else JaxEngine(jcfg, JaxEngineConfig(
+                    **ENGINE_KW, capture_logprobs=True), params=jparams)
+                for _ in range(2)]
+        try:
+            got = _prefill_beside_a_neighbour(engs[0], prompts)
+            want = [list(engs[1].generate_sync(p, 8, detailed=True))
+                    for p in prompts]
+            diffs[pkg] = _lp_diffs(got, want)
+            assert engs[0].pool_audit() == []
+        finally:
+            for e in engs:
+                e.shutdown()
+    assert max(diffs["port"]) <= 1e-6, diffs
+    # the reference's fault: b's own prefill, then c through the block
+    assert min(diffs["jax"][1:]) > 1e-4, diffs

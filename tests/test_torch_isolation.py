@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``ray_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the port imports,
-serves and takes a train step with both made unimportable."""
+``chip_smoke.py`` imports JAX, the JAX package or ``ml_dtypes``, and the
+port imports, serves (speculative decode, a bf16 KV hand-off, tracing
+included) and takes a train step with all of them made unimportable."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-BANNED = ("jax", "jaxlib", "optax", "flax", "ray_tpu")
+BANNED = ("jax", "jaxlib", "optax", "flax", "ray_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -42,7 +43,8 @@ def test_no_jax_or_jax_package_imports(path):
 def test_port_serves_with_jax_and_ray_tpu_unimportable():
     script = textwrap.dedent("""
         import sys
-        for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu"):
+        for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu",
+                     "ml_dtypes"):
             sys.modules[name] = None      # any import of them now fails
         import torch
         torch.set_num_threads(1)
@@ -55,12 +57,30 @@ def test_port_serves_with_jax_and_ray_tpu_unimportable():
         eng = LLMEngine(cfg, EngineConfig(decode_slots=2, kv_block_size=4,
                                           max_seq_len=32, prefill_chunk=8),
                         seed=0, device="cpu")
+        spec = LLMEngine(cfg, EngineConfig(
+            decode_slots=2, kv_block_size=4, max_seq_len=32,
+            prefill_chunk=8, spec_tokens=3, enable_trace=True),
+            seed=0, device="cpu")
         try:
             toks = list(eng.generate_sync([1, 2, 3, 4, 5], 6))
             assert len(toks) == 6, toks
             assert eng.pool_audit() == []
+            assert list(spec.generate_sync([1, 2, 3, 4, 5], 6,
+                        trace_ctx={"request_id": "r", "sampled": True})) \
+                == toks
+            assert spec._tracer.shipped_local[-1]["status"] == "DONE"
+            payload = spec.prefill_export([1, 2, 3, 4, 5])
+            assert payload["kv"]["k"].dtype.name == "float32"
+            from ray_tpu_torch.serve import pack_kv_blocks, unpack_kv_blocks
+            k = torch.randn(2, 3, 4, 2, 8).to(torch.bfloat16)
+            kv = pack_kv_blocks(k, k, "bf16")
+            assert str(kv["k"].dtype) == "int16", kv["k"].dtype
+            assert torch.equal(unpack_kv_blocks(kv)[0], k)
+            got = list(eng._items(eng.submit_adopt(payload, 6), "adopt", 60))
+            assert got == toks, (got, toks)
         finally:
             eng.shutdown()
+            spec.shutdown()
         from ray_tpu_torch.models import make_train_step
         bundle = make_train_step(cfg, learning_rate=1e-3, device="cpu")
         state = bundle.init(seed=0)
@@ -68,7 +88,7 @@ def test_port_serves_with_jax_and_ray_tpu_unimportable():
             0, 64, (2, 16), generator=torch.Generator().manual_seed(0))})
         assert torch.isfinite(m["loss"]) and int(state["step"]) == 1, m
         leaked = [m for m in sys.modules
-                  if m.split(".")[0] in ("jax", "ray_tpu")
+                  if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
                   and sys.modules[m] is not None]
         assert not leaked, leaked
         print("OK")

@@ -86,12 +86,20 @@ def _check(q, kc, vc, bt, pos, lens):
 _rng = np.random.default_rng(7)
 _GPTJ_DECODE_LENS = np.concatenate([[0, 1, 1024, 31, 32, 33],
                                     _rng.integers(1, 1025, 26)])
+# the speculative verify: decode's lens with 0-4 drafts a slot; a slot's
+# rows past its drafts (and every row of the idle lens-0 slot) are
+# padded, and the full slot's padded rows sit past the 1024-key window
+_VERIFY_DRAFTS = np.concatenate([[4, 2, 1], _rng.integers(0, 5, 29)])
+_GPTJ_VERIFY_STARTS = [max(int(n) - 1 - min(int(d), int(n) - 1), 0)
+                       for n, d in zip(_GPTJ_DECODE_LENS, _VERIFY_DRAFTS)]
 CASES = {
     # name: (B, C, H, KVH, D, bs, T, dtype, lens, starts)
     "gptj6b_decode": (32, 1, 16, 16, 256, 32, 32, torch.bfloat16,
                       _GPTJ_DECODE_LENS, None),
     "gptj6b_prefill": (1, 256, 16, 16, 256, 32, 32, torch.bfloat16,
                        [300 + 256], [300]),
+    "gptj6b_verify": (32, 5, 16, 16, 256, 32, 32, torch.bfloat16,
+                      _GPTJ_DECODE_LENS, _GPTJ_VERIFY_STARTS),
     "gqa_decode": (8, 1, 32, 8, 128, 16, 16, torch.bfloat16,
                    [1, 5, 16, 17, 100, 200, 255, 256], None),
     "gqa_prefill": (2, 64, 32, 8, 128, 16, 16, torch.bfloat16,
@@ -233,6 +241,53 @@ def test_config_row_tiles_reach_the_kernel(cuda):
     for key in (("kernel", 32), ("kernel", 64)):
         for got, want in zip(outs[key], outs[("reference", 0)]):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("numel", [180, 256 * 1000 + 7])
+def test_quantize_int8_on_the_card_matches_the_numpy_twin(cuda, numel):
+    """The KV wire's int8 quantizer on a CUDA tensor: values and scales
+    byte-identical to the numpy twin's (the CPU tests hold the twin to
+    the JAX package's)."""
+    from ray_tpu_torch.parallel.quantization import (quantize_int8,
+                                                     quantize_int8_np)
+    rng = np.random.default_rng(numel)
+    x = (rng.standard_normal(numel) * 3).astype(np.float32)
+    x[:7] = [0.5, 1.5, -2.5, 0, 0, 127, -127]
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.tensor(x, device=cuda).to(dtype)
+        q, sc = quantize_int8(t)
+        want_q, want_s = quantize_int8_np(t.float().cpu().numpy())
+        assert q.device.type == "cuda"
+        assert q.cpu().numpy().tobytes() == want_q.tobytes()
+        assert sc.cpu().numpy().tobytes() == want_s.tobytes()
+
+
+def test_engine_handoff_on_the_card(cuda):
+    """A tiny f32 engine on the card: ``prefill_export`` on one engine
+    and ``submit_adopt`` on another give the colocated stream on both
+    wires' first token and, on the bit-exact wire, every token."""
+    from ray_tpu_torch.serve import EngineConfig, LLMEngine
+    cfg = get_config("gptj-tiny")
+    params = init_params(cfg, 0, device=cuda, dtype=cfg.dtype)
+    knobs = dict(decode_slots=4, kv_block_size=8, max_seq_len=128,
+                 prefill_chunk=32, max_new_tokens=12)
+    engines = [LLMEngine(cfg, EngineConfig(**dict(knobs, kv_wire=w)),
+                         params=params, device=cuda)
+               for w in ("bf16", "int8", "bf16")]
+    try:
+        ref, pre8, dec = engines
+        prompt = list(range(3, 60))
+        want = list(ref.generate_sync(prompt, 12))
+        got = list(dec._items(dec.submit_adopt(ref.prefill_export(prompt),
+                                               12), "adopt", 60))
+        assert got == want
+        got8 = list(dec._items(dec.submit_adopt(pre8.prefill_export(prompt),
+                                                12), "adopt", 60))
+        assert got8[0] == want[0]
+        assert all(e.pool_audit() == [] for e in engines)
+    finally:
+        for e in engines:
+            e.shutdown()
 
 
 # ------------------------------------------------------ flash attention
