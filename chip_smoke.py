@@ -76,8 +76,30 @@ Phases (none catches a failure and carries on):
 6d. Tracing: every request sampled on an ``enable_trace=True`` engine;
    each waterfall has QUEUED, ADMITTED, PREFILL, FIRST_TOKEN, DECODE and
    DONE; tokens/s with tracing on against the spec-off (tracing off) run.
-   The serving weights and KV pools are released before the trainer's
+   The serving weights and KV pools are released before the runtime's
    phases.
+R1. Serialization and the store: phase 6c's longest hand-off slab (k and
+   v of 22 blocks over 28 layers, bf16, 323.0 MB, on the card), a small
+   f32 tensor and a nested tuple of mixed tensors through the port's
+   serializer into the native shared-memory store and back; bits equal
+   after the copy back to the card; ms and GB/s of the device-to-host
+   copy, the store write, the read and the host-to-device copy. Fails
+   unless the native (C++) store served.
+R2. The runtime on the card: ``ray_tpu_torch.init`` counts the card as
+   ``GPU``; the slab through ``put``/``get``, and as the argument and
+   the return of a ``num_gpus=1`` task that moves it to its card (bits
+   and per-leaf checksums equal, the worker's card is this card); init
+   wall, warm task round trip, the slab's ms and GB/s.
+R3. GPT-J-6B served from a ``num_gpus=1`` actor: the actor builds the
+   engine at full depth with phase 4's knobs from phase 4's seed (its
+   weights' checksum equals the driver's) and answers phase 4's 16
+   requests, sent as streaming actor calls in phase 4's pattern. Streams
+   reach their length, the pool audits clean, the actor's paged launch
+   count equals 28 x (prefill chunks + decode steps), and each stream
+   equals phase 4's or first leaves it at a near tie (``near_tie``, the
+   replays run in the actor); tokens/s and TTFT beside phase 4's. The
+   actor is killed and the runtime shut down; the card's free memory
+   comes back before the trainer's phases.
 7. The four flash kernels (forward, delta, dK/dV, dQ) against their plain
    versions at GPT-J-6B's training shape (B=2, H=16, S=2048, D=256, bf16,
    causal), ``entry()``'s (B=2, H=4, S=256, D=128, bf16), a cross-length
@@ -115,8 +137,8 @@ Phases (none catches a failure and carries on):
 
 Before them the script's total wall is printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
-verify shape's ``verify_*`` fields); the last line is ``{"ok": true,
-"device": {...}}``.
+verify shape's ``verify_*`` fields and R3's ``actor_launches``); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -126,6 +148,7 @@ import asyncio
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -514,6 +537,7 @@ def phase_server(dev, card: str, cfg, params, seed: int):
            "kernel_launches": launches, "kv_pool_gb": kv_gb,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print("server " + json.dumps(out), flush=True)
+    out["streams"] = streams              # phase R3's reference
     return out
 
 
@@ -1248,6 +1272,565 @@ def serving_features(dev, card: str, cfg, params, seed: int):
             "handoff": handoff, "tracing": tracing}
 
 
+# ------------------------------------------------------ phases R1 - R3
+SLAB_BLOCKS = 22      # phase 6c's longest hand-off: 22 blocks of 32 tokens
+ACTOR_TIMEOUT_S = 600.0
+
+
+def weights_checksum(params):
+    """One integer per leaf: the sum of its bit patterns (as 16- or
+    32-bit integers), summed on the card in int64. Equal lists mean the
+    same seed drew the same tree."""
+    out = []
+    for name, t in sorted(_named(params)):
+        ints = torch.int16 if t.element_size() == 2 else torch.int32
+        out.append([name, int(t.detach().contiguous().reshape(-1)
+                              .view(ints).sum(dtype=torch.int64))])
+    return out
+
+
+def handoff_slab(dev, cfg, seed: int):
+    """k and v of a 22-block GPT-J-6B hand-off on the card (bf16, layers
+    x blocks x 32 tokens x KV heads x head_dim each), drawn from seed."""
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    shape = (cfg.n_layers, SLAB_BLOCKS, 32, cfg.kv_heads, cfg.head_dim)
+    return {name: torch.randn(shape, generator=g, device=dev).to(cfg.dtype)
+            for name in ("k", "v")}
+
+
+def tensors_of(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tensors_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensors_of(v)]
+    return []
+
+
+def same_bits(a, b) -> bool:
+    """Every tensor of ``a`` and ``b`` (any devices) of one dtype and
+    shape with equal bytes."""
+    ta, tb = tensors_of(a), tensors_of(b)
+    return len(ta) == len(tb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.detach().cpu().contiguous().reshape(-1).view(torch.uint8),
+            y.detach().cpu().contiguous().reshape(-1).view(torch.uint8))
+        for x, y in zip(ta, tb))
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors_of(tree))
+
+
+def rate(n: int, seconds: float):
+    return {"ms": 1e3 * seconds, "gb_per_s": n / seconds / 1e9}
+
+
+def phase_store(dev, card: str, cfg, seed: int):
+    """R1: the 22-block hand-off slab (bf16, on the card), a small f32
+    tensor and a nested tuple of mixed tensors through the port's
+    serializer into a shared-memory store and back; bits equal after
+    ``.cuda()``; ms and GB/s of the device-to-host copy, the store write
+    (serialize, which makes that copy, then create + write + seal), the
+    read (view, deserialize, which copies out of the store) and the
+    host-to-device copy. Fails unless the native store served."""
+    from ray_tpu_torch.core.ids import ObjectID
+    from ray_tpu_torch.core.native_store import (NativeShmClient,
+                                                 NativeShmStore)
+    from ray_tpu_torch.core.serialization import SerializationContext
+    from ray_tpu_torch.core.shm_store import make_client, make_store
+    slab = handoff_slab(dev, cfg, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    small = torch.randn(64, 64, generator=g, device=dev)
+    mixed = (slab["k"][0, :2], (torch.arange(5, device=dev),
+                                small.to(torch.float16).cpu()),
+             {"mask": small > 0, "i8": small.to(torch.int8)})
+    n = nbytes(slab)
+    name = f"raytorch-smoke-{os.getpid()}"
+    store = make_store(name, 2 * n + (256 << 20))
+    client = make_client(name)
+    ctx = SerializationContext()
+    out = {"card": card, "slab_bytes": n, "slab_shape": list(
+        slab["k"].shape), "dtype": str(cfg.dtype)}
+    try:
+        out["store"] = "native" if isinstance(store, NativeShmStore) \
+            and isinstance(client, NativeShmClient) else "python mmap"
+        print(f"store: {out['store']} ({type(store).__name__}, "
+              f"{type(client).__name__})", flush=True)
+        check(out["store"] == "native",
+              "the native shm store did not serve (g++ build failed?)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = {k: v.cpu() for k, v in slab.items()}
+        out["d2h"] = rate(n, time.perf_counter() - t0)
+        for what, value in (("slab", slab), ("small", small),
+                            ("mixed", mixed)):
+            oid = ObjectID.from_random()
+            t0 = time.perf_counter()
+            ser = ctx.serialize(value)
+            t_ser = time.perf_counter() - t0
+            size = ser.total_bytes()
+            extent = client.create(oid, size)
+            t_create = time.perf_counter() - t0 - t_ser
+            ser.write_to(extent)
+            del extent
+            client.seal(oid)
+            store.on_sealed(oid, size)
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            view = client.get_view(oid, timeout=5.0)
+            check(view is not None, f"{what}: not in the store")
+            back, _ = ctx.deserialize_from_view(view)
+            del view
+            client.release(oid)
+            t_read = time.perf_counter() - t0
+            check(all(t.device.type == "cpu" for t in tensors_of(back)),
+                  f"{what}: a get gave a tensor off the host")
+            t0 = time.perf_counter()
+            on_card = [t.to(dev) for t in tensors_of(back)]
+            torch.cuda.synchronize()
+            t_h2d = time.perf_counter() - t0
+            check(same_bits(on_card, value), f"{what}: bits differ")
+            if what == "slab":
+                check(same_bits(back, host), "slab: bits differ on host")
+                out["store_write"] = rate(n, t_write)
+                out["serialize"] = rate(n, t_ser)     # the d2h copy inside
+                out["shm_write"] = rate(n, t_write - t_ser)
+                out["shm_create"] = rate(n, t_create)   # pages populated
+                out["store_read"] = rate(n, t_read)
+                out["h2d"] = rate(n, t_h2d)
+                out["wire_bytes"] = size
+            store.delete(oid)
+    finally:
+        client.close()
+        store.destroy()
+    print("store_phase " + json.dumps(out), flush=True)
+    return out
+
+
+def device_name(dev) -> str:
+    dev = torch.device(dev)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else dev.type
+
+
+def _slab_on_card(slab, device: str):
+    """R2's task: move the slab to this worker's card and return its
+    per-leaf checksums, the slab (from the card), the card's name and
+    this worker's pid."""
+    dev = torch.device(device)
+    moved = {k: v.to(dev) for k, v in slab.items()}
+    sums = {k: int(v.view(torch.int16).sum(dtype=torch.int64))
+            for k, v in moved.items()}
+    return {"sums": sums, "slab": moved, "device": device_name(dev),
+            "pid": os.getpid()}
+
+
+class _Holder:
+    """Holds a worker: three of them start the zygote."""
+
+    def pid(self):
+        return os.getpid()
+
+
+def listening(name: str) -> bool:
+    """Whether a session's unix socket (a file, or an abstract name where
+    the session dir's path is too long) takes connections."""
+    import socket
+    from ray_tpu_torch.core import protocol as P
+    conn = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    try:
+        conn.connect(P.unix_address(name))
+        return True
+    except OSError:
+        return False
+    finally:
+        conn.close()
+
+
+def start_zygote(timeout_s: float = 60.0):
+    """The node forks workers from its zygote once demand passes its
+    initial pool by two spawns. With no initial or prestarted worker,
+    three holder actors are spawns 1-3 (cold: the third starts the
+    zygote); wait until it listens, so every later spawn is a fork, and
+    until every cold worker is held.
+    Returns the holders (alive until the caller kills them, so that no
+    cold worker turns idle) and the seconds this took."""
+    import ray_tpu_torch
+    from ray_tpu_torch import api
+    from ray_tpu_torch.core.node import _ForkedWorker
+    holder = ray_tpu_torch.remote(num_cpus=0)(_Holder)
+    holders = []
+    t0 = time.perf_counter()
+    for _ in range(3):
+        # one at a time: a queue of creations would make the controller
+        # spawn ahead, and a spare cold worker would stay idle
+        holders.append(holder.remote())
+        ray_tpu_torch.get(holders[-1].pid.remote(), timeout=timeout_s)
+    node = api._head.node
+    while not listening(node._zygote_sock):
+        check(time.perf_counter() - t0 < timeout_s,
+              "the zygote never listened")
+        time.sleep(0.05)
+    # the controller may have spawned a spare cold worker ahead of the
+    # creations: more holders take the cold workers until each is held
+    pids = {ray_tpu_torch.get(h.pid.remote(), timeout=timeout_s)
+            for h in holders}
+
+    def unheld_cold():
+        return {w.pid for w in list(node.workers.values())
+                if not isinstance(w, _ForkedWorker)} - pids
+
+    for _ in range(8):
+        if not unheld_cold():
+            break
+        holders.append(holder.remote())
+        pids.add(ray_tpu_torch.get(holders[-1].pid.remote(),
+                                   timeout=timeout_s))
+    check(not unheld_cold(), f"cold workers {unheld_cold()} stay idle")
+    return holders, time.perf_counter() - t0
+
+
+def forked(pid: int) -> bool:
+    """Whether this node's worker ``pid`` was forked from its zygote."""
+    from ray_tpu_torch import api
+    from ray_tpu_torch.core.node import _ForkedWorker
+    return any(isinstance(w, _ForkedWorker) and w.pid == pid
+               for w in list(api._head.node.workers.values()))
+
+
+def phase_runtime(dev, card: str, cfg, seed: int):
+    """R2: the runtime on the card. ``init`` counts the card as ``GPU``;
+    the zygote is started (no worker boots cold after it); the slab
+    through ``put``/``get``, and as the argument and the return of a
+    ``num_gpus=1`` task that moves it to its card in a zygote-forked
+    worker; bits and per-leaf checksums equal, the worker's card is this
+    card. Init wall, the first GPU call (a fork that makes its CUDA
+    context), the slab's put/get and task round trip (on the worker
+    that made the first call), a warm task round trip, and GPU calls
+    made after default-shape tasks (:func:`gpu_calls_after_default_tasks`,
+    an open fault)."""
+    import ray_tpu_torch
+    t0 = time.perf_counter()
+    info = ray_tpu_torch.init(num_cpus=4, _num_initial_workers=0,
+                              _system_config={"prestart_workers": 0})
+    out = {"card": card, "init_s": time.perf_counter() - t0,
+           "session_dir": info["session_dir"]}
+    res = ray_tpu_torch.cluster_resources()
+    out["resources"] = res
+    check(res.get("GPU") == torch.cuda.device_count(),
+          f"GPU resource {res.get('GPU')} != {torch.cuda.device_count()}")
+    holders, out["zygote_s"] = start_zygote()
+
+    slab = handoff_slab(dev, cfg, seed)
+    host = {k: v.cpu() for k, v in slab.items()}
+    n = nbytes(slab)
+    t0 = time.perf_counter()
+    ref = ray_tpu_torch.put(slab)
+    t_put = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = ray_tpu_torch.get(ref, timeout=60)
+    t_get = time.perf_counter() - t0
+    check(same_bits({k: v.to(dev) for k, v in got.items()}, slab),
+          "put/get: bits differ")
+    out["put"], out["get"] = rate(n, t_put), rate(n, t_get)
+    del ref, got
+
+    # the slab's GPU calls come before any default-shape task: those
+    # lease every idle worker to the driver, and each GPU call may then
+    # fork a new worker and make a new CUDA context (measured at the end)
+    on_card = ray_tpu_torch.remote(num_gpus=1)(_slab_on_card)
+    t0 = time.perf_counter()
+    first = ray_tpu_torch.get(
+        on_card.remote({"k": slab["k"][0, 0]}, dev.type),
+        timeout=ACTOR_TIMEOUT_S)
+    out["gpu_task_first_call_s"] = time.perf_counter() - t0
+    check(first["device"] == device_name(dev),
+          f"the worker's card {first['device']!r}")
+    want = {k: int(v.view(torch.int16).sum(dtype=torch.int64))
+            for k, v in slab.items()}
+    t0 = time.perf_counter()
+    back = ray_tpu_torch.get(on_card.remote(slab, dev.type),
+                             timeout=ACTOR_TIMEOUT_S)
+    out["task_round_trip"] = rate(2 * n, time.perf_counter() - t0)
+    check(back["sums"] == want, f"task checksums {back['sums']} != {want}")
+    check(all(t.device.type == "cpu" for t in tensors_of(back["slab"])),
+          "a task return came back off the host")
+    check(same_bits(back["slab"], host), "task return: bits differ")
+    out["worker_device"] = back["device"]
+    out["worker_pids"] = [first["pid"], back["pid"]]
+    out["worker_forked"] = all(forked(pid) for pid in out["worker_pids"])
+    check(out["worker_forked"], "a GPU task's worker was not forked from "
+          "the zygote")
+    del back, slab
+    torch.cuda.empty_cache()
+
+    @ray_tpu_torch.remote
+    def noop():
+        return os.getpid()
+
+    check(forked(ray_tpu_torch.get(noop.remote(), timeout=ACTOR_TIMEOUT_S)),
+          "a task worker booted cold after the zygote listened")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ray_tpu_torch.get(noop.remote(), timeout=60)
+    out["task_round_trip_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    out["gpu_after_default_tasks"] = gpu_calls_after_default_tasks(
+        on_card, dev, out["worker_pids"])
+    for h in holders:
+        ray_tpu_torch.kill(h)
+    print("runtime " + json.dumps(out), flush=True)
+    return out
+
+
+def gpu_calls_after_default_tasks(on_card, dev, gpu_pids, calls: int = 3):
+    """An open fault of the runtime, measured: once default-shape tasks
+    have run, the idle workers stay leased to the driver, and each
+    ``num_gpus=1`` call may fork a new worker that makes a new CUDA
+    context of its own. Three small GPU calls after R2's default-shape
+    tasks: the wall of each, how many workers served them, how many of
+    those are not the workers of R2's earlier GPU calls, and the node's
+    worker count before and after."""
+    import ray_tpu_torch
+    from ray_tpu_torch import api
+    node = api._head.node
+    before = len(node.workers)
+    probe = {"k": torch.ones(1024, dtype=torch.bfloat16)}
+    walls, pids = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        got = ray_tpu_torch.get(on_card.remote(probe, dev.type),
+                                timeout=ACTOR_TIMEOUT_S)
+        walls.append(time.perf_counter() - t0)
+        pids.append(got["pid"])
+        check(got["device"] == device_name(dev),
+              f"the worker's card {got['device']!r}")
+        check(got["sums"] == {"k": 1024 * 0x3F80},
+              f"probe checksum {got['sums']}")
+    return {"call_s": walls, "workers": len(set(pids)),
+            "new_workers": len(set(pids) - set(gpu_pids)),
+            "node_workers_before": before,
+            "node_workers_after": len(node.workers)}
+
+
+class GPTJServer:
+    """R3's actor: GPT-J-6B at full depth behind ``LLMEngine`` with phase
+    4's knobs, built in its own worker on its own CUDA context."""
+
+    def __init__(self, seed: int, cfg, device: str = "cuda"):
+        from ray_tpu_torch.models import init_params
+        from ray_tpu_torch.serve import LLMEngine
+        self.dev = torch.device(device)
+        self.cfg = cfg
+        t0 = time.perf_counter()
+        self.params = init_params(self.cfg, seed=seed, device=self.dev,
+                                  dtype=self.cfg.dtype)
+        self.checksum = weights_checksum(self.params)
+        self.engine = LLMEngine(self.cfg, serving_knobs(),
+                                params=self.params, device=self.dev)
+        self.build_s = time.perf_counter() - t0
+
+    def ready(self):
+        ec = self.engine.config
+        return {"checksum": self.checksum, "build_s": self.build_s,
+                "device": device_name(self.dev),
+                "pid": os.getpid(),
+                "weights_gb": nbytes(self.params) / 1e9,
+                "kv_pool_gb": ec.resolved_num_blocks * ec.kv_block_size
+                * ec.kv_bytes_per_token(self.cfg) / 1e9,
+                "pool_blocks": ec.resolved_num_blocks,
+                "allocated_gb": torch.cuda.memory_allocated() / 1e9
+                if self.dev.type == "cuda" else 0.0}
+
+    def reset_launches(self):
+        from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+        paged_flash_attention.kernel_launches = 0
+
+    def generate(self, prompt, max_new: int):
+        yield from self.engine.generate_sync(prompt, max_new,
+                                             timeout_s=ACTOR_TIMEOUT_S)
+
+    def drained(self):
+        from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+        launches = paged_flash_attention.kernel_launches
+        s = wait_idle(self.engine)
+        return {"stats": s, "launches": launches,
+                "audit": self.engine.pool_audit(),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                if self.dev.type == "cuda" else 0.0}
+
+    def replay(self, prompt, ref_stream, pos: int, actor_tok: int):
+        """The near-tie rule at a divergence, replayed in this process:
+        phase 4's step at the engine's shapes, and the request served
+        alone through this engine."""
+        again = list(self.engine.generate_sync(prompt, SPEC_NEW,
+                                               timeout_s=ACTOR_TIMEOUT_S))
+        row = direct_logits(self.dev, self.cfg, self.params, prompt,
+                            feed=ref_stream[:pos])
+        return near_tie(row, actor_tok, ref_stream[pos], again[pos])
+
+
+def serve_actor(actor, prompts, max_new: int):
+    """Phase 4's pattern through actor calls: request 0 alone until its
+    first token reaches the driver, then the other 15 together; each a
+    streaming call read on its own thread. Returns (streams, TTFT s of
+    each from its submission, wall s)."""
+    import threading
+    import ray_tpu_torch
+    call = actor.generate.options(num_returns="streaming")
+    streams = [[] for _ in prompts]
+    ttft = [None] * len(prompts)
+    errors = []
+    first = threading.Event()
+
+    def client(i, t0, gen):
+        try:
+            while True:
+                try:
+                    ref = gen.next_ref(timeout=ACTOR_TIMEOUT_S)
+                except StopIteration:
+                    break
+                tok = ray_tpu_torch.get(ref, timeout=ACTOR_TIMEOUT_S)
+                if ttft[i] is None:
+                    ttft[i] = time.perf_counter() - t0
+                streams[i].append(tok)
+                first.set()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+            first.set()
+
+    def start(i):
+        t0 = time.perf_counter()
+        th = threading.Thread(target=client,
+                              args=(i, t0, call.remote(prompts[i], max_new)))
+        th.start()
+        return th
+
+    t_start = time.perf_counter()
+    threads = [start(0)]
+    check(first.wait(ACTOR_TIMEOUT_S), "request 0 never produced a token")
+    threads += [start(i) for i in range(1, len(prompts))]
+    for th in threads:
+        th.join(ACTOR_TIMEOUT_S)
+    wall = time.perf_counter() - t_start
+    check(not any(th.is_alive() for th in threads), "a stream never ended")
+    if errors:
+        raise errors[0]
+    return streams, ttft, wall
+
+
+def phase_actor_server(dev, card: str, cfg, seed: int, server, checksum):
+    """R3: GPT-J-6B served from a ``num_gpus=1`` actor: its weights'
+    checksum equals the driver's, phase 4's 16 requests in phase 4's
+    pattern; streams at their length, a clean pool, 28 paged launches per
+    prefill chunk and decode step in the actor, each stream equal to
+    phase 4's or leaving it at a confirmed near tie; tokens/s and TTFT
+    beside phase 4's. The actor is killed and the runtime shut down by
+    the caller."""
+    import ray_tpu_torch
+    check(torch.cuda.memory_allocated() < 1e9,
+          "the driver still holds serving memory")
+    Server = ray_tpu_torch.remote(num_gpus=1, max_concurrency=64)(GPTJServer)
+    t0 = time.perf_counter()
+    actor = Server.remote(seed, cfg, dev.type)
+    info = ray_tpu_torch.get(actor.ready.remote(), timeout=ACTOR_TIMEOUT_S)
+    out = {"card": card, "actor_ready_s": time.perf_counter() - t0,
+           **{k: v for k, v in info.items() if k != "checksum"}}
+    check(info["checksum"] == checksum,
+          "the actor's weights differ from the driver's")
+    check(info["device"] == device_name(dev),
+          f"the actor's card {info['device']!r}")
+    out["actor_forked"] = forked(info["pid"])
+    check(out["actor_forked"], "the actor's worker was not forked from the "
+          "zygote")
+    prompts = make_requests(seed, cfg.vocab_size)
+    ray_tpu_torch.get(actor.reset_launches.remote(), timeout=60)
+    streams, ttft, wall = serve_actor(actor, prompts, 48)
+    d = ray_tpu_torch.get(actor.drained.remote(), timeout=ACTOR_TIMEOUT_S)
+    s = d["stats"]
+    check(all(len(t) == 48 for t in streams),
+          f"stream lengths {[len(t) for t in streams]} != 48")
+    check(d["audit"] == [], f"pool audit after drain: {d['audit']}")
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    check(d["launches"] > 0 and d["launches"] == cfg.n_layers * calls,
+          f"actor paged launches {d['launches']} != {cfg.n_layers} x "
+          f"{calls}")
+    ref = server["streams"]
+    diverged = [(i, first_divergence(a, b))
+                for i, (a, b) in enumerate(zip(streams, ref))]
+    divergences = []
+    for i, pos in [(i, p) for i, p in diverged if p is not None]:
+        v = ray_tpu_torch.get(actor.replay.remote(
+            prompts[i], ref[i], pos, streams[i][pos]),
+            timeout=ACTOR_TIMEOUT_S)
+        divergences.append(dict(request=i, position=pos,
+                                actor=streams[i][pos], phase4=ref[i][pos],
+                                **v))
+        print(f"actor divergence: request {i} position {pos}: "
+              f"{divergences[-1]}", flush=True)
+    tokens = sum(len(t) for t in streams)
+    tt = np.asarray(ttft, dtype=float)
+    out.update({
+        "requests": len(prompts), "generated_tokens": tokens,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ttft_p50_s": float(np.percentile(tt, 50)),
+        "ttft_p99_s": float(np.percentile(tt, 99)),
+        "phase4_tokens_per_s": server["tokens_per_s"],
+        "phase4_ttft_p50_s": server["ttft_p50_s"],
+        "phase4_ttft_p99_s": server["ttft_p99_s"],
+        "prefill_chunks": s["prefill_chunks"],
+        "decode_steps": s["decode_steps"],
+        "phase4_prefill_chunks": server["prefill_chunks"],
+        "phase4_decode_steps": server["decode_steps"],
+        "paged_launches": d["launches"], "actor_peak_mem_gb":
+        d["peak_mem_gb"], "streams_equal":
+        len(prompts) - len(divergences), "divergences": divergences})
+    print("actor_server " + json.dumps(out), flush=True)
+    check(all(v["near_tie"] for v in divergences),
+          f"actor streams leave phase 4's away from a near tie: "
+          f"{divergences}")
+    return actor, out
+
+
+def runtime_phases(dev, card: str, seed: int, server, checksum) -> int:
+    """Phases R1-R3 between the serving and the training phases; the
+    runtime is shut down and the actor's memory back on the card when
+    this returns. Returns R3's paged launch count."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models import get_config
+    cfg = get_config("gptj-6b")
+    t0 = time.perf_counter()
+    phase_store(dev, card, cfg, seed)
+    print(f"phase R1 wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    actor = None
+    try:
+        t0 = time.perf_counter()
+        phase_runtime(dev, card, cfg, seed)
+        print(f"phase R2 wall: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        actor, r3 = phase_actor_server(dev, card, cfg, seed, server,
+                                       checksum)
+    finally:
+        if actor is not None:
+            ray_tpu_torch.kill(actor)
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 60
+    while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
+            and time.monotonic() < deadline:
+        time.sleep(0.5)
+    free1 = torch.cuda.mem_get_info()[0]
+    print(f"phase R3 wall: {time.perf_counter() - t0:.1f} s; card memory "
+          f"free {free0 / 1e9:.2f} GB before R2, {free1 / 1e9:.2f} GB after "
+          f"the actor's kill and shutdown", flush=True)
+    check(free1 >= free0 - (1 << 30),
+          "the actor's card memory did not come back")
+    return r3["paged_launches"]
+
+
 # --------------------------------------------------------------- phase 2
 SOURCES = ("paged_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
            "flash_attention.cu")
@@ -1306,7 +1889,8 @@ def phase_build():
 def serving_phases(dev, card: str, seed: int):
     """Phases 3-6d on GPT-J-6B's serving weights (bf16, 12 GB); the
     weights are released when this returns. Returns the paged kernel's
-    record."""
+    record, phase 4's numbers and streams, and the weights' checksum
+    (phase R3's references)."""
     from ray_tpu_torch.models import get_config, init_params
     shapes = phase_kernels(dev)
     cfg = get_config("gptj-6b")
@@ -1318,6 +1902,7 @@ def serving_phases(dev, card: str, seed: int):
     print(f"params: gptj-6b {cfg.num_params / 1e9:.3f} B parameters, "
           f"{pbytes / 1e9:.2f} GB, made in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    checksum = weights_checksum(params)
     server = phase_server(dev, card, cfg, params, seed)
     phase_e2e(dev, cfg, params, seed)
     phase_profile(dev, cfg, params, seed)
@@ -1325,7 +1910,7 @@ def serving_phases(dev, card: str, seed: int):
     by_name = {r["shape"]: r for r in shapes}
     main_shape = by_name["gptj6b_decode"]    # 28 per step
     verify = by_name["gptj6b_verify"]
-    return {
+    return server, checksum, {
         "name": "paged_attention",
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/paged_attention.cu",
@@ -1865,10 +2450,13 @@ def main(argv=None) -> int:
     print(card, flush=True)
 
     phase_build()
-    kernels = [serving_phases(dev, card, args.seed)]
+    server, checksum, paged = serving_phases(dev, card, args.seed)
+    kernels = [paged]
     torch.cuda.empty_cache()
     print(f"released serving: {torch.cuda.memory_allocated() / 1e9:.3f}"
           f" GB still allocated", flush=True)
+    paged["actor_launches"] = runtime_phases(dev, card, args.seed, server,
+                                             checksum)
     kernels.extend(training_phases(dev, card, args.seed))
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)

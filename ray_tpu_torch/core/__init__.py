@@ -1,3 +1,4 @@
-"""Runtime pieces of the port. So far only the serving metric catalog
-(:mod:`ray_tpu_torch.core.metric_defs`); the controller, scheduler and
-object store are still to be ported."""
+"""The core runtime of the port: ids, config, the wire protocol,
+serialization (torch tensors out of band), the shared-memory object
+store, the reference counter, the scheduler, controller, node manager,
+zygote and workers (copies of ``ray_tpu/core/``)."""

@@ -33,7 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ray_tpu_torch.exceptions import RayTpuTorchError
+from ray_tpu_torch.exceptions import RayTpuError
 from ray_tpu_torch.parallel.quantization import (dequantize_int8,
                                                  quantize_int8, wire_bytes)
 
@@ -43,7 +43,7 @@ _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
 
 
-class DisaggHandoffError(RayTpuTorchError):
+class DisaggHandoffError(RayTpuError):
     """The prefill->decode KV hand-off failed terminally, so callers can
     tell a hand-off failure from an in-decode failure."""
 

@@ -1,18 +1,28 @@
-"""Metrics: Counter / Gauge / Histogram in a process-local registry, and
-the Prometheus text and structured snapshot exports of it.
+"""User-defined metrics: Counter / Gauge / Histogram + Prometheus text.
 
-The port's copy of ``ray_tpu/util/metrics.py``. The periodic fleet
-reporter (``MetricsReporter``) and the ``/metrics`` HTTP endpoint ride
-the distributed runtime, which the port does not have yet; a caller
-reads :func:`export_prometheus` or :func:`export_snapshot` directly.
+Reference: ``python/ray/util/metrics.py`` (``Counter`` :137,
+``Histogram`` :181, ``Gauge`` :256) flowing through the C++
+OpenCensus pipeline to per-node Prometheus endpoints. Here a process-
+local registry aggregates and ``export_prometheus()`` /
+``serve_prometheus(port)`` expose the text format directly.
+
+Fleet export (the cluster metrics plane, ``core/metrics_plane.py``):
+``export_snapshot()`` renders the same registry as structured data —
+cumulative counter values, last-value gauges, histogram bucket vectors
+— and :class:`MetricsReporter` ships those snapshots periodically as
+``METRIC_REPORT`` messages so the controller can aggregate every
+process's metrics into one scrape target (the reference's per-node
+OpenCensus→Prometheus pipeline, collapsed onto our control plane).
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import os
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _registry_lock = threading.Lock()
 _registry: List["Metric"] = []
@@ -89,6 +99,12 @@ class Counter(Metric):
         key = _label_key(self._merged(tags))
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + value
+
+    def bound(self, tags: Optional[Dict[str, str]] = None
+              ) -> "_BoundCounter":
+        """Pre-resolve the label key once; the returned handle's inc()
+        skips tag merging/sorting — for per-task hot paths."""
+        return _BoundCounter(self, _label_key(self._merged(tags)))
 
     def _samples(self) -> List[str]:
         out = [f"# TYPE {self._name} counter"]
@@ -175,6 +191,11 @@ class Histogram(Metric):
                     f"{self._sums[key]}")
         return out
 
+    def bound(self, tags: Optional[Dict[str, str]] = None
+              ) -> "_BoundHistogram":
+        """Pre-resolved-label handle (see Counter.bound)."""
+        return _BoundHistogram(self, _label_key(self._merged(tags)))
+
     def snapshot(self) -> Dict:
         with self._lock:
             samples = [[[list(kv) for kv in key], list(counts),
@@ -188,6 +209,35 @@ class Histogram(Metric):
         with self._lock:
             self._counts.clear()
             self._sums.clear()
+
+
+class _BoundCounter:
+    __slots__ = ("_m", "_key")
+
+    def __init__(self, metric: Counter, key: Tuple):
+        self._m = metric
+        self._key = key
+
+    def inc(self, value: float = 1.0) -> None:
+        m = self._m
+        with m._lock:
+            m._values[self._key] = m._values.get(self._key, 0.0) + value
+
+
+class _BoundHistogram:
+    __slots__ = ("_m", "_key")
+
+    def __init__(self, metric: "Histogram", key: Tuple):
+        self._m = metric
+        self._key = key
+
+    def observe(self, value: float) -> None:
+        m = self._m
+        with m._lock:
+            counts = m._counts.setdefault(
+                self._key, [0] * (len(m._bounds) + 1))
+            counts[bisect.bisect_left(m._bounds, value)] += 1
+            m._sums[self._key] = m._sums.get(self._key, 0.0) + value
 
 
 def _escape(v) -> str:
@@ -252,3 +302,197 @@ def isolated_registry():
         yield
     finally:
         restore_registry(mark)
+
+
+# ---- /metrics HTTP endpoint ------------------------------------------
+_server_lock = threading.Lock()
+_metrics_server = None
+_metrics_thread = None
+
+
+def serve_prometheus(port: int = 0, host: Optional[str] = None) -> int:
+    """Start a /metrics HTTP endpoint; returns the bound port.
+
+    Close-previous semantics: a second call stops the earlier server
+    first (historically the module global was silently overwritten,
+    leaking the old thread and socket). ``host`` defaults to
+    ``RAY_TPU_TORCH_METRICS_BIND_HOST`` (else loopback); bind ``0.0.0.0`` to
+    let an external Prometheus scrape the process."""
+    global _metrics_server, _metrics_thread
+    import threading as _t
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            body = export_prometheus().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    if host is None:
+        host = os.environ.get("RAY_TPU_TORCH_METRICS_BIND_HOST", "127.0.0.1")
+    stop_prometheus()
+    with _server_lock:
+        _metrics_server = ThreadingHTTPServer((host, port), Handler)
+        _metrics_thread = _t.Thread(
+            target=_metrics_server.serve_forever,
+            name="prometheus-metrics", daemon=True)
+        _metrics_thread.start()
+        return _metrics_server.server_address[1]
+
+
+def stop_prometheus(timeout: float = 5.0) -> bool:
+    """Stop the endpoint started by :func:`serve_prometheus` (close the
+    socket, join the thread). Returns True if a server was running."""
+    global _metrics_server, _metrics_thread
+    with _server_lock:
+        server, thread = _metrics_server, _metrics_thread
+        _metrics_server = _metrics_thread = None
+    if server is None:
+        return False
+    try:
+        server.shutdown()
+        server.server_close()
+    except Exception:
+        pass
+    if thread is not None:
+        thread.join(timeout)
+    return True
+
+
+# ---- periodic fleet reporter -----------------------------------------
+#: one ACTIVE reporter per process: the registry is process-global, so
+#: colocated runtimes (head mode hosts controller + node manager +
+#: driver in one process) must not each ship the same snapshot — the
+#: fleet merge would multiply every sample by the number of roles.
+#: The highest-precedence role claims the process; ties go to the
+#: newest claimant (a restarted session supersedes a stale reporter).
+_ROLE_RANK = {"controller": 0, "node": 1, "worker": 2, "driver": 3}
+_active_reporter_lock = threading.Lock()
+_active_reporter: Optional["MetricsReporter"] = None
+
+
+def _claim_reporter(rep: "MetricsReporter") -> bool:
+    global _active_reporter
+    with _active_reporter_lock:
+        cur = _active_reporter
+        rank = _ROLE_RANK.get(rep.origin.get("role"), 2)
+        if cur is None or not cur.active or \
+                rank >= _ROLE_RANK.get(cur.origin.get("role"), 2):
+            if cur is not None:
+                cur.active = False
+            _active_reporter = rep
+            return True
+        return False
+
+
+class MetricsReporter:
+    """Ships this process's metric snapshots to the controller.
+
+    Fire-and-forget like the flight recorder's flush: ``send`` enqueues
+    a ``METRIC_REPORT`` payload into the process's async flusher (the
+    reliable layer gives it exactly-once-effect at the controller; a
+    chaos drop costs a retransmit, never a stall). Reports supersede
+    each other — a snapshot is cumulative — so before shipping a new
+    one the reporter asks ``pending_drop`` to abandon in-flight older
+    reports beyond a small bound (drop-OLDEST, counted in
+    ``runtime_metric_reports_dropped_total``): a dead link can never
+    grow the retransmit ring or block a task."""
+
+    #: in-flight (unacked) reports kept alive; older ones are dropped
+    MAX_PENDING = 4
+
+    def __init__(self, send: Callable[[dict], None], origin: Dict,
+                 interval_s: float = 1.0, enabled: bool = True,
+                 pending_drop: Optional[Callable[[int], int]] = None):
+        self._send = send
+        self.origin = dict(origin)
+        self._interval = interval_s
+        self.enabled = enabled
+        self._pending_drop = pending_drop
+        self._seq = 0
+        self._lock = threading.Lock()
+        self._last = 0.0
+        self.dropped = 0
+        self._dropped_metric = None
+        #: False when another (higher-precedence or newer) reporter in
+        #: this process owns the registry — see _claim_reporter
+        self.active = _claim_reporter(self)
+
+    def _count_drop(self, n: int, reason: str) -> None:
+        self.dropped += n
+        m = self._dropped_metric
+        if m is None:
+            try:
+                from ray_tpu_torch.core.metric_defs import runtime_metrics
+                m = self._dropped_metric = \
+                    runtime_metrics().metric_reports_dropped
+            except Exception:
+                return
+        try:
+            m.inc(n, tags={"reason": reason})
+        except Exception:
+            pass
+
+    def report_now(self) -> Optional[dict]:
+        """Build and ship one snapshot report; returns the payload (or
+        None when disabled / passive / the send path is down). Never
+        raises."""
+        if not self.enabled or not self.active:
+            return None
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+            self._last = time.monotonic()
+        if self._pending_drop is not None:
+            try:
+                stale = self._pending_drop(self.MAX_PENDING - 1)
+                if stale:
+                    self._count_drop(stale, "superseded")
+            except Exception:
+                pass
+        payload = {"origin": self.origin, "seq": seq,
+                   "ts": time.time(), "metrics": export_snapshot()}
+        try:
+            self._send(payload)
+        except Exception:
+            # boot/shutdown window — metrics are observability; losing
+            # a report must not hurt the process
+            self._count_drop(1, "send_failed")
+            return None
+        return payload
+
+    def release(self) -> None:
+        """Process-shutdown hook: give up the process claim so a later
+        runtime in this process (or a colocated lower-precedence one)
+        can report again."""
+        global _active_reporter
+        self.active = False
+        with _active_reporter_lock:
+            if _active_reporter is self:
+                _active_reporter = None
+
+    def maybe_report(self, now: Optional[float] = None) -> None:
+        """Interval-gated report (call from any periodic loop; cheap
+        no-op inside the interval)."""
+        if not self.enabled or not self.active:
+            return
+        if (now or time.monotonic()) - self._last >= self._interval:
+            self.report_now()
+
+
+def make_reporter(send, origin: Dict, config,
+                  pending_drop=None) -> MetricsReporter:
+    """Build a process's reporter from config knobs."""
+    return MetricsReporter(
+        send, origin,
+        interval_s=getattr(config, "metrics_report_interval_ms",
+                           1000) / 1000.0,
+        enabled=getattr(config, "enable_metrics_report", True),
+        pending_drop=pending_drop)

@@ -198,3 +198,123 @@ def test_spec_prompts_repeat_a_segment():
         best = max(np.mean(np.asarray(p[k:]) == np.asarray(p[:-k]))
                    for k in range(16, 49))
         assert best > 0.75     # either of a pair replaced: ~10%
+
+
+# ------------------------------------------------ the runtime phases R1-R3
+def test_runtime_phases_run_between_serving_and_training():
+    """R1-R3 come after the serving phases have released their weights
+    and before the trainer's, in the order store, runtime, actor."""
+    import inspect
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index("serving_phases(") < main.index("runtime_phases(") \
+        < main.index("training_phases(")
+    r = inspect.getsource(chip_smoke.runtime_phases)
+    assert r.index("phase_store(") < r.index("phase_runtime(") \
+        < r.index("phase_actor_server(") < r.index("ray_tpu_torch.kill(") \
+        < r.index("ray_tpu_torch.shutdown()")
+
+
+def test_handoff_slab_is_phase_6c_s_longest_hand_off():
+    """k and v of 22 blocks of 32 tokens over every layer, KV head and
+    head_dim: at GPT-J-6B width the bytes of a 700-token bf16 hand-off
+    (323.0 MB)."""
+    from ray_tpu_torch.models import get_config
+    tiny = get_config("gptj-tiny")
+    slab = chip_smoke.handoff_slab(torch.device("cpu"), tiny, 0)
+    assert set(slab) == {"k", "v"}
+    assert slab["k"].shape == (tiny.n_layers, 22, 32, tiny.kv_heads,
+                               tiny.head_dim)
+    assert slab["k"].dtype == tiny.dtype
+    assert chip_smoke.same_bits(slab, chip_smoke.handoff_slab(
+        torch.device("cpu"), tiny, 0))
+    cfg = get_config("gptj-6b")
+    n = 2 * cfg.n_layers * 22 * 32 * cfg.kv_heads * cfg.head_dim * 2
+    assert n == chip_smoke.handoff_bytes(700, "bf16", cfg) == 322_961_408
+
+
+def test_bit_checks_see_one_bit():
+    a = {"x": torch.zeros(4), "y": [torch.ones(2, dtype=torch.bfloat16)]}
+    b = {"x": torch.zeros(4), "y": [torch.ones(2, dtype=torch.bfloat16)]}
+    assert chip_smoke.same_bits(a, b)
+    b["x"][1] = -0.0                  # equal value, other bits
+    assert not chip_smoke.same_bits(a, b)
+    assert not chip_smoke.same_bits(a, {"x": a["x"]})
+    assert chip_smoke.nbytes(a) == 16 + 4
+    c = {"w": torch.arange(6, dtype=torch.bfloat16),
+         "norm": {"scale": torch.ones(3)}}
+    d = {"w": c["w"].clone(), "norm": {"scale": torch.ones(3)}}
+    assert chip_smoke.weights_checksum(c) == chip_smoke.weights_checksum(d)
+    assert [n for n, _ in chip_smoke.weights_checksum(c)] == \
+        ["norm.scale", "w"]
+    d["w"].view(torch.int16)[3] ^= 1
+    assert chip_smoke.weights_checksum(c) != chip_smoke.weights_checksum(d)
+
+
+def _cpu_card(monkeypatch):
+    """Let the card-only phases run on the CPU: the card's calls become
+    no-ops, and the runtime counts one GPU."""
+    for name, fn in (("synchronize", lambda *a: None),
+                     ("empty_cache", lambda: None),
+                     ("memory_allocated", lambda *a: 0),
+                     ("mem_get_info", lambda *a: (1 << 34, 1 << 36)),
+                     ("reset_peak_memory_stats", lambda *a: None),
+                     ("max_memory_allocated", lambda *a: 0),
+                     ("device_count", lambda: 1)):
+        monkeypatch.setattr(torch.cuda, name, fn)
+
+
+def test_store_phase_on_the_cpu(monkeypatch):
+    """R1 at a small width: the slab, a small tensor and a nested tuple
+    through the serializer and the native store, bits equal."""
+    from ray_tpu_torch.models import get_config
+    _cpu_card(monkeypatch)
+    out = chip_smoke.phase_store(torch.device("cpu"), "cpu",
+                                 get_config("gptj-tiny"), 0)
+    assert out["store"] == "native"
+    assert out["slab_bytes"] == chip_smoke.nbytes(chip_smoke.handoff_slab(
+        torch.device("cpu"), get_config("gptj-tiny"), 0))
+    assert out["wire_bytes"] > out["slab_bytes"]
+
+
+def test_runtime_and_actor_phases_on_the_cpu(monkeypatch):
+    """R2 and R3 at gptj-tiny width on the CPU: the runtime counts the
+    GPU, the slab survives put/get and a num_gpus=1 task, and the actor
+    serves phase 4's requests in phase 4's pattern with the same streams
+    and step counts as the in-process engine. The paged wrapper launches
+    nothing on the CPU, so the two launch checks are the only ones that
+    fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    import ray_tpu_torch
+    from ray_tpu_torch.models import get_config, init_params
+    _cpu_card(monkeypatch)
+    monkeypatch.delenv("RAY_TPU_TORCH_PLATFORM", raising=False)
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    cfg = dataclasses.replace(get_config("gptj-tiny"), max_seq_len=1024)
+    dev = torch.device("cpu")
+    params = init_params(cfg, seed=0, device=dev, dtype=cfg.dtype)
+    server = chip_smoke.phase_server(dev, "cpu", cfg, params, 0)
+    checksum = chip_smoke.weights_checksum(params)
+    actor = None
+    try:
+        r2 = chip_smoke.phase_runtime(dev, "cpu", cfg, 0)
+        actor, r3 = chip_smoke.phase_actor_server(dev, "cpu", cfg, 0,
+                                                  server, checksum)
+    finally:
+        if actor is not None:
+            ray_tpu_torch.kill(actor)
+        ray_tpu_torch.shutdown()
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    assert r2["resources"]["GPU"] == 1.0 and r2["worker_device"] == "cpu"
+    after = r2["gpu_after_default_tasks"]
+    assert len(after["call_s"]) == 3 and 1 <= after["workers"] <= 3
+    assert r3["streams_equal"] == 16 and r3["divergences"] == []
+    assert (r3["prefill_chunks"], r3["decode_steps"]) == \
+        (server["prefill_chunks"], server["decode_steps"])
+    assert r3["paged_launches"] == 0
+    assert len(failed) == 2 and all("launches" in f for f in failed), failed

@@ -447,7 +447,7 @@ def test_concurrent_speculative_streams_no_leaks(port_spec, port_off):
 def test_metrics_registry_exports_as_the_jax_package(pkg):
     """Counter, Gauge and Histogram render the same Prometheus text and
     snapshot in both packages; ``isolated_registry`` drops what it
-    registered; the serving catalog keeps the JAX package's names."""
+    registered; the runtime catalog keeps the JAX package's names."""
     import ray_tpu.core.metric_defs as jax_defs
     import ray_tpu.util.metrics as jax_metrics
     import ray_tpu_torch.core.metric_defs as port_defs
@@ -478,7 +478,11 @@ def test_metrics_registry_exports_as_the_jax_package(pkg):
     assert got[0] == ["t_requests_total", "t_depth", "t_lat"]
     assert got[1:] == want[1:]
     assert 't_lat_bucket{le="+Inf"} 4' in got[1]
-    jax_serve = {m._name for n, m in vars(jax_defs.runtime_metrics()).items()
-                 if n.startswith("serve_") or n == "request_spans_shipped"}
-    port_serve = {m._name for m in vars(port_defs.runtime_metrics()).values()}
-    assert port_serve == jax_serve
+    # the whole runtime catalog since the core runtime's copy, serving
+    # metrics included
+    jax_all = {m._name for m in vars(jax_defs.runtime_metrics()).values()
+               if hasattr(m, "_name")}
+    port_all = {m._name for m in vars(port_defs.runtime_metrics()).values()
+                if hasattr(m, "_name")}
+    assert {n for n in jax_all if n.startswith("serve_")} <= port_all
+    assert port_all == jax_all

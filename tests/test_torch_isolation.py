@@ -4,9 +4,11 @@ port imports, serves (speculative decode, a bf16 KV hand-off, tracing
 included) and takes a train step with all of them made unimportable."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
+import tempfile
 import textwrap
 from pathlib import Path
 
@@ -99,3 +101,186 @@ def test_port_serves_with_jax_and_ray_tpu_unimportable():
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+def _run(script: str, timeout: int = 240, **env_extra) -> str:
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu",
+               RAY_TPU_JAX_PLATFORM="cpu", RAY_TPU_TORCH_PLATFORM="cpu",
+               **env_extra)
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(script)],
+                          cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK"), proc.stdout
+    return proc.stdout
+
+
+def test_runtime_runs_with_jax_and_ray_tpu_unimportable():
+    """init, a task, an actor, put/get of tensors and shutdown with the
+    JAX packages unimportable in the driver; the worker imported none of
+    them either."""
+    _run("""
+        import sys
+        for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu",
+                     "ml_dtypes"):
+            sys.modules[name] = None      # any import of them now fails
+        import torch
+        import ray_tpu_torch
+        ray_tpu_torch.init(num_cpus=2, _num_initial_workers=1)
+        try:
+            @ray_tpu_torch.remote
+            def scale(t, k):
+                import sys
+                seen = sorted({m.split(".")[0] for m in sys.modules}
+                              & {"jax", "jaxlib", "ray_tpu", "ml_dtypes"})
+                return t * k, seen
+
+            @ray_tpu_torch.remote
+            class Acc:
+                def __init__(self):
+                    self.total = torch.zeros(4, dtype=torch.bfloat16)
+
+                def add(self, t):
+                    self.total += t
+                    return self.total
+
+            t = torch.arange(4096, dtype=torch.float32).to(torch.bfloat16)
+            out, seen = ray_tpu_torch.get(scale.remote(t, 2), timeout=120)
+            assert torch.equal(out, t * 2) and seen == [], seen
+            ref = ray_tpu_torch.put(t)
+            assert torch.equal(ray_tpu_torch.get(ref, timeout=60), t)
+            acc = Acc.remote()
+            one = torch.ones(4, dtype=torch.bfloat16)
+            ray_tpu_torch.get(acc.add.remote(one), timeout=120)
+            assert ray_tpu_torch.get(acc.add.remote(one),
+                                     timeout=60).tolist() == [2.0] * 4
+        finally:
+            ray_tpu_torch.shutdown()
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """)
+
+
+def test_a_jax_session_and_a_port_session_share_nothing():
+    """A JAX session, then a port session, in one process: distinct
+    session dirs and shm prefixes, each package's own global worker, and
+    nothing of either left in /dev/shm."""
+    _run("""
+        import json, os
+        import ray_tpu, ray_tpu_torch
+        from ray_tpu.core.global_state import try_global_worker as jax_w
+        from ray_tpu_torch.core.global_state import (
+            try_global_worker as port_w)
+        seen = {}
+        for name, pkg in (("jax", ray_tpu), ("port", ray_tpu_torch)):
+            info = pkg.init(num_cpus=1, _num_initial_workers=1)
+            with open(os.path.join(info["session_dir"], "session.json")) as f:
+                shm = json.load(f)["shm_session"]
+            @pkg.remote
+            def one():
+                return 1
+            assert pkg.get(one.remote(), timeout=120) == 1
+            assert (jax_w() is not None) == (name == "jax")
+            assert (port_w() is not None) == (name == "port")
+            pkg.shutdown()
+            seen[name] = (info["session_dir"], shm)
+        (jdir, jshm), (pdir, pshm) = seen["jax"], seen["port"]
+        assert os.path.dirname(jdir) != os.path.dirname(pdir), seen
+        assert jshm.startswith("raytpu-") and pshm.startswith("raytorch-")
+        left = [f for f in os.listdir("/dev/shm")
+                if os.path.basename(jdir) in f or os.path.basename(pdir) in f]
+        assert not left, left
+        print("OK")
+    """)
+
+
+def test_the_jax_address_variable_does_not_reach_the_port():
+    """With ``RAY_TPU_ADDRESS`` (the JAX package's) naming a live JAX
+    session, ``ray_tpu_torch.init()`` starts a session of its own; the
+    port reads ``RAY_TPU_TORCH_ADDRESS``."""
+    _run("""
+        import os
+        import ray_tpu, ray_tpu_torch
+        jax_dir = ray_tpu.init(num_cpus=1, _num_initial_workers=0)[
+            "session_dir"]
+        try:
+            os.environ["RAY_TPU_ADDRESS"] = jax_dir
+            info = ray_tpu_torch.init(num_cpus=1, _num_initial_workers=1)
+            try:
+                port_dir = info["session_dir"]
+                assert port_dir != jax_dir, port_dir
+                assert os.path.dirname(port_dir) == \\
+                    ray_tpu_torch.api.session_root(), port_dir
+                @ray_tpu_torch.remote
+                def session():
+                    import os
+                    return os.environ["RAY_TPU_TORCH_SESSION_DIR"]
+                assert ray_tpu_torch.get(session.remote(),
+                                         timeout=120) == port_dir
+            finally:
+                ray_tpu_torch.shutdown()
+        finally:
+            ray_tpu.shutdown()
+        print("OK")
+    """)
+
+
+def test_a_long_temp_dir_keeps_the_session_inside_it(tmp_path):
+    """A temp dir too long for a unix socket path still holds the whole
+    session: its sockets (the controller's, the direct channels', the
+    zygote's) take abstract names, a zygote-forked actor and a task run,
+    nothing of the session appears in the default temp dir, and shutdown
+    leaves nothing in /dev/shm."""
+    long_tmp = tmp_path / ("t" * 60) / ("u" * 40)
+    long_tmp.mkdir(parents=True)
+    out = _run("""
+        import json, os, sys, tempfile
+        sys.path.insert(0, os.getcwd())
+        import chip_smoke
+        import ray_tpu_torch
+        from ray_tpu_torch import api
+        from ray_tpu_torch.core import protocol as P
+        from ray_tpu_torch.core.config import get_config
+        info = ray_tpu_torch.init(num_cpus=2, _num_initial_workers=0,
+                                  _system_config={"prestart_workers": 0})
+        sdir = info["session_dir"]
+        try:
+            with open(os.path.join(sdir, "session.json")) as f:
+                shm = json.load(f)["shm_session"]
+            names = {"controller": P.socket_path(sdir),
+                     "zygote": api._head.node._zygote_sock}
+            holders, _ = chip_smoke.start_zygote()
+            pid = ray_tpu_torch.get(holders[0].pid.remote(), timeout=60)
+            actor = chip_smoke._Holder
+            forked = ray_tpu_torch.remote(num_cpus=0)(actor).remote()
+            assert chip_smoke.forked(ray_tpu_torch.get(
+                forked.pid.remote(), timeout=120))
+            @ray_tpu_torch.remote
+            def session():
+                import os
+                return os.environ["RAY_TPU_TORCH_SESSION_DIR"]
+            assert ray_tpu_torch.get(session.remote(), timeout=120) == sdir
+            spill = get_config().spill_dir
+        finally:
+            ray_tpu_torch.shutdown()
+        print(json.dumps({"session_dir": sdir, "shm": shm, "names": names,
+                          "tmp": tempfile.gettempdir(), "spill": spill}))
+        print("OK")
+    """, TMPDIR=str(long_tmp))
+    rec = json.loads(out.strip().splitlines()[-2])
+    assert rec["tmp"] == str(long_tmp)
+    sdir = rec["session_dir"]
+    assert sdir.startswith(str(long_tmp) + os.sep), sdir
+    assert rec["spill"].startswith(str(long_tmp) + os.sep), rec["spill"]
+    assert rec["names"]["controller"].startswith("ipc://@raytorch-")
+    assert rec["names"]["zygote"].startswith("@raytorch-")
+    # no socket file and no session anywhere but under the long temp dir
+    name = os.path.basename(sdir)
+    for root in {tempfile.gettempdir(), "/tmp"}:
+        assert not os.path.exists(os.path.join(root, "ray_tpu_torch", name))
+    assert not [p for p in Path(sdir).rglob("*") if p.is_socket()]
+    left = [f for f in os.listdir("/dev/shm") if rec["shm"] in f]
+    assert not left, left

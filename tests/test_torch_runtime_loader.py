@@ -1,0 +1,146 @@
+"""Run the JAX package's ``tests/core`` bodies on the port's runtime.
+
+Each ``tests/test_torch_runtime_<name>.py`` file loads
+``tests/core/test_<name>.py`` with :func:`load_core_tests`: the source is
+read, ``ray_tpu`` is rewritten to ``ray_tpu_torch`` on word boundaries
+and ``RAY_TPU_<NAME>`` environment variables to ``RAY_TPU_TORCH_<NAME>``,
+every ``ray_tpu_torch.get``/``ray_tpu_torch.wait`` call without a timeout
+gets one of ``DEFAULT_TIMEOUT_S``, and the result is compiled as a new
+module registered with ``cloudpickle.register_pickle_by_value``, so
+workers receive its functions by value and never import the JAX test
+module or ``ray_tpu``. The file then takes the module's tests, fixtures
+and helpers into its own namespace, less the bodies it leaves out (each
+named with its reason), beside this module's fixtures: the
+``tests/conftest.py`` fixtures ``ray_start_regular``/``ray_start_shared``
+on the port's runtime, and a metrics-registry reset for the port's
+registry.
+
+The tests of this file check the loader itself.
+"""
+
+import ast
+import os
+import re
+import sys
+import types
+from pathlib import Path
+
+import cloudpickle
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+JAX_CORE = ROOT / "tests" / "core"
+#: a get or wait in a loaded body that names no timeout gets this one
+DEFAULT_TIMEOUT_S = 120.0
+
+# Port workers stay off the card, as tests/conftest.py keeps the JAX
+# package's workers on the CPU platform (RAY_TPU_JAX_PLATFORM).
+os.environ.setdefault("RAY_TPU_TORCH_PLATFORM", "cpu")
+
+
+class _TimeoutDefaults(ast.NodeTransformer):
+    """``ray_tpu_torch.get(...)``/``.wait(...)`` without ``timeout=``
+    gain ``timeout=DEFAULT_TIMEOUT_S``."""
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        f = node.func
+        if isinstance(f, ast.Attribute) and f.attr in ("get", "wait") \
+                and isinstance(f.value, ast.Name) \
+                and f.value.id == "ray_tpu_torch" \
+                and not any(k.arg in ("timeout", None) for k in node.keywords):
+            node.keywords.append(ast.keyword(
+                arg="timeout", value=ast.Constant(DEFAULT_TIMEOUT_S)))
+        return node
+
+
+def port_source(filename: str) -> str:
+    """The JAX test file's source with ``ray_tpu`` renamed, and its
+    environment variables: the port reads ``RAY_TPU_TORCH_<NAME>`` where
+    the JAX package reads ``RAY_TPU_<NAME>``, and its worker platform
+    switch is ``RAY_TPU_TORCH_PLATFORM``."""
+    src = (JAX_CORE / filename).read_text()
+    src = re.sub(r"\bray_tpu\b", "ray_tpu_torch", src)
+    src = src.replace("RAY_TPU_JAX_PLATFORM", "RAY_TPU_TORCH_PLATFORM")
+    return re.sub(r"\bRAY_TPU_(?!TORCH_)", "RAY_TPU_TORCH_", src)
+
+
+def load_core_tests(filename: str, leave_out=None) -> dict:
+    """Compile ``tests/core/<filename>`` against the port and return the
+    names a test file takes into its namespace: everything the module
+    defines or imports, less the tests in ``leave_out`` (name -> why)."""
+    path = JAX_CORE / filename
+    tree = ast.parse(port_source(filename), filename=str(path))
+    tree = ast.fix_missing_locations(_TimeoutDefaults().visit(tree))
+    name = "ray_tpu_torch_port_" + Path(filename).stem
+    mod = types.ModuleType(name)
+    mod.__file__ = str(path)
+    sys.modules[name] = mod
+    exec(compile(tree, str(path), "exec"), mod.__dict__)
+    cloudpickle.register_pickle_by_value(mod)
+    leave_out = dict(leave_out or {})
+    missing = set(leave_out) - set(vars(mod))
+    assert not missing, f"{filename} has no {sorted(missing)}"
+    return {k: v for k, v in vars(mod).items()
+            if not k.startswith("__") and k not in leave_out}
+
+
+@pytest.fixture
+def ray_start_regular():
+    import ray_tpu_torch
+    info = ray_tpu_torch.init(num_cpus=4, _num_initial_workers=2,
+                              ignore_reinit_error=True)
+    yield info
+    ray_tpu_torch.shutdown()
+
+
+@pytest.fixture(scope="module")
+def ray_start_shared():
+    import ray_tpu_torch
+    info = ray_tpu_torch.init(num_cpus=4, _num_initial_workers=2,
+                              ignore_reinit_error=True)
+    yield info
+    ray_tpu_torch.shutdown()
+
+
+@pytest.fixture(autouse=True)
+def _port_metrics_registry_isolation():
+    """The port's twin of tests/conftest.py's registry reset: metrics a
+    test registers are dropped afterwards; the runtime catalog is pinned
+    first so it is never dropped."""
+    from ray_tpu_torch.core.metric_defs import runtime_metrics
+    from ray_tpu_torch.util import metrics as mx
+    runtime_metrics()
+    mark = mx.registry_snapshot()
+    yield
+    mx.restore_registry(mark)
+
+
+FIXTURES = {"ray_start_regular": ray_start_regular,
+            "ray_start_shared": ray_start_shared,
+            "_port_metrics_registry_isolation":
+                _port_metrics_registry_isolation}
+
+
+@pytest.mark.parametrize("filename", sorted(
+    p.name for p in JAX_CORE.glob("test_*.py")))
+def test_rewrite_leaves_no_jax_package_import(filename):
+    """After the rewrite no import names the JAX package."""
+    tree = ast.parse(port_source(filename))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    assert "ray_tpu" not in roots
+
+
+def test_gets_and_waits_gain_a_timeout():
+    src = ("ray_tpu_torch.get(r)\nray_tpu_torch.wait(rs, num_returns=1)\n"
+           "ray_tpu_torch.get(r, timeout=5)\nray_tpu_torch.get(**kw)\n")
+    out = ast.unparse(_TimeoutDefaults().visit(ast.parse(src)))
+    assert out.splitlines() == [
+        f"ray_tpu_torch.get(r, timeout={DEFAULT_TIMEOUT_S})",
+        f"ray_tpu_torch.wait(rs, num_returns=1, timeout={DEFAULT_TIMEOUT_S})",
+        "ray_tpu_torch.get(r, timeout=5)", "ray_tpu_torch.get(**kw)"]
