@@ -89,7 +89,10 @@ R2. The runtime on the card: ``ray_tpu_torch.init`` counts the card as
    ``GPU``; the slab through ``put``/``get``, and as the argument and
    the return of a ``num_gpus=1`` task that moves it to its card (bits
    and per-leaf checksums equal, the worker's card is this card); init
-   wall, warm task round trip, the slab's ms and GB/s.
+   wall, warm task round trip, the slab's ms and GB/s; three GPU calls
+   made after default-shape tasks run on one worker, none of them new
+   (the controller keeps a worker that ran a GPU task out of the
+   driver's default-shape leases).
 R3. GPT-J-6B served from a ``num_gpus=1`` actor: the actor builds the
    engine at full depth with phase 4's knobs from phase 4's seed (its
    weights' checksum equals the driver's) and answers phase 4's 16
@@ -99,7 +102,31 @@ R3. GPT-J-6B served from a ``num_gpus=1`` actor: the actor builds the
    equals phase 4's or first leaves it at a near tie (``near_tie``, the
    replays run in the actor); tokens/s and TTFT beside phase 4's. The
    actor is killed and the runtime shut down; the card's free memory
-   comes back before the trainer's phases.
+   comes back.
+S1. GPT-J-6B through ``serve.run`` and HTTP, on a runtime of its own:
+   ``serve.deployment(LLMServer, ray_actor_options={"num_gpus": 1})``
+   with phase 4's model (as a plain dict, ``"dtype": "bfloat16"``),
+   knobs (``max_new_tokens=48``) and seed; the replica's weights'
+   checksum equals the driver's and it serves from this card. Phase 4's
+   16 requests go over HTTP to the proxy in phase 4's pattern, each read
+   on its own thread as JSON lines, then one streaming handle call for
+   request 0. Streams reach 48 tokens and equal phase 4's or leave them
+   at a confirmed near tie (replayed in the replica, reached through the
+   runtime's generic actor call), the pool audits clean, and the
+   replica's paged launches equal 28 x (prefill chunks + decode steps).
+   Tokens/s and TTFT p50/p99 beside phase 4's and R3's, the replica's
+   ready time and peak memory.
+S2. The disaggregated pair, on a runtime of its own:
+   ``deploy_disaggregated(model, engine, num_prefill=1, num_decode=1,
+   route_prefix="/pd")`` at phase 4's knobs on the bf16 wire; phase 4's
+   4 longest prompts over HTTP as ``{"prompt", "max_new_tokens": 48}``.
+   Streams equal phase 4's or leave them at a confirmed near tie, both
+   pools audit clean, each replica's paged launches equal 28 x its own
+   chunks and steps, and the bytes shipped equal ``kv_ship_bytes``;
+   TTFT, and export, ship and adopt ms and bytes a hand-off (the KV goes
+   card -> host -> shm -> host -> card). After each of S1 and S2,
+   ``serve.shutdown()`` kills the replicas and the runtime is shut down;
+   the card's free memory comes back before the trainer's phases.
 7. The four flash kernels (forward, delta, dK/dV, dQ) against their plain
    versions at GPT-J-6B's training shape (B=2, H=16, S=2048, D=256, bf16,
    causal), ``entry()``'s (B=2, H=4, S=256, D=128, bf16), a cross-length
@@ -109,12 +136,14 @@ R3. GPT-J-6B served from a ``num_gpus=1`` actor: the actor builds the
    absolutely; at the training shape ``kernel_ms``, ``plain_ms``,
    ``bound_ms`` (from the products each kernel does on the causal pairs
    of this run, or for delta the bytes of O and dO) and ``library_ms``
-   (SDPA with ``is_causal=True`` for the forward; SDPA's backward, timed
-   as forward+backward minus forward, the median of 5 windows of 20
-   calls with their minimum and maximum, for the three backward
-   kernels), the achieved share of the bound and TFLOP/s (GB/s for
-   delta), and ``flash_backward_total`` (delta + dK/dV + dQ against
-   14 x D flops a pair and SDPA's backward); kernels timed over a CUDA
+   (SDPA with ``is_causal=True`` for the forward; one
+   ``torch.linalg.vecdot(o, do, dim=-1)`` for delta, which also carries
+   SDPA's backward as ``sdpa_backward_ms``; SDPA's backward, timed as
+   forward+backward minus forward, the median of 5 windows of 20 calls
+   with their minimum and maximum, for dK/dV and dQ), the achieved share
+   of the bound and TFLOP/s (GB/s for delta), and
+   ``flash_backward_total`` (delta + dK/dV + dQ against 14 x D flops a
+   pair and SDPA's backward); kernels timed over a CUDA
    graph of 20 launches, the others with CUDA events around calls.
 8. The trainer: ``make_train_step`` at GPT-J-6B width cut to 8 of its 28
    layers (f32 masters and AdamW moments for all 28 would not fit 80 GB),
@@ -137,7 +166,8 @@ R3. GPT-J-6B served from a ``num_gpus=1`` actor: the actor builds the
 
 Before them the script's total wall is printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
-verify shape's ``verify_*`` fields and R3's ``actor_launches``); the last
+verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
+``serve_launches`` and S2's ``disagg_launches``, both replicas'); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1279,13 +1309,17 @@ ACTOR_TIMEOUT_S = 600.0
 
 def weights_checksum(params):
     """One integer per leaf: the sum of its bit patterns (as 16- or
-    32-bit integers), summed on the card in int64. Equal lists mean the
-    same seed drew the same tree."""
+    32-bit integers), summed on the card in int64 a slice of the leading
+    axis at a time (a whole stacked leaf in int64 would take 15 GB at
+    GPT-J-6B). Equal lists mean the same seed drew the same tree."""
     out = []
     for name, t in sorted(_named(params)):
         ints = torch.int16 if t.element_size() == 2 else torch.int32
-        out.append([name, int(t.detach().contiguous().reshape(-1)
-                              .view(ints).sum(dtype=torch.int64))])
+        flat = t.detach().contiguous().view(ints)
+        rows = flat.reshape(flat.shape[0], -1) if flat.dim() > 1 \
+            else flat.reshape(1, -1)
+        out.append([name, sum(int(r.sum(dtype=torch.int64))
+                              for r in rows)])
     return out
 
 
@@ -1509,8 +1543,8 @@ def phase_runtime(dev, card: str, cfg, seed: int):
     card. Init wall, the first GPU call (a fork that makes its CUDA
     context), the slab's put/get and task round trip (on the worker
     that made the first call), a warm task round trip, and GPU calls
-    made after default-shape tasks (:func:`gpu_calls_after_default_tasks`,
-    an open fault)."""
+    made after default-shape tasks (:func:`gpu_calls_after_default_tasks`:
+    one worker, none new)."""
     import ray_tpu_torch
     t0 = time.perf_counter()
     info = ray_tpu_torch.init(num_cpus=4, _num_initial_workers=0,
@@ -1537,9 +1571,8 @@ def phase_runtime(dev, card: str, cfg, seed: int):
     out["put"], out["get"] = rate(n, t_put), rate(n, t_get)
     del ref, got
 
-    # the slab's GPU calls come before any default-shape task: those
-    # lease every idle worker to the driver, and each GPU call may then
-    # fork a new worker and make a new CUDA context (measured at the end)
+    # the slab's GPU calls come first; GPU calls made after
+    # default-shape tasks are checked at the end
     on_card = ray_tpu_torch.remote(num_gpus=1)(_slab_on_card)
     t0 = time.perf_counter()
     first = ray_tpu_torch.get(
@@ -1576,8 +1609,11 @@ def phase_runtime(dev, card: str, cfg, seed: int):
     for _ in range(20):
         ray_tpu_torch.get(noop.remote(), timeout=60)
     out["task_round_trip_ms"] = 1e3 * (time.perf_counter() - t0) / 20
-    out["gpu_after_default_tasks"] = gpu_calls_after_default_tasks(
+    after = out["gpu_after_default_tasks"] = gpu_calls_after_default_tasks(
         on_card, dev, out["worker_pids"])
+    check(after["workers"] == 1 and after["new_workers"] == 0,
+          f"GPU calls after default-shape tasks ran on {after['workers']} "
+          f"workers, {after['new_workers']} of them new")
     for h in holders:
         ray_tpu_torch.kill(h)
     print("runtime " + json.dumps(out), flush=True)
@@ -1585,13 +1621,15 @@ def phase_runtime(dev, card: str, cfg, seed: int):
 
 
 def gpu_calls_after_default_tasks(on_card, dev, gpu_pids, calls: int = 3):
-    """An open fault of the runtime, measured: once default-shape tasks
-    have run, the idle workers stay leased to the driver, and each
-    ``num_gpus=1`` call may fork a new worker that makes a new CUDA
-    context of its own. Three small GPU calls after R2's default-shape
-    tasks: the wall of each, how many workers served them, how many of
-    those are not the workers of R2's earlier GPU calls, and the node's
-    worker count before and after."""
+    """A repaired fault of the runtime, measured: default-shape tasks
+    lease idle workers to the driver, and a ``num_gpus=1`` call made
+    after them once forked a new worker with a CUDA context of its own.
+    The controller now keeps a worker that ran a GPU task out of those
+    leases and prefers it for the next one. Three small GPU calls after
+    R2's default-shape tasks: the wall of each, how many workers served
+    them, how many of those are not the workers of R2's earlier GPU
+    calls, and the node's worker count before and after (the caller
+    checks one worker, none new)."""
     import ray_tpu_torch
     from ray_tpu_torch import api
     node = api._head.node
@@ -1614,6 +1652,47 @@ def gpu_calls_after_default_tasks(on_card, dev, gpu_pids, calls: int = 3):
             "node_workers_after": len(node.workers)}
 
 
+def engine_ready(engine):
+    """What a process serving ``engine`` reports once built: its weights'
+    checksum, its card, pid, weight and KV pool sizes, memory held."""
+    ec, cfg, dev = engine.config, engine.model_config, engine.device
+    return {"checksum": weights_checksum(engine._params),
+            "device": device_name(dev), "pid": os.getpid(),
+            "weights_gb": nbytes(engine._params) / 1e9,
+            "kv_pool_gb": ec.resolved_num_blocks * ec.kv_block_size
+            * ec.kv_bytes_per_token(cfg) / 1e9,
+            "pool_blocks": ec.resolved_num_blocks,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9
+            if dev.type == "cuda" else 0.0}
+
+
+def reset_launches():
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+    paged_flash_attention.kernel_launches = 0
+
+
+def engine_drained(engine):
+    """This process's paged launches, and ``engine``'s stats and pool
+    audit once it is idle, with the process's peak card memory."""
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+    s = wait_idle(engine)
+    return {"stats": s, "launches": paged_flash_attention.kernel_launches,
+            "audit": engine.pool_audit(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+            if engine.device.type == "cuda" else 0.0}
+
+
+def engine_replay(engine, prompt, ref_stream, pos: int, served_tok: int):
+    """The near-tie rule at a divergence, replayed in the process that
+    served it: phase 4's step at the engine's shapes, and the request
+    served alone through ``engine``."""
+    again = list(engine.generate_sync(prompt, SPEC_NEW,
+                                      timeout_s=ACTOR_TIMEOUT_S))
+    row = direct_logits(engine.device, engine.model_config, engine._params,
+                        prompt, feed=ref_stream[:pos])
+    return near_tie(row, served_tok, ref_stream[pos], again[pos])
+
+
 class GPTJServer:
     """R3's actor: GPT-J-6B at full depth behind ``LLMEngine`` with phase
     4's knobs, built in its own worker on its own CUDA context."""
@@ -1621,77 +1700,47 @@ class GPTJServer:
     def __init__(self, seed: int, cfg, device: str = "cuda"):
         from ray_tpu_torch.models import init_params
         from ray_tpu_torch.serve import LLMEngine
-        self.dev = torch.device(device)
-        self.cfg = cfg
+        dev = torch.device(device)
         t0 = time.perf_counter()
-        self.params = init_params(self.cfg, seed=seed, device=self.dev,
-                                  dtype=self.cfg.dtype)
-        self.checksum = weights_checksum(self.params)
-        self.engine = LLMEngine(self.cfg, serving_knobs(),
-                                params=self.params, device=self.dev)
+        params = init_params(cfg, seed=seed, device=dev, dtype=cfg.dtype)
+        self.engine = LLMEngine(cfg, serving_knobs(), params=params,
+                                device=dev)
         self.build_s = time.perf_counter() - t0
 
     def ready(self):
-        ec = self.engine.config
-        return {"checksum": self.checksum, "build_s": self.build_s,
-                "device": device_name(self.dev),
-                "pid": os.getpid(),
-                "weights_gb": nbytes(self.params) / 1e9,
-                "kv_pool_gb": ec.resolved_num_blocks * ec.kv_block_size
-                * ec.kv_bytes_per_token(self.cfg) / 1e9,
-                "pool_blocks": ec.resolved_num_blocks,
-                "allocated_gb": torch.cuda.memory_allocated() / 1e9
-                if self.dev.type == "cuda" else 0.0}
+        return dict(engine_ready(self.engine), build_s=self.build_s)
 
     def reset_launches(self):
-        from ray_tpu_torch.ops.paged_flash import paged_flash_attention
-        paged_flash_attention.kernel_launches = 0
+        reset_launches()
 
     def generate(self, prompt, max_new: int):
         yield from self.engine.generate_sync(prompt, max_new,
                                              timeout_s=ACTOR_TIMEOUT_S)
 
     def drained(self):
-        from ray_tpu_torch.ops.paged_flash import paged_flash_attention
-        launches = paged_flash_attention.kernel_launches
-        s = wait_idle(self.engine)
-        return {"stats": s, "launches": launches,
-                "audit": self.engine.pool_audit(),
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
-                if self.dev.type == "cuda" else 0.0}
+        return engine_drained(self.engine)
 
     def replay(self, prompt, ref_stream, pos: int, actor_tok: int):
-        """The near-tie rule at a divergence, replayed in this process:
-        phase 4's step at the engine's shapes, and the request served
-        alone through this engine."""
-        again = list(self.engine.generate_sync(prompt, SPEC_NEW,
-                                               timeout_s=ACTOR_TIMEOUT_S))
-        row = direct_logits(self.dev, self.cfg, self.params, prompt,
-                            feed=ref_stream[:pos])
-        return near_tie(row, actor_tok, ref_stream[pos], again[pos])
+        return engine_replay(self.engine, prompt, ref_stream, pos,
+                             actor_tok)
 
 
-def serve_actor(actor, prompts, max_new: int):
-    """Phase 4's pattern through actor calls: request 0 alone until its
-    first token reaches the driver, then the other 15 together; each a
-    streaming call read on its own thread. Returns (streams, TTFT s of
-    each from its submission, wall s)."""
+def serve_pattern(open_stream, n: int):
+    """Phase 4's pattern: stream 0 alone until its first token reaches
+    the driver, then streams 1..n-1 together, each read on its own
+    thread. ``open_stream(i)``, called in turn on this thread, gives
+    stream i's tokens (a generator defers its own opening to the
+    reading thread). Returns (streams, TTFT s of each from its opening,
+    wall s)."""
     import threading
-    import ray_tpu_torch
-    call = actor.generate.options(num_returns="streaming")
-    streams = [[] for _ in prompts]
-    ttft = [None] * len(prompts)
+    streams = [[] for _ in range(n)]
+    ttft = [None] * n
     errors = []
     first = threading.Event()
 
-    def client(i, t0, gen):
+    def client(i, t0, tokens):
         try:
-            while True:
-                try:
-                    ref = gen.next_ref(timeout=ACTOR_TIMEOUT_S)
-                except StopIteration:
-                    break
-                tok = ray_tpu_torch.get(ref, timeout=ACTOR_TIMEOUT_S)
+            for tok in tokens:
                 if ttft[i] is None:
                     ttft[i] = time.perf_counter() - t0
                 streams[i].append(tok)
@@ -1702,15 +1751,14 @@ def serve_actor(actor, prompts, max_new: int):
 
     def start(i):
         t0 = time.perf_counter()
-        th = threading.Thread(target=client,
-                              args=(i, t0, call.remote(prompts[i], max_new)))
+        th = threading.Thread(target=client, args=(i, t0, open_stream(i)))
         th.start()
         return th
 
     t_start = time.perf_counter()
     threads = [start(0)]
     check(first.wait(ACTOR_TIMEOUT_S), "request 0 never produced a token")
-    threads += [start(i) for i in range(1, len(prompts))]
+    threads += [start(i) for i in range(1, n)]
     for th in threads:
         th.join(ACTOR_TIMEOUT_S)
     wall = time.perf_counter() - t_start
@@ -1718,6 +1766,41 @@ def serve_actor(actor, prompts, max_new: int):
     if errors:
         raise errors[0]
     return streams, ttft, wall
+
+
+def serve_actor(actor, prompts, max_new: int):
+    """Phase 4's pattern through streaming actor calls."""
+    import ray_tpu_torch
+    call = actor.generate.options(num_returns="streaming")
+
+    def tokens(gen):
+        while True:
+            try:
+                ref = gen.next_ref(timeout=ACTOR_TIMEOUT_S)
+            except StopIteration:
+                return
+            yield ray_tpu_torch.get(ref, timeout=ACTOR_TIMEOUT_S)
+
+    # each call is made on this thread, as it is opened
+    return serve_pattern(
+        lambda i: tokens(call.remote(prompts[i], max_new)), len(prompts))
+
+
+def confirm_divergences(streams, ref, replay, who: str):
+    """Each stream's first divergence from phase 4's ``ref`` (same
+    indices), replayed by ``replay(i, pos)`` under the near-tie rule;
+    every one printed, and each must be a confirmed near tie."""
+    divergences = []
+    for i, (a, b) in enumerate(zip(streams, ref)):
+        pos = first_divergence(a, b)
+        if pos is None:
+            continue
+        v = replay(i, pos)
+        divergences.append(dict(request=i, position=pos, served=a[pos],
+                                phase4=b[pos], **v))
+        print(f"{who} divergence: request {i} position {pos}: "
+              f"{divergences[-1]}", flush=True)
+    return divergences
 
 
 def phase_actor_server(dev, card: str, cfg, seed: int, server, checksum):
@@ -1757,18 +1840,10 @@ def phase_actor_server(dev, card: str, cfg, seed: int, server, checksum):
           f"actor paged launches {d['launches']} != {cfg.n_layers} x "
           f"{calls}")
     ref = server["streams"]
-    diverged = [(i, first_divergence(a, b))
-                for i, (a, b) in enumerate(zip(streams, ref))]
-    divergences = []
-    for i, pos in [(i, p) for i, p in diverged if p is not None]:
-        v = ray_tpu_torch.get(actor.replay.remote(
+    divergences = confirm_divergences(
+        streams, ref, lambda i, pos: ray_tpu_torch.get(actor.replay.remote(
             prompts[i], ref[i], pos, streams[i][pos]),
-            timeout=ACTOR_TIMEOUT_S)
-        divergences.append(dict(request=i, position=pos,
-                                actor=streams[i][pos], phase4=ref[i][pos],
-                                **v))
-        print(f"actor divergence: request {i} position {pos}: "
-              f"{divergences[-1]}", flush=True)
+            timeout=ACTOR_TIMEOUT_S), "actor")
     tokens = sum(len(t) for t in streams)
     tt = np.asarray(ttft, dtype=float)
     out.update({
@@ -1793,10 +1868,10 @@ def phase_actor_server(dev, card: str, cfg, seed: int, server, checksum):
     return actor, out
 
 
-def runtime_phases(dev, card: str, seed: int, server, checksum) -> int:
+def runtime_phases(dev, card: str, seed: int, server, checksum):
     """Phases R1-R3 between the serving and the training phases; the
     runtime is shut down and the actor's memory back on the card when
-    this returns. Returns R3's paged launch count."""
+    this returns. Returns R3's record."""
     import ray_tpu_torch
     from ray_tpu_torch.models import get_config
     cfg = get_config("gptj-6b")
@@ -1828,7 +1903,257 @@ def runtime_phases(dev, card: str, seed: int, server, checksum) -> int:
           f"the actor's kill and shutdown", flush=True)
     check(free1 >= free0 - (1 << 30),
           "the actor's card memory did not come back")
-    return r3["paged_launches"]
+    return r3
+
+
+# ---------------------------------------------------------- phases S1-S2
+DISAGG_PROMPTS = 4
+
+
+def model_dict(cfg):
+    """A model config as the plain dict a deployment ships, its dtype by
+    name (phase 4's: ``"bfloat16"``)."""
+    return dict(dataclasses.asdict(cfg),
+                dtype=str(cfg.dtype).split(".")[-1])
+
+
+def engine_dict(**kw):
+    """Phase 4's engine knobs (``kw`` on top) as a plain dict."""
+    return dataclasses.asdict(serving_knobs(**kw))
+
+
+def replicas_of(deployment: str):
+    """The replica actors of a serve deployment."""
+    import ray_tpu_torch
+    from ray_tpu_torch.serve import api as serve_api
+    return ray_tpu_torch.get(serve_api._controller_or_none().get_replicas
+                             .remote(deployment), timeout=60)
+
+
+def probe(replica, fn, *args):
+    """``fn(engine, *args)`` in a serve replica's process, on the engine
+    of the ``LLMServer`` it serves (the runtime's generic actor call)."""
+    import ray_tpu_torch
+    return ray_tpu_torch.get(replica.__ray_call__.remote(
+        lambda rep, *a: fn(rep._instance.engine, *a), *args),
+        timeout=ACTOR_TIMEOUT_S)
+
+
+def http_tokens(url: str, body):
+    """POST ``body`` as JSON to the proxy; yields the streamed tokens
+    (one JSON value a line) as they arrive."""
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=ACTOR_TIMEOUT_S) as r:
+        check(r.status == 200, f"{url}: HTTP {r.status}")
+        for line in r:
+            if line.strip():
+                yield json.loads(line)
+
+
+def ready_replicas(deployments, dev, checksum, t0):
+    """Each deployment's one replica, once its ``LLMServer`` is built and
+    warm: its weights are phase 4's and it serves from this card; its
+    paged launch count is then set to 0. Returns (replicas, their ready
+    records)."""
+    reps, infos = [], []
+    for name in deployments:
+        (rep,) = replicas_of(name)
+        info = probe(rep, engine_ready)
+        info["ready_s"] = time.perf_counter() - t0
+        check(info.pop("checksum") == checksum,
+              f"{name}'s weights differ from phase 4's")
+        check(info["device"] == device_name(dev),
+              f"{name} serves on {info['device']!r}")
+        probe(rep, lambda engine: reset_launches())
+        reps.append(rep)
+        infos.append(info)
+    return reps, infos
+
+
+def check_drained(name: str, d, n_layers: int):
+    """A replica's clean pool and its paged launches: n_layers a prefill
+    chunk and a decode step, and more than 0."""
+    s = d["stats"]
+    check(d["audit"] == [], f"{name} pool audit after drain: {d['audit']}")
+    calls = s["prefill_chunks"] + s["decode_steps"]
+    check(d["launches"] > 0 and d["launches"] == n_layers * calls,
+          f"{name} paged launches {d['launches']} != {n_layers} x {calls}")
+
+
+def ttft_stats(ttft):
+    tt = np.asarray(ttft, dtype=float)
+    return {"ttft_p50_s": float(np.percentile(tt, 50)),
+            "ttft_p99_s": float(np.percentile(tt, 99))}
+
+
+def phase_serve_http(dev, card: str, cfg, seed: int, proxy: str, server,
+                     actor_server, checksum):
+    """S1: GPT-J-6B behind ``serve.run``: one ``LLMServer`` replica with
+    ``num_gpus=1``, phase 4's model, knobs and seed; phase 4's 16
+    requests over HTTP to the proxy in phase 4's pattern, read as JSON
+    lines, then one streaming handle call for request 0. Streams reach
+    48 tokens and equal phase 4's or leave them at a confirmed near tie
+    (replayed in the replica); a clean pool; 28 paged launches a prefill
+    chunk and decode step in the replica. Tokens/s and TTFT beside phase
+    4's and R3's, the replica's ready time and peak memory."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import LLMServer
+    prompts = make_requests(seed, cfg.vocab_size)
+    t0 = time.perf_counter()
+    handle = serve.run(serve.deployment(
+        LLMServer, name="gptj", ray_actor_options={"num_gpus": 1}).bind(
+            model=model_dict(cfg), engine=engine_dict(max_new_tokens=48),
+            seed=seed), name="gptj", route_prefix="/gptj")
+    (replica,), (info,) = ready_replicas(["gptj"], dev, checksum, t0)
+    url = proxy + "/gptj"
+    streams, ttft, wall = serve_pattern(
+        lambda i: http_tokens(url, prompts[i]), len(prompts))
+    again = list(handle.options(stream=True).generate.remote(prompts[0]))
+    d = probe(replica, engine_drained)
+    s = d["stats"]
+    check(all(len(t) == 48 for t in streams + [again]),
+          f"stream lengths {[len(t) for t in streams + [again]]} != 48")
+    check_drained("S1 replica", d, cfg.n_layers)
+    ref = server["streams"]
+    served = streams + [again]
+    divergences = confirm_divergences(
+        served, ref + [ref[0]],
+        lambda i, pos: probe(replica, engine_replay,
+                             prompts[i % len(prompts)],
+                             ref[i % len(prompts)], pos, served[i][pos]),
+        "serve")
+    tokens = sum(len(t) for t in streams)
+    out = {"card": card, **info, "requests": len(prompts),
+           "generated_tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, **ttft_stats(ttft),
+           "phase4_tokens_per_s": server["tokens_per_s"],
+           "phase4_ttft_p50_s": server["ttft_p50_s"],
+           "phase4_ttft_p99_s": server["ttft_p99_s"],
+           "r3_tokens_per_s": actor_server["tokens_per_s"],
+           "r3_ttft_p50_s": actor_server["ttft_p50_s"],
+           "r3_ttft_p99_s": actor_server["ttft_p99_s"],
+           "prefill_chunks": s["prefill_chunks"],
+           "decode_steps": s["decode_steps"],
+           "paged_launches": d["launches"],
+           "replica_peak_mem_gb": d["peak_mem_gb"],
+           "streams_equal": len(served) - len(divergences),
+           "handle_stream_equal_http": again == streams[0],
+           "divergences": divergences}
+    print("serve_http " + json.dumps(out), flush=True)
+    check(all(v["near_tie"] for v in divergences),
+          f"served streams leave phase 4's away from a near tie: "
+          f"{divergences}")
+    return out
+
+
+def phase_disagg(dev, card: str, cfg, seed: int, proxy: str, server,
+                 actor_server, checksum):
+    """S2: a 1 prefill + 1 decode pair from ``deploy_disaggregated`` at
+    phase 4's knobs on the bf16 wire, its replicas reserving no ``GPU``
+    (as the JAX package's): phase 4's 4 longest prompts over HTTP to
+    ``/pd`` in phase 4's pattern. Streams equal phase 4's or leave them
+    at a confirmed near tie (replayed in the decode replica), both pools
+    clean, each replica's paged launches 28 a prefill chunk and decode
+    step of its own, and the bytes shipped equal ``kv_ship_bytes`` of the
+    prompts. TTFT and the hand-off's export, ship and adopt ms and
+    bytes. ``deploy_disaggregated`` passes no seed, so its replicas draw
+    the weights of seed 0: phase 4's at the script's default seed."""
+    from ray_tpu_torch import serve
+    prompts = make_requests(seed, cfg.vocab_size)
+    longest = sorted(range(len(prompts)),
+                     key=lambda i: -len(prompts[i]))[:DISAGG_PROMPTS]
+    t0 = time.perf_counter()
+    router = serve.deploy_disaggregated(
+        model_dict(cfg), engine_dict(max_new_tokens=48), name="pd",
+        num_prefill=1, num_decode=1, route_prefix="/pd")
+    (pre, dec), (ipre, idec) = ready_replicas(
+        ["pd-prefill", "pd-decode"], dev, checksum, t0)
+    url = proxy + "/pd"
+    streams, ttft, wall = serve_pattern(
+        lambda j: http_tokens(url, {"prompt": prompts[longest[j]],
+                                    "max_new_tokens": 48}), len(longest))
+    dp, dd = probe(pre, engine_drained), probe(dec, engine_drained)
+    check(all(len(t) == 48 for t in streams),
+          f"stream lengths {[len(t) for t in streams]} != 48")
+    check_drained("S2 prefill replica", dp, cfg.n_layers)
+    check_drained("S2 decode replica", dd, cfg.n_layers)
+    sp, sd = dp["stats"], dd["stats"]
+    shipped = sum(handoff_bytes(len(prompts[i]), "bf16", cfg)
+                  for i in longest)
+    check(sp["kv_exports"] == sd["kv_adopts"] == len(longest),
+          f"{sp['kv_exports']} exports, {sd['kv_adopts']} adopts")
+    check(sp["kv_export_bytes"] == sd["kv_adopt_bytes"] == shipped,
+          f"shipped {sp['kv_export_bytes']} B, adopted "
+          f"{sd['kv_adopt_bytes']} B, kv_ship_bytes {shipped} B")
+    ref = [server["streams"][i] for i in longest]
+    divergences = confirm_divergences(
+        streams, ref,
+        lambda j, pos: probe(dec, engine_replay, prompts[longest[j]],
+                             ref[j], pos, streams[j][pos]), "disagg")
+    n = max(len(longest), 1)
+    out = {"card": card, "prefill": ipre, "decode": idec,
+           "requests": len(longest), "prompt_tokens":
+           [len(prompts[i]) for i in longest], "wall_s": wall,
+           "tokens_per_s": sum(len(t) for t in streams) / wall,
+           **ttft_stats(ttft),
+           "phase4_ttft_p50_s": server["ttft_p50_s"],
+           "kv_ship_bytes": shipped,
+           "export_ms_per_handoff": 1e3 * sp["kv_export_wall_s"] / n,
+           "ship_ms_per_handoff": 1e3 * sd["kv_ship_wall_s"] / n,
+           "adopt_ms_per_handoff": 1e3 * sd["kv_adopt_wall_s"] / n,
+           "ship_gb_s": shipped / max(sd["kv_ship_wall_s"], 1e-9) / 1e9,
+           "prefill_chunks": sp["prefill_chunks"],
+           "decode_steps": sd["decode_steps"],
+           "prefill_launches": dp["launches"],
+           "decode_launches": dd["launches"],
+           "router_stats": router.stats,
+           "peak_mem_gb": [dp["peak_mem_gb"], dd["peak_mem_gb"]],
+           "streams_equal": len(streams) - len(divergences),
+           "divergences": divergences}
+    print("disagg " + json.dumps(out), flush=True)
+    check(all(v["near_tie"] for v in divergences),
+          f"disaggregated streams leave phase 4's away from a near tie: "
+          f"{divergences}")
+    return out
+
+
+def serve_phases(dev, card: str, seed: int, server, actor_server,
+                 checksum):
+    """Phases S1-S2, after R3, each on a runtime of its own with an HTTP
+    proxy; ``serve.shutdown`` kills the replicas and the runtime is shut
+    down after each, and the card's free memory must come back. Returns
+    the two phases' records."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import get_config
+    cfg = get_config("gptj-6b")
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    out = {}
+    for name, phase in (("S1", phase_serve_http), ("S2", phase_disagg)):
+        t0 = time.perf_counter()
+        ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
+                           _num_initial_workers=3)
+        try:
+            serve.start(http_options={"port": 0})
+            out[name] = phase(dev, card, cfg, seed, serve.proxy_address(),
+                              server, actor_server, checksum)
+        finally:
+            serve.shutdown()
+            ray_tpu_torch.shutdown()
+        deadline = time.monotonic() + 60
+        while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
+                and time.monotonic() < deadline:
+            time.sleep(0.5)
+        free1 = torch.cuda.mem_get_info()[0]
+        print(f"phase {name} wall: {time.perf_counter() - t0:.1f} s; card "
+              f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f}"
+              f" GB after serve.shutdown and the runtime's", flush=True)
+        check(free1 >= free0 - (1 << 30),
+              f"{name}'s replicas' card memory did not come back")
+    return out
 
 
 # --------------------------------------------------------------- phase 2
@@ -2148,6 +2473,10 @@ def time_flash(sh, q, k, v, do, o, lse, delta):
         f = events_ms(sdpa_fwd, 20)
         windows.append(events_ms(sdpa_fwd_bwd, 20) - f)
     lib_bwd = float(np.median(windows))
+    # delta's own library call: one vecdot of O and dO over head_dim on
+    # the same bf16 inputs (the kernel's rowsum is f32, vecdot's bf16)
+    lib_delta = events_ms(lambda: torch.linalg.vecdot(o, do, dim=-1), 20)
+    library = {"flash_fwd": lib_fwd, "flash_delta": lib_delta}
     bounds = flash_bounds(sh)
     out = {}
     for name, (kernel, plain) in calls.items():
@@ -2158,12 +2487,12 @@ def time_flash(sh, q, k, v, do, o, lse, delta):
         k_ms = graph_ms(lambda i: kernel(), 20)
         out[name] = {"kernel_ms": k_ms,
                      "plain_ms": events_ms(plain, 3, warmup=1),
-                     "library_ms": lib_fwd if name == "flash_fwd"
-                     else lib_bwd,
+                     "library_ms": library.get(name, lib_bwd),
                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                      "flops": flops, "bound_share": b_ms / k_ms,
                      "achieved_tflop_s": flops / k_ms / 1e9,
                      "achieved_gb_s": nbytes / k_ms / 1e6}
+    out["flash_delta"]["sdpa_backward_ms"] = lib_bwd
     out["library_fwd_bwd_ms"] = lib_fwd + lib_bwd
     out["library_bwd_ms_windows"] = {"median": lib_bwd, "min": min(windows),
                                      "max": max(windows), "all": windows}
@@ -2426,6 +2755,8 @@ def training_phases(dev, card: str, seed: int):
             "bound_share": t["bound_share"],
             "timed_shape": flash[0]["shape"],
         })
+        if "sdpa_backward_ms" in t:
+            records[-1]["sdpa_backward_ms"] = t["sdpa_backward_ms"]
     return records
 
 
@@ -2455,8 +2786,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"released serving: {torch.cuda.memory_allocated() / 1e9:.3f}"
           f" GB still allocated", flush=True)
-    paged["actor_launches"] = runtime_phases(dev, card, args.seed, server,
-                                             checksum)
+    r3 = runtime_phases(dev, card, args.seed, server, checksum)
+    paged["actor_launches"] = r3["paged_launches"]
+    served = serve_phases(dev, card, args.seed, server, r3, checksum)
+    paged["serve_launches"] = served["S1"]["paged_launches"]
+    paged["disagg_launches"] = served["S2"]["prefill_launches"] \
+        + served["S2"]["decode_launches"]
     kernels.extend(training_phases(dev, card, args.seed))
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)

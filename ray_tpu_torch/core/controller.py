@@ -182,6 +182,11 @@ class Controller:
         self._last_actor_prestart = 0.0
         # worker -> last runtime-env key (env-affinity dispatch)
         self._worker_env: Dict[bytes, str] = {}
+        # workers that have run a task or an actor asking for GPU: each
+        # holds a CUDA context, so it stays out of default-shape driver
+        # leases and is preferred for the next GPU task (a port-only
+        # divergence from the JAX runtime)
+        self._gpu_workers: Set[bytes] = set()
         # worker identity -> owning driver identity: workers leased to a
         # driver for DIRECT task submission (reference: worker leases,
         # direct_task_transport.h — tasks bypass the controller wholly;
@@ -877,11 +882,13 @@ class Controller:
             # never grant below the controller queue's own needs
             if node.stats.get("wait_worker"):
                 continue
-            while want > 0 and node.idle_workers:
-                if not self.scheduler.try_acquire(
+            while want > 0:
+                w = next((w for w in node.idle_workers
+                          if w not in self._gpu_workers), None)
+                if w is None or not self.scheduler.try_acquire(
                         node.node_id, {"CPU": 1.0}):
                     break
-                w = node.idle_workers.popleft()
+                node.idle_workers.remove(w)
                 self.driver_leases[w] = identity
                 self._lease_node[w] = node.node_id.binary()
                 granted.append(w)
@@ -1391,9 +1398,17 @@ class Controller:
         """Prefer an idle worker whose last-applied runtime env matches
         the task's (reference: runtime-env-keyed worker pools,
         worker_pool.cc — avoids re-mounting working_dir/py_modules and
-        env-var churn on shared workers). Falls back to FIFO."""
+        env-var churn on shared workers). Falls back to FIFO. A spec that
+        asks for GPU takes a worker that has run one first."""
         env = getattr(spec, "runtime_env", None)
         key = repr(sorted(env.items())) if env else ""
+        if spec.resources.get("GPU"):
+            # a worker that already holds the card: no second context
+            for i, w in enumerate(node.idle_workers):
+                if w in self._gpu_workers:
+                    del node.idle_workers[i]
+                    self._worker_env[w] = key
+                    return w
         for i, w in enumerate(node.idle_workers):
             if self._worker_env.get(w, "") == key:
                 del node.idle_workers[i]
@@ -1416,6 +1431,8 @@ class Controller:
 
     def _dispatch_to_worker(self, tid: bytes, node: NodeInfo, worker: bytes) -> None:
         t = self.tasks[tid]
+        if t.spec.resources.get("GPU"):
+            self._gpu_workers.add(worker)
         if t.spec.is_actor_creation:
             t.worker = worker
             t.state = "RUNNING"
@@ -2279,6 +2296,7 @@ class Controller:
         if node is not None and worker_identity in node.all_workers:
             del node.all_workers[worker_identity]
             self._worker_env.pop(worker_identity, None)
+            self._gpu_workers.discard(worker_identity)
             driver = self.driver_leases.pop(worker_identity, None)
             self._blocked_orphans.discard(worker_identity)
             if driver is not None:

@@ -40,10 +40,16 @@ SLO watchdog (:mod:`ray_tpu_torch.serve.request_trace`,
 :mod:`ray_tpu_torch.serve.slo`) and the serve metrics
 (:mod:`ray_tpu_torch.core.metric_defs`).
 
-Not ported yet (see ROADMAP): the ``LLMServer`` deployment behind
-``serve.run``/HTTP, the disaggregated router and warm-prefix migration
-between replicas, the flight recorder and the fleet metrics reporter,
-all of which ride the distributed runtime.
+Inside a runtime worker (a serve replica) the engine also records its
+events on the worker's flight recorder (``PREFIX_MIGRATE``,
+``RLHF_SYNC``, ``KV_ADOPT``, ``KV_SHIP``, ``ENGINE_TTFT``,
+``ENGINE_STATS``), takes its tracer and SLO budgets from the worker's
+config, ships traces to the controller's store, and paces the worker's
+fleet metrics reports. Outside a runtime none of these exist and the
+engine behaves the same otherwise.
+
+:class:`LLMServer` is the deployment-facing wrapper that ``serve.run``,
+the HTTP proxy and the disaggregated router drive.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import asyncio
 import collections
 import dataclasses
 import functools
+import os
 import queue
 import threading
 import time
@@ -60,6 +67,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ray_tpu_torch.core.global_state import try_global_worker
 from ray_tpu_torch.core.metric_defs import runtime_metrics
 from ray_tpu_torch.exceptions import EngineDeadError, RequestTooLargeError
 from ray_tpu_torch.models.transformer import (decode_step, init_kv_cache,
@@ -215,13 +223,16 @@ class LLMEngine:
     step thread.
 
     ``device`` defaults to CUDA and raises when there is none; tests
-    pass ``device="cpu"``.
+    pass ``device="cpu"``. ``replica_tag`` labels this engine's flight
+    recorder events and exported payloads.
     """
 
     def __init__(self, model_config, engine_config: Optional[EngineConfig]
-                 = None, params=None, seed: int = 0, device=None):
+                 = None, params=None, seed: int = 0, device=None,
+                 replica_tag: str = ""):
         self.model_config = model_config
         self.config = engine_config or EngineConfig()
+        self.replica_tag = replica_tag
         ec = self.config
         if ec.prefill_chunk < 1 or ec.decode_slots < 1:
             raise ValueError("prefill_chunk and decode_slots must be >= 1")
@@ -313,13 +324,19 @@ class LLMEngine:
         self._ttft_ewma: Optional[float] = None
         self._queue_wait_ewma: Optional[float] = None
         self._metrics = runtime_metrics()
+        # the runtime worker this engine serves in (a replica), if any:
+        # its flight recorder, fleet metrics reporter and config
+        worker = try_global_worker()
+        self._recorder = getattr(worker, "recorder", None)
+        self._reporter = getattr(worker, "metrics_reporter", None)
+        cfg = getattr(worker, "config", None)
         # -- per-request tracing and the SLO watchdog: the engine is the
         # waterfall's single shipper; one span batch ships at request end
         # iff sampled, SLO-tripped or failed
-        self._tracer = RequestTracer(None, part=ec.trace_part)
+        self._tracer = RequestTracer(cfg, part=ec.trace_part)
         if ec.enable_trace is not None:
             self._tracer.enabled = bool(ec.enable_trace)
-        self._slo = SLOWatchdog(SLOBudget.from_config(None))
+        self._slo = SLOWatchdog(SLOBudget.from_config(cfg))
 
         from concurrent.futures import ThreadPoolExecutor
         self._poll_pool = ThreadPoolExecutor(
@@ -653,6 +670,8 @@ class LLMEngine:
                                 ec.kv_wire)
             self._metrics.serve_prefix_migrated.inc(
                 len(entries), tags={"dir": "export"})
+            self._record("PREFIX_MIGRATE", dir="export",
+                         blocks=len(entries), chains=len(chains))
             return {
                 "chains": [[(list(key), slab_idx[blk])
                             for key, blk in chain] for chain in chains],
@@ -661,7 +680,7 @@ class LLMEngine:
                 "block_size": ec.kv_block_size,
                 "wire": ec.kv_wire,
                 "wire_bytes": kv["wire_bytes"],
-                "src": "",    # a replica label (the runtime's; none here)
+                "src": self.replica_tag,
             }
 
         return self._run_on_step_thread(_do)
@@ -726,6 +745,8 @@ class LLMEngine:
             self._sync_device()
             self._metrics.serve_prefix_migrated.inc(
                 len(plan), tags={"dir": "import"})
+            self._record("PREFIX_MIGRATE", dir="import", blocks=len(plan),
+                         chains=len(payload["chains"]))
             return len(plan)
 
         return self._run_on_step_thread(_do)
@@ -955,6 +976,8 @@ class LLMEngine:
             self._weight_version = version
             self._weight_swaps += 1
             self._weight_swap_wall_s += swap_s
+        self._record("RLHF_SYNC", version=version, swap_s=round(swap_s, 6),
+                     active_slots=len(active_reqs))
 
     def _reap_cancelled(self) -> None:
         with self._lock:
@@ -1135,6 +1158,8 @@ class LLMEngine:
         self._kv_adopt_blocks += len(dst)
         self._kv_ship_wall_s += max(0.0, t1w - ship_ts)
         self._metrics.serve_kv_ship_seconds.observe(max(0.0, t1w - ship_ts))
+        self._record("KV_ADOPT", blocks=len(dst), reused=req.hit_blocks,
+                     dur_s=round(t1w - t0w, 6))
         self._record_ttft(req)
         with self._lock:
             # trie-index every full prompt chunk: the shipped prefix is
@@ -1195,7 +1220,7 @@ class LLMEngine:
             "wire": ec.kv_wire,
             "wire_bytes": kv["wire_bytes"],
             "ship_ts": time.time(),
-            "src": "",
+            "src": self.replica_tag,
         }
         t1w = time.time()
         self._kv_export_wall_s += time.monotonic() - t0
@@ -1206,6 +1231,8 @@ class LLMEngine:
                            wire=ec.kv_wire, blocks=n_ship, dir="export")
         self._metrics.serve_kv_ship_bytes.inc(
             kv["wire_bytes"], tags={"wire": ec.kv_wire})
+        self._record("KV_SHIP", blocks=n_ship, bytes=kv["wire_bytes"],
+                     wire=ec.kv_wire)
         with self._lock:
             req.out.put(payload)
             self._release_locked(req)
@@ -1538,6 +1565,12 @@ class LLMEngine:
         self._tracer.finish(tr)
 
     # ------------------------------------------------ metrics / events
+    def _record(self, ev: str, **data) -> None:
+        """An event on the runtime worker's flight recorder, labelled
+        with this replica (no runtime: nothing)."""
+        if self._recorder is not None:
+            self._recorder.record(ev, replica=self.replica_tag, **data)
+
     def _record_ttft(self, req: _Request) -> None:
         if req.warmup:
             return      # warm-up traffic: its TTFT is the build's wall
@@ -1555,6 +1588,10 @@ class LLMEngine:
         self._metrics.serve_ttft.observe(full)
         self._metrics.serve_tokens.inc()
         trace = req.trace
+        self._record("ENGINE_TTFT", rid=req.rid, ttft_s=round(ttft, 6),
+                     queue_wait_s=round(qw, 6), prompt_len=len(req.prompt),
+                     request_id=(trace.request_id
+                                 if trace is not None else None))
         if trace is not None:
             now = time.time()
             req.last_tok_wall = now     # inter-token gap baseline
@@ -1572,3 +1609,213 @@ class LLMEngine:
         self._metrics.serve_queue_depth.set(s["queue_depth"])
         self._metrics.serve_tokens_per_s.set(s["tokens_per_s"])
         self._metrics.serve_blocks_shared.set(s["blocks_shared"])
+        self._record("ENGINE_STATS", queue_depth=s["queue_depth"],
+                     active=s["active_slots"],
+                     tokens_per_s=s["tokens_per_s"],
+                     free_blocks=s["free_blocks"])
+        if self._recorder is not None:
+            self._recorder.maybe_flush()
+        # a replica decoding flat out may never reach the worker's idle
+        # loop: the stats cadence doubles as the fleet report's heartbeat
+        if self._reporter is not None:
+            self._reporter.maybe_report()
+
+
+_DTYPES = {"float32": torch.float32, "f32": torch.float32,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def _resolve_dtype(name):
+    """A dtype named in a deployment's plain-dict config -> the torch
+    dtype (a torch dtype passes through)."""
+    if not isinstance(name, str):
+        return name
+    return _DTYPES[name]
+
+
+def _server_device(device):
+    """``LLMServer``'s device: as every entry point's (``None`` is CUDA),
+    except that ``None`` in a runtime worker put on the CPU platform
+    (``RAY_TPU_TORCH_PLATFORM=cpu``, which hides every card from it) is
+    the CPU."""
+    worker = try_global_worker()
+    if device is None and getattr(worker, "kind", None) == "worker" \
+            and os.environ.get("RAY_TPU_TORCH_PLATFORM") == "cpu":
+        return torch.device("cpu")
+    return resolve_device(device)
+
+
+class LLMServer:
+    """Deployment-facing engine wrapper. Construct with plain dicts so
+    the deployment graph ships cheaply to the replica actor::
+
+        app = serve.deployment(LLMServer, ray_actor_options={
+            "num_gpus": 1}).bind(
+            model={"d_model": 256, "n_layers": 4, ...},
+            engine={"decode_slots": 8, "kv_block_size": 16})
+        h = serve.run(app)
+        for tok in h.options(stream=True).generate.remote([1, 2, 3]):
+            ...
+
+    ``generate`` is an async generator, so each token rides the core
+    streaming-generator machinery (per-item objects, backpressure,
+    typed failure on replica death).
+
+    The warm-up runs one request end to end before the replica enters
+    rotation (on the card it builds and loads the kernel libraries); a
+    failure there raises, so the replica's creation fails instead of
+    serving from an engine whose kernel did not build.
+    """
+
+    def __init__(self, model: Optional[Dict[str, Any]] = None,
+                 engine: Optional[Dict[str, Any]] = None,
+                 seed: int = 0, warmup: bool = True, device=None):
+        from ray_tpu_torch.models import TransformerConfig
+        model = dict(model or {})
+        model["dtype"] = _resolve_dtype(model.get("dtype", "float32"))
+        self.model_config = TransformerConfig(**model)
+        self.engine_config = EngineConfig(**(engine or {}))
+        self.engine = self._make_engine(_server_device(device), seed)
+        if warmup:
+            try:
+                self.engine.warmup()
+            except BaseException:
+                self.engine.shutdown()
+                raise
+
+    def _make_engine(self, device, seed: int) -> LLMEngine:
+        return LLMEngine(self.model_config, self.engine_config, seed=seed,
+                         device=device, replica_tag=f"pid:{os.getpid()}")
+
+    @staticmethod
+    def _trace_ctx() -> Optional[Dict[str, Any]]:
+        """Flatten the router's trace stamp out of the replica call
+        context (request_id, sampling verdict, routing annotations), so
+        the engine opens the request's trace under the id the client or
+        proxy already knows."""
+        from ray_tpu_torch.serve._private.replica import \
+            get_request_context
+        ctx = get_request_context()
+        rid = ctx.get("request_id")
+        if not rid:
+            return None
+        return dict(ctx.get("trace") or {}, request_id=rid)
+
+    async def generate(self, prompt_ids: Sequence[int],
+                       max_new_tokens: Optional[int] = None,
+                       eos_token_id: Optional[int] = None):
+        async for tok in self.engine.generate(
+                prompt_ids, max_new_tokens, eos_token_id,
+                trace_ctx=self._trace_ctx()):
+            yield tok
+
+    async def __call__(self, prompt_ids: Sequence[int],
+                       max_new_tokens: Optional[int] = None):
+        async for tok in self.engine.generate(
+                prompt_ids, max_new_tokens,
+                trace_ctx=self._trace_ctx()):
+            yield tok
+
+    # ------------------------------------------ disagg replica surface
+    async def _next_item(self, req: _Request):
+        """The next item of ``req``'s stream, polled off the event loop
+        on the engine's pool; raises typed errors instead of hanging."""
+        eng = self.engine
+        loop = asyncio.get_running_loop()
+        get = functools.partial(req.out.get, timeout=0.2)
+        while True:
+            try:
+                item = await loop.run_in_executor(eng._poll_pool, get)
+            except queue.Empty:
+                if eng._dead is not None:
+                    raise EngineDeadError(
+                        f"engine step loop died: {eng._dead!r}")
+                continue
+            if isinstance(item, BaseException):
+                raise item
+            return item
+
+    async def prefill_export(self, prompt_ids: Sequence[int]
+                             ) -> Dict[str, Any]:
+        """Prefill-fleet actor method: chunked-prefill the prompt and
+        return the KV hand-off payload. Its slabs leave this worker as
+        bytes through the serializer (a CUDA slab after one copy to the
+        host) and reach the decode replica when the router chains this
+        call's ObjectRef into ``adopt_generate``."""
+        req = self.engine.submit(prompt_ids, max_new_tokens=1,
+                                 trace_ctx=self._trace_ctx(), _export=True)
+        try:
+            while True:
+                item = await self._next_item(req)
+                if isinstance(item, dict):
+                    return item
+                if item is _DONE:
+                    raise EngineDeadError(
+                        "prefill_export ended without a payload")
+        finally:
+            self.engine.cancel(req)
+
+    async def adopt_generate(self, payload: Dict[str, Any],
+                             max_new_tokens: Optional[int] = None,
+                             eos_token_id: Optional[int] = None):
+        """Decode-fleet actor method: adopt a shipped prefill payload
+        and stream tokens, the first token (computed by the prefill
+        replica) included, so the stream is exactly what a colocated
+        ``generate`` would produce."""
+        req = self.engine.submit_adopt(payload, max_new_tokens,
+                                       eos_token_id,
+                                       trace_ctx=self._trace_ctx())
+        try:
+            while True:
+                item = await self._next_item(req)
+                if item is _DONE:
+                    return
+                yield item
+        finally:
+            self.engine.cancel(req)
+
+    async def export_warm_prefixes(self, min_hits: int = 1,
+                                   max_blocks: int = 0
+                                   ) -> Optional[Dict[str, Any]]:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self.engine._poll_pool,
+            functools.partial(self.engine.export_warm_prefixes,
+                              min_hits, max_blocks))
+
+    async def import_warm_prefixes(self,
+                                   payload: Optional[Dict[str, Any]]
+                                   ) -> int:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self.engine._poll_pool,
+            functools.partial(self.engine.import_warm_prefixes,
+                              payload))
+
+    def stats(self) -> Dict[str, Any]:
+        return self.engine.stats()
+
+    def sync_weights(self, packed: Dict[str, Any]) -> int:
+        """Apply an int8-packed weight refresh (the
+        :mod:`ray_tpu_torch.rlhf.weight_sync` wire format) in flight:
+        dequantize on this actor-call thread into the engine's dtypes
+        and device, and stage it for the step thread's between-steps
+        pointer swap. Returns the staged version. Decode never drains."""
+        from ray_tpu_torch._bridge import params_from_jax
+        from ray_tpu_torch.rlhf.weight_sync import unpack_weights
+        tree, version = unpack_weights(packed)
+        self.engine.stage_weights(params_from_jax(
+            tree, self.model_config, self.engine.device), version)
+        return version
+
+    def pool_audit(self) -> List[str]:
+        return self.engine.pool_audit()
+
+    def kv_block_bytes(self) -> int:
+        ec, mc = self.engine_config, self.model_config
+        return ec.kv_block_size * ec.kv_bytes_per_token(mc)
+
+    def check_health(self) -> None:
+        if self.engine._dead is not None:
+            raise EngineDeadError(repr(self.engine._dead))

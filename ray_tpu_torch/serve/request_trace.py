@@ -31,13 +31,13 @@ SLO budget tripped, serve/slo.py), failed or shed requests and a
 deterministic 1-in-N sample ship; fast unsampled requests are recorded
 and discarded locally, shipping zero bytes.
 
-The port's copy of ``ray_tpu/serve/request_trace.py``. The JAX package
-ships a trace as a REQUEST_SPANS message to its controller when a
-runtime is attached, and into the tracer's local deque otherwise; the
-port has no runtime yet, so the local deque
-(``RequestTracer.shipped_local``) is where a shipped trace goes, unless
-the tracer was given a ``send`` callable. :class:`RequestTraceStore` is
-the controller-side store that merges shipped parts into waterfalls.
+The port's copy of ``ray_tpu/serve/request_trace.py``. A shipped trace
+goes as a REQUEST_SPANS (``b"RSP"``) message over the runtime's reliable
+layer to the controller's :class:`RequestTraceStore`, which merges the
+parts of a request into its waterfall (``state_query("request_traces")``);
+a tracer given a ``send`` callable ships through it instead, and one
+outside any runtime keeps the payload in its local deque
+(``RequestTracer.shipped_local``).
 """
 
 from __future__ import annotations
@@ -49,6 +49,8 @@ import time
 import uuid
 from typing import Any, Dict, List, Optional
 
+from ray_tpu_torch.core import protocol as P
+from ray_tpu_torch.core.global_state import try_global_worker
 from ray_tpu_torch.core.metric_defs import runtime_metrics
 
 # Canonical phase names. Terminal phases close the waterfall.
@@ -163,6 +165,7 @@ class RequestTracer:
         self._count = itertools.count()
         self._seq = itertools.count(1)
         self._lock = threading.Lock()
+        self._proc: Optional[str] = None
         #: recently finished traces (local ring; postmortem aid)
         self.recent: collections.deque = collections.deque(maxlen=128)
         #: payloads shipped when no runtime is attached (unit tests)
@@ -206,11 +209,16 @@ class RequestTracer:
     def _ship(self, trace: RequestTrace) -> bool:
         with self._lock:
             seq = next(self._seq)
+        if self._proc is None:
+            # origin process name (the flight recorder's track label):
+            # lets the timeline draw flow arrows from request waterfalls
+            # into this process's engine slices
+            recorder = getattr(try_global_worker(), "recorder", None)
+            self._proc = getattr(recorder, "proc", None) or "?"
         payload = {
             "request_id": trace.request_id,
             "part": trace.part,
-            # the origin process's recorder label (no runtime: none)
-            "proc": "?",
+            "proc": self._proc,
             "seq": seq,
             "ts": time.time(),
             "status": trace.status,
@@ -232,10 +240,15 @@ class RequestTracer:
 
 
 def _default_send(payload: Dict[str, Any], fallback) -> bool:
-    """Ship hook without a ``send`` callable: the port has no runtime to
-    ship to, so the payload lands in the tracer's local deque (where the
-    JAX package puts it when no runtime is attached). Returns False: the
-    trace did not leave the process."""
+    """Ship hook without a ``send`` callable: enqueue an RSP on the
+    attached runtime's reliable outbox (fire-and-forget, like a flight
+    recorder flush). Without a live runtime the payload lands in the
+    tracer's local deque and this returns False."""
+    w = try_global_worker()
+    stopped = getattr(w, "_stopped", None)
+    if w is not None and stopped is not None and not stopped.is_set():
+        w._send(P.REQUEST_SPANS, payload)
+        return True
     fallback.append(payload)
     return False
 
@@ -245,10 +258,11 @@ def _default_send(payload: Dict[str, Any], fallback) -> bool:
 # ---------------------------------------------------------------------
 
 class RequestTraceStore:
-    """Store of shipped request traces (the JAX package keeps one on its
-    controller). Internally locked. Exactly-once-effect: it dedups by
-    ``(part, seq)`` per request, so a duplicate delivery cannot double a
-    waterfall. Bounded drop-oldest by finished request."""
+    """Controller-resident store of shipped request traces. Internally
+    locked. Exactly-once-effect: the reliable layer dedups retransmits,
+    and this store also dedups by ``(part, seq)`` per request, so a
+    duplicate delivery cannot double a waterfall. Bounded drop-oldest by
+    finished request."""
 
     def __init__(self, max_requests: int = 512):
         self.max_requests = int(max_requests)

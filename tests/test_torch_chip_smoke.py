@@ -203,11 +203,12 @@ def test_spec_prompts_repeat_a_segment():
 # ------------------------------------------------ the runtime phases R1-R3
 def test_runtime_phases_run_between_serving_and_training():
     """R1-R3 come after the serving phases have released their weights
-    and before the trainer's, in the order store, runtime, actor."""
+    and before the trainer's, in the order store, runtime, actor; S1-S2
+    after them."""
     import inspect
     main = inspect.getsource(chip_smoke.main)
     assert main.index("serving_phases(") < main.index("runtime_phases(") \
-        < main.index("training_phases(")
+        < main.index("serve_phases(") < main.index("training_phases(")
     r = inspect.getsource(chip_smoke.runtime_phases)
     assert r.index("phase_store(") < r.index("phase_runtime(") \
         < r.index("phase_actor_server(") < r.index("ray_tpu_torch.kill(") \
@@ -312,9 +313,56 @@ def test_runtime_and_actor_phases_on_the_cpu(monkeypatch):
         cloudpickle.unregister_pickle_by_value(chip_smoke)
     assert r2["resources"]["GPU"] == 1.0 and r2["worker_device"] == "cpu"
     after = r2["gpu_after_default_tasks"]
-    assert len(after["call_s"]) == 3 and 1 <= after["workers"] <= 3
+    assert len(after["call_s"]) == 3
+    assert (after["workers"], after["new_workers"]) == (1, 0), after
     assert r3["streams_equal"] == 16 and r3["divergences"] == []
     assert (r3["prefill_chunks"], r3["decode_steps"]) == \
         (server["prefill_chunks"], server["decode_steps"])
     assert r3["paged_launches"] == 0
     assert len(failed) == 2 and all("launches" in f for f in failed), failed
+
+
+def test_serve_phases_on_the_cpu(monkeypatch):
+    """S1 and S2 at gptj-tiny width on the CPU, each on a runtime of its
+    own: ``LLMServer`` behind ``serve.run`` answers phase 4's requests
+    over HTTP and a handle, and the disaggregated pair its 4 longest,
+    with phase 4's streams, clean pools and the shipped bytes of
+    ``kv_ship_bytes``; the replicas serve on the CPU because their
+    workers are on the CPU platform. The paged wrapper launches nothing
+    on the CPU, so the four launch checks (phase 4's, one replica's in
+    S1, two in S2) are the only ones that fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    import ray_tpu_torch.models as models
+    from ray_tpu_torch.models import get_config, init_params
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cfg = dataclasses.replace(get_config("gptj-tiny"), max_seq_len=1024)
+    monkeypatch.setattr(models, "get_config", lambda name: cfg)
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    dev = torch.device("cpu")
+    try:
+        params = init_params(cfg, seed=0, device=dev, dtype=cfg.dtype)
+        server = chip_smoke.phase_server(dev, "cpu", cfg, params, 0)
+        out = chip_smoke.serve_phases(dev, "cpu", 0, server, server,
+                                      chip_smoke.weights_checksum(params))
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    s1, s2 = out["S1"], out["S2"]
+    assert s1["streams_equal"] == 17 and s1["divergences"] == []
+    assert s1["handle_stream_equal_http"] and s1["device"] == "cpu"
+    assert s1["generated_tokens"] == 16 * 48 and s1["paged_launches"] == 0
+    assert (s1["prefill_chunks"], s1["decode_steps"]) != (0, 0)
+    assert s2["streams_equal"] == 4 and s2["divergences"] == []
+    assert s2["prefill"]["device"] == s2["decode"]["device"] == "cpu"
+    assert s2["router_stats"] == {"requests": 0, "retries": 0,
+                                  "handoff_errors": 0}
+    assert s2["kv_ship_bytes"] == sum(
+        chip_smoke.handoff_bytes(n, "bf16", cfg)
+        for n in s2["prompt_tokens"])
+    assert len(failed) == 4 and all("launches" in f for f in failed), failed

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``ray_tpu_torch/`` and not
 ``chip_smoke.py`` imports JAX, the JAX package or ``ml_dtypes``, and the
 port imports, serves (speculative decode, a bf16 KV hand-off, tracing
-included) and takes a train step with all of them made unimportable."""
+included), takes a train step and serves an ``LLMServer`` through
+``serve.run`` with all of them made unimportable."""
 
 import ast
 import json
@@ -105,8 +106,8 @@ def test_port_serves_with_jax_and_ray_tpu_unimportable():
 
 def _run(script: str, timeout: int = 240, **env_extra) -> str:
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu",
-               RAY_TPU_JAX_PLATFORM="cpu", RAY_TPU_TORCH_PLATFORM="cpu",
-               **env_extra)
+               RAY_TPU_JAX_PLATFORM="cpu", RAY_TPU_TORCH_PLATFORM="cpu")
+    env.update(env_extra)
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(script)],
                           cwd=str(ROOT), env=env, capture_output=True,
                           text=True, timeout=timeout)
@@ -284,3 +285,65 @@ def test_a_long_temp_dir_keeps_the_session_inside_it(tmp_path):
     assert not [p for p in Path(sdir).rglob("*") if p.is_socket()]
     left = [f for f in os.listdir("/dev/shm") if rec["shm"] in f]
     assert not left, left
+
+
+def test_serve_run_with_jax_and_ray_tpu_unimportable(tmp_path):
+    """``serve.run`` of a CPU ``LLMServer`` (its device from the worker's
+    CPU platform) answers a handle's stream and an HTTP request with the
+    JAX packages unimportable in the driver and in every worker: a
+    ``sitecustomize`` on the path bans them in each interpreter the
+    runtime starts."""
+    (tmp_path / "sitecustomize.py").write_text(textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu",
+                     "ml_dtypes"):
+            sys.modules[name] = None      # any import of them now fails
+    """))
+    _run("""
+        import json, sys, urllib.request
+        assert sys.modules["jax"] is None and sys.modules["ray_tpu"] is None
+        import ray_tpu_torch
+        from ray_tpu_torch import serve
+
+        class Server(serve.LLMServer):
+            def modules(self):
+                import sys
+                banned = ("jax", "jaxlib", "ray_tpu", "ml_dtypes")
+                return {"banned": all(sys.modules.get(n, 0) is None
+                                      for n in banned),
+                        "loaded": sorted(m for m, v in sys.modules.items()
+                                         if m.split(".")[0] in banned
+                                         and v is not None),
+                        "device": str(self.engine.device)}
+
+        ray_tpu_torch.init(num_cpus=4, _num_initial_workers=1)
+        try:
+            model = dict(vocab_size=64, d_model=16, n_layers=2, n_heads=2,
+                         head_dim=8, d_ff=32, max_seq_len=64, rotary_dim=8,
+                         dtype="float32")
+            engine = dict(decode_slots=2, kv_block_size=4, max_seq_len=32,
+                          prefill_chunk=8, max_new_tokens=6)
+            h = serve.run(serve.deployment(Server).bind(
+                model=model, engine=engine), route_prefix="/llm")
+            toks = list(h.options(stream=True).generate.remote(
+                [1, 2, 3, 4, 5]))
+            assert len(toks) == 6, toks
+            serve.start(http_options={"port": 0})
+            req = urllib.request.Request(
+                serve.proxy_address() + "/llm",
+                data=json.dumps([1, 2, 3, 4, 5]).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = [json.loads(x) for x in r.read().decode().split()]
+            assert got == toks, (got, toks)
+            seen = h.modules.remote().result(timeout_s=60)
+            assert seen == {"banned": True, "loaded": [],
+                            "device": "cpu"}, seen
+        finally:
+            serve.shutdown()
+            ray_tpu_torch.shutdown()
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """, PYTHONPATH=os.pathsep.join([str(tmp_path), str(ROOT)]))

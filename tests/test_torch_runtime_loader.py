@@ -1,7 +1,10 @@
-"""Run the JAX package's ``tests/core`` bodies on the port's runtime.
+"""Run the JAX package's ``tests/core`` and ``tests/serve`` bodies on the
+port's runtime.
 
 Each ``tests/test_torch_runtime_<name>.py`` file loads
-``tests/core/test_<name>.py`` with :func:`load_core_tests`: the source is
+``tests/core/test_<name>.py`` with :func:`load_core_tests`, and each
+``tests/test_torch_serve_<name>.py`` loads ``tests/serve/test_<name>.py``
+(named ``"serve/test_<name>.py"``): the source is
 read, ``ray_tpu`` is rewritten to ``ray_tpu_torch`` on word boundaries
 and ``RAY_TPU_<NAME>`` environment variables to ``RAY_TPU_TORCH_<NAME>``,
 every ``ray_tpu_torch.get``/``ray_tpu_torch.wait`` call without a timeout
@@ -12,8 +15,8 @@ module or ``ray_tpu``. The file then takes the module's tests, fixtures
 and helpers into its own namespace, less the bodies it leaves out (each
 named with its reason), beside this module's fixtures: the
 ``tests/conftest.py`` fixtures ``ray_start_regular``/``ray_start_shared``
-on the port's runtime, and a metrics-registry reset for the port's
-registry.
+and the ``tests/serve/conftest.py`` fixture ``serve_session`` on the
+port's runtime, and a metrics-registry reset for the port's registry.
 
 The tests of this file check the loader itself.
 """
@@ -29,7 +32,9 @@ import cloudpickle
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-JAX_CORE = ROOT / "tests" / "core"
+JAX_TESTS = ROOT / "tests"
+JAX_CORE = JAX_TESTS / "core"
+JAX_SERVE = JAX_TESTS / "serve"
 #: a get or wait in a loaded body that names no timeout gets this one
 DEFAULT_TIMEOUT_S = 120.0
 
@@ -54,33 +59,45 @@ class _TimeoutDefaults(ast.NodeTransformer):
         return node
 
 
+def jax_test_path(filename: str) -> Path:
+    """``tests/core/<filename>``, or ``tests/<filename>`` for a name
+    with a directory (``"serve/test_serve.py"``)."""
+    return JAX_TESTS / filename if "/" in filename else JAX_CORE / filename
+
+
 def port_source(filename: str) -> str:
     """The JAX test file's source with ``ray_tpu`` renamed, and its
     environment variables: the port reads ``RAY_TPU_TORCH_<NAME>`` where
     the JAX package reads ``RAY_TPU_<NAME>``, and its worker platform
     switch is ``RAY_TPU_TORCH_PLATFORM``."""
-    src = (JAX_CORE / filename).read_text()
+    src = jax_test_path(filename).read_text()
     src = re.sub(r"\bray_tpu\b", "ray_tpu_torch", src)
     src = src.replace("RAY_TPU_JAX_PLATFORM", "RAY_TPU_TORCH_PLATFORM")
     return re.sub(r"\bRAY_TPU_(?!TORCH_)", "RAY_TPU_TORCH_", src)
 
 
-def load_core_tests(filename: str, leave_out=None) -> dict:
-    """Compile ``tests/core/<filename>`` against the port and return the
-    names a test file takes into its namespace: everything the module
-    defines or imports, less the tests in ``leave_out`` (name -> why)."""
-    path = JAX_CORE / filename
+def load_core_tests(filename: str, leave_out=None, replace=None) -> dict:
+    """Compile ``tests/core/<filename>`` (or ``tests/serve/...`` for
+    ``"serve/<file>"``) against the port and return the names a test
+    file takes into its namespace: everything the module defines or
+    imports, less the tests in ``leave_out`` (name -> why). ``replace``
+    (name -> value) swaps a module-level helper that builds a JAX-side
+    object for the port's counterpart, in the namespace the loaded
+    bodies run in."""
+    path = jax_test_path(filename)
     tree = ast.parse(port_source(filename), filename=str(path))
     tree = ast.fix_missing_locations(_TimeoutDefaults().visit(tree))
-    name = "ray_tpu_torch_port_" + Path(filename).stem
+    prefix = "" if path.parent == JAX_CORE else path.parent.name + "_"
+    name = "ray_tpu_torch_port_" + prefix + path.stem
     mod = types.ModuleType(name)
     mod.__file__ = str(path)
     sys.modules[name] = mod
     exec(compile(tree, str(path), "exec"), mod.__dict__)
     cloudpickle.register_pickle_by_value(mod)
     leave_out = dict(leave_out or {})
-    missing = set(leave_out) - set(vars(mod))
+    missing = (set(leave_out) | set(replace or {})) - set(vars(mod))
     assert not missing, f"{filename} has no {sorted(missing)}"
+    vars(mod).update(replace or {})
     return {k: v for k, v in vars(mod).items()
             if not k.startswith("__") and k not in leave_out}
 
@@ -103,6 +120,17 @@ def ray_start_shared():
     ray_tpu_torch.shutdown()
 
 
+@pytest.fixture
+def serve_session():
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    info = ray_tpu_torch.init(num_cpus=8, _num_initial_workers=3,
+                              ignore_reinit_error=True)
+    yield info
+    serve.shutdown()
+    ray_tpu_torch.shutdown()
+
+
 @pytest.fixture(autouse=True)
 def _port_metrics_registry_isolation():
     """The port's twin of tests/conftest.py's registry reset: metrics a
@@ -118,12 +146,14 @@ def _port_metrics_registry_isolation():
 
 FIXTURES = {"ray_start_regular": ray_start_regular,
             "ray_start_shared": ray_start_shared,
+            "serve_session": serve_session,
             "_port_metrics_registry_isolation":
                 _port_metrics_registry_isolation}
 
 
 @pytest.mark.parametrize("filename", sorted(
-    p.name for p in JAX_CORE.glob("test_*.py")))
+    p.name for p in JAX_CORE.glob("test_*.py")) + sorted(
+    f"serve/{p.name}" for p in JAX_SERVE.glob("test_*.py")))
 def test_rewrite_leaves_no_jax_package_import(filename):
     """After the rewrite no import names the JAX package."""
     tree = ast.parse(port_source(filename))
