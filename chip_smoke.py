@@ -126,12 +126,48 @@ S2. The disaggregated pair, on a runtime of its own:
    TTFT, and export, ship and adopt ms and bytes a hand-off (the KV goes
    card -> host -> shm -> host -> card). After each of S1 and S2,
    ``serve.shutdown()`` kills the replicas and the runtime is shut down;
-   the card's free memory comes back before the trainer's phases.
+   the card's free memory comes back before the RLHF phases.
+RL1. RLHF, anakin: ``RLHFTrainer`` with one local PPO learner and one
+   rollout engine at GPT-J-6B width cut to 8 of 28 layers (f32 masters,
+   gradients and Adam take 32.4 GB; the engine's bf16 weights, a staged
+   copy and the pool about 9 GB more), bf16 compute, random weights from
+   the seed; a seeded 256-token system prompt and 32-token suffixes, 64
+   new tokens, 16 rollouts a round on 16 decode slots (32-token blocks,
+   256-token chunks, a 384-token window), minibatches of 4, one round
+   (a round with its publish takes about 45 s of host time, most of it
+   the numpy int8 pack and unpack of 2.02 B weights).
+   Every round: 16 trajectories, prefix hit rate > 0.5, no sync stall,
+   staleness <= 1, the engines' version equal to the publishes, wire
+   compression > 3.5. Round 1's tokens (all version 0) recomputed from
+   the learner's weights before its first update through ``apply`` (the
+   flash forward) lie within 2e-2 of the log-probabilities the engine
+   captured through the paged kernel on average, each within four bf16
+   grid steps of a logit in [4, 8) (``RL_V0_TOKEN_BOUND``), and a
+   control read one position late lies outside; the first gradient
+   round's ratio_mean is within 1e-2 of 1. After round 1's publish a
+   probe prompt is served at version 1, its first token the argmax and
+   its log-probability that of direct ``prefill`` logits of
+   ``unpack_weights(pack_weights(w))``, farther from version 0's. Paged launches 8 x the engine's prefill chunks and decode
+   steps, each flash kernel 8 x ``compute_gradients`` calls. Round,
+   rollout, update and publish walls, wire bytes, pack/unpack host time,
+   peak memory.
+RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
+   ``{"num_cpus": 1}``, on the card through ``device=None`` in its
+   worker) and 2 engines in the driver at 2 layers; 8 rollouts, one
+   gradient round of 4 rows a learner, one round. Both learners used on
+   disjoint shards, their weights bit-identical after the round (sha256),
+   a publish through the store with no sync stall and staleness <= 1,
+   each learner's flash launches 2 x its ``compute_gradients`` calls,
+   paged launches 2 x the engines' chunks and steps; the gradient round's
+   wall split into compute, gradients out through the store, the host
+   mean and the mean back. After each of RL1 and RL2 the card's free
+   memory comes back before the trainer's phases.
 7. The four flash kernels (forward, delta, dK/dV, dQ) against their plain
    versions at GPT-J-6B's training shape (B=2, H=16, S=2048, D=256, bf16,
    causal), ``entry()``'s (B=2, H=4, S=256, D=128, bf16), a cross-length
-   causal shape (sq=128, sk=384) and a ragged non-causal f32 shape
-   (S=200, D=64), each (row, head) vector of O, dQ, dK, dV held relative
+   causal shape (sq=128, sk=384), a ragged non-causal f32 shape (S=200,
+   D=64) and RL1's learner shape (B=4, H=16, S=351, D=256, bf16, causal,
+   its last tile partial), each (row, head) vector of O, dQ, dK, dV held relative
    to that vector's max (floored at 1% of the tensor's max), LSE and delta
    absolutely; at the training shape ``kernel_ms``, ``plain_ms``,
    ``bound_ms`` (from the products each kernel does on the causal pairs
@@ -167,7 +203,9 @@ S2. The disaggregated pair, on a runtime of its own:
 Before them the script's total wall is printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
 verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
-``serve_launches`` and S2's ``disagg_launches``, both replicas'); the last
+``serve_launches``, S2's ``disagg_launches``, both replicas', and RL1's
+and RL2's ``rlhf_launches``; each flash kernel's carries RL1's and each RL2
+learner's ``rlhf_learner_launches``); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -176,6 +214,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2156,6 +2195,483 @@ def serve_phases(dev, card: str, seed: int, server, actor_server,
     return out
 
 
+# ------------------------------------------------------------- RL1, RL2
+RL_SYSTEM = 256       # tokens of the system prompt every rollout shares
+RL_SUFFIX = 32        # tokens of each rollout's own suffix
+RL_NEW = 64           # tokens each rollout generates
+RL1_LAYERS = 8        # f32 masters, grads and Adam for 28 layers: 97 GB
+RL2_LAYERS = 2        # each learner's f32 grads cross the store both ways
+RL1_ROUNDS = 1        # each round's publish: ~40 s of numpy pack/unpack
+RL_MINIBATCH = 4
+RL_PROBE = 96         # tokens of RL1's probe prompt after the publish
+# RL1's version-0 check. The learner's flash path and the engine's paged
+# path are two bf16 forwards whose attention outputs round apart: on the
+# H100 at RL1's shapes their log-probabilities of one token differ by
+# about 7e-3 at the median and up to about 0.04 when the logits are kept
+# in f32, and bf16 logits put each on a grid of 2^-5 in [4, 8), so that
+# about 1 token in 4 lands a grid step apart and the rest agree within
+# 2e-4. The bar LOGPROB_ABS_TOL holds the mean over the round's tokens;
+# each token is held to four grid steps. The control (one position late)
+# is off by nats.
+RL_V0_TOKEN_BOUND = 4 * 2 ** -5
+
+
+def rl_model(n_layers: int):
+    """GPT-J-6B's published width at ``n_layers`` layers, bf16 compute,
+    no rematerialization."""
+    from ray_tpu_torch.models import get_config
+    return get_config("gptj-6b", n_layers=n_layers, remat=None,
+                      remat_policy="none")
+
+
+def rl_config(cfg, seed: int, **kw):
+    """The RLHF knobs both phases share: a seeded 256-token system
+    prompt and 32-token suffixes, 64 new tokens, phase 4's 32-token
+    blocks and 256-token chunks, a 384-token window, 16 decode slots."""
+    from ray_tpu_torch.rlhf import RLHFConfig
+    rng = np.random.default_rng(seed + 21)
+    system = tuple(int(t) for t in rng.integers(2, cfg.vocab_size,
+                                                RL_SYSTEM))
+    return RLHFConfig(
+        system_prompt=system, prompt_len=RL_SYSTEM + RL_SUFFIX,
+        max_new_tokens=RL_NEW, model=model_dict(cfg), seed=seed,
+        engine=dict(decode_slots=16, kv_block_size=32, max_seq_len=384,
+                    prefill_chunk=256), **kw)
+
+
+def flash_counts():
+    return {n: f.kernel_launches for n, f in _flash_launches().items()}
+
+
+def reset_flash_counts():
+    for f in _flash_launches().values():
+        f.kernel_launches = 0
+
+
+def serving_tree(cfg, params):
+    """A learner's f32 masters as the serving tree of the same numbers:
+    matrices in the compute dtype (the learner casts them at each use),
+    norm scales and biases in f32."""
+    from ray_tpu_torch._bridge import F32_LEAVES
+
+    def conv(name, v):
+        if isinstance(v, dict):
+            return {k: conv(k, x) for k, x in v.items()}
+        return v.detach().to(torch.float32 if name in F32_LEAVES
+                             else cfg.dtype, copy=True)
+    return {k: conv(k, v) for k, v in params.items()}
+
+
+def teacher_forced(cfg, params, batch, dev, rows: int = RL_MINIBATCH):
+    """Each generated token's log-probability under ``params``, through
+    the port's ``apply`` (the flash forward on the card) on the prompt
+    and the trajectory teacher-forced, ``rows`` trajectories a call, as
+    the PPO learner reads it (``logits[:, P-1:]``); and the control, the
+    same logits read one position late (``logits[:, P:]``), the
+    off-by-one of a wrong teacher-forcing index. Returns (lp, control,
+    calls)."""
+    from ray_tpu_torch.models import apply
+    lps, ctl, calls = [], [], 0
+    with torch.no_grad():
+        for i in range(0, len(batch["tokens"]), rows):
+            prompt = torch.as_tensor(batch["prompt"][i:i + rows]).to(dev)
+            toks = torch.as_tensor(batch["tokens"][i:i + rows]).to(dev)
+            P = prompt.shape[1]
+            logits = apply(cfg, params, torch.cat([prompt, toks[:, :-1]], 1))
+            calls += 1
+            lsm = torch.log_softmax(logits.float(), dim=-1)
+            lps.append(lsm[:, P - 1:].gather(
+                -1, toks[..., None].long())[..., 0].cpu())
+            ctl.append(lsm[:, P:].gather(
+                -1, toks[:, :-1, None].long())[..., 0].cpu())
+            del logits, lsm
+    return torch.cat(lps).numpy(), torch.cat(ctl).numpy(), calls
+
+
+def watch_learner(learner):
+    """Count and time a local PPO learner's calls: each
+    ``compute_gradients``'s metrics, each update's wall (synchronised)."""
+    log = {"metrics": [], "update_s": []}
+    compute, update = learner.compute_gradients, learner.update_from_batch
+
+    def compute_gradients(batch):
+        grads, m = compute(batch)
+        log["metrics"].append(m)
+        return grads, m
+
+    def update_from_batch(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(batch)
+        torch.cuda.synchronize()
+        log["update_s"].append(time.perf_counter() - t0)
+        return out
+    learner.compute_gradients = compute_gradients
+    learner.update_from_batch = update_from_batch
+    return log
+
+
+def watch_streams(rollout):
+    """The block streams a rollout engine hands out, one a round, each
+    with the times it opened and its last block was pushed (the
+    consumer's wall also holds the learner's updates)."""
+    streams, open_round = [], rollout.stream_round
+
+    def stream_round(*a, **kw):
+        t0 = time.perf_counter()
+        stream = open_round(*a, **kw)
+        stream.opened, push = t0, stream.push
+
+        def timed_push(batch, info):
+            stream.last_push = time.perf_counter()
+            push(batch, info)
+        stream.push = timed_push
+        streams.append(stream)
+        return stream
+    rollout.stream_round = stream_round
+    return streams
+
+
+def round_record(out, wall_s, stream):
+    s = stream.stats()
+    keys = ("round", "trajectories", "rollout_tokens", "prefix_hit_rate",
+            "weight_version", "weight_syncs", "wire_compression",
+            "sync_stall_s", "staleness_max", "total_loss", "approx_kl",
+            "ratio_mean", "grad_norm", "stream_updates", "learners_used")
+    rec = {k: out[k] for k in keys if k in out}
+    rollout_s = stream.last_push - stream.opened
+    rec.update(round_wall_s=wall_s, rollout_wall_s=rollout_s,
+               rollout_tokens_per_s=s["rows"] * RL_NEW / rollout_s,
+               consume_wall_s=s["wall_s"], bubble=s["bubble"])
+    return rec
+
+
+def check_round(name: str, rec, want: int, publishes: int, lag: int):
+    check(rec["trajectories"] == want,
+          f"{name}: {rec['trajectories']} trajectories, not {want}")
+    check(rec["prefix_hit_rate"] is not None
+          and rec["prefix_hit_rate"] > 0.5,
+          f"{name}: prefix hit rate {rec['prefix_hit_rate']} <= 0.5")
+    check(rec["sync_stall_s"] == 0.0,
+          f"{name}: sync stall {rec['sync_stall_s']} s")
+    check(rec["staleness_max"] is not None and rec["staleness_max"] <= lag,
+          f"{name}: staleness {rec['staleness_max']} > {lag}")
+    check(rec["weight_version"] == rec["weight_syncs"] == publishes,
+          f"{name}: weight version {rec['weight_version']}, syncs "
+          f"{rec['weight_syncs']}, publishes {publishes}")
+    check(rec["wire_compression"] > 3.5,
+          f"{name}: wire compression {rec['wire_compression']} <= 3.5")
+
+
+def phase_rl1(dev, card: str, seed: int):
+    """RL1: anakin, one local learner, one engine, GPT-J-6B width at 8
+    layers, 16 rollouts a round, ``RL1_ROUNDS`` rounds. Every round: 16
+    trajectories, prefix hit rate > 0.5, no sync stall, staleness <= 1,
+    the engines' version = the publishes, wire compression > 3.5.
+    Version 0: every
+    token's log-probability recomputed from the learner's weights before
+    its first update through ``apply`` (flash forward) within 2e-2 of
+    the engine's (paged kernel) on average and ``RL_V0_TOKEN_BOUND``
+    each, the one-position-late control outside;
+    the first gradient round's ratio_mean within 1e-2 of 1. After round
+    1's publish a probe prompt that shares no cached prefix is served at
+    the new version, its first token's log-probability that of direct
+    ``prefill`` logits from ``unpack_weights(pack_weights(w))``, farther
+    from version 0's. Launches: 8 x the engine's prefill chunks and
+    decode steps (paged), 8 x ``compute_gradients`` calls (flash)."""
+    from ray_tpu_torch._bridge import params_from_jax
+    from ray_tpu_torch.rlhf import RLHFTrainer, pack_weights, unpack_weights
+    cfg = rl_model(RL1_LAYERS)
+    rc = rl_config(cfg, seed, placement="anakin", num_learners=1,
+                   num_engines=1, rollouts_per_round=16,
+                   minibatch_size=RL_MINIBATCH, num_epochs=1,
+                   learning_rate=1e-3, max_weight_lag=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = RLHFTrainer(rc, device=dev)
+    build_s = time.perf_counter() - t0
+    try:
+        learner = trainer.learners._local
+        engine = trainer.rollout.engines[0]
+        ecfg = engine.model_config
+        v0 = serving_tree(ecfg, learner._state["params"])
+        log, streams = watch_learner(learner), watch_streams(trainer.rollout)
+        rng = np.random.default_rng(seed + 22)
+        probe = [int(t) for t in rng.integers(2, cfg.vocab_size, RL_PROBE)]
+        reset_launches()
+        reset_flash_counts()
+        rounds = []
+        for r in range(RL1_ROUNDS):
+            t1 = time.perf_counter()
+            out = trainer.train_round()
+            torch.cuda.synchronize()
+            rounds.append(round_record(out, time.perf_counter() - t1,
+                                       streams[-1]))
+            if r == 0:
+                served = list(engine.generate_sync(
+                    probe, 4, detailed=True, timeout_s=ACTOR_TIMEOUT_S))
+                w1 = trainer.learners.get_weights()
+        from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+        s = wait_idle(engine)
+        paged = paged_flash_attention.kernel_launches
+        flash = flash_counts()
+        pub = trainer.publisher.stats()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        engine_calls = s["prefill_chunks"] + s["decode_steps"]
+        grad_calls = len(log["metrics"])
+        # -- the checks' own device work, after the main path's counts
+        batch0 = streams[0].full_batch()
+        check(bool((batch0["versions"] == 0).all()),
+              "round 1 has tokens past version 0")
+        lp, ctl, fwd_calls = teacher_forced(ecfg, v0, batch0, dev)
+        err = np.abs(lp - batch0["logprobs"])
+        ctl_err = np.abs(ctl - batch0["logprobs"][:, :-1])
+        t1 = time.perf_counter()
+        packed = pack_weights(w1, 1, rc.quant_block_size)
+        pack_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        tree = params_from_jax(unpack_weights(packed)[0], ecfg, dev)
+        unpack_s = time.perf_counter() - t1
+        del w1, packed
+        tok = served[0][0]
+        ref_row = torch.log_softmax(direct_logits(dev, ecfg, tree, probe),
+                                    -1)
+        ref_lp, ref_tok = ref_row[tok].item(), int(ref_row.argmax())
+        v0_lp = torch.log_softmax(direct_logits(dev, ecfg, v0, probe),
+                                  -1)[tok].item()
+        del tree
+        flash_after = flash_counts()
+    finally:
+        trainer.shutdown()
+        del trainer
+        torch.cuda.empty_cache()
+    first = log["metrics"][0]
+    out = {"card": card, "config": f"gptj-6b n_layers={RL1_LAYERS}",
+           "params": cfg.num_params, "build_s": build_s, "rounds": rounds,
+           "learner_ms_per_update": [1e3 * x for x in log["update_s"]],
+           "compute_gradients_calls": grad_calls,
+           "first_round": first,
+           "v0_tokens": int(err.size),
+           "v0_tokens_over_bar": int((err > LOGPROB_ABS_TOL).sum()),
+           "v0_logprob_abs_err_mean": float(err.mean()),
+           "v0_logprob_abs_err_median": float(np.median(err)),
+           "v0_logprob_abs_err_max": float(err.max()),
+           "control_abs_err_mean": float(ctl_err.mean()),
+           "control_abs_err_median": float(np.median(ctl_err)),
+           "control_abs_err_max": float(ctl_err.max()),
+           "probe": {"tokens": [t for t, _, _ in served],
+                     "versions": [v for _, v, _ in served],
+                     "first_logprob": served[0][2],
+                     "published_ref_logprob": ref_lp,
+                     "published_ref_token": ref_tok,
+                     "v0_logprob": v0_lp},
+           "publisher": pub,
+           "wire_bytes_per_publish": pub["wire_bytes_total"]
+           / max(pub["publishes"], 1),
+           "publish_wall_s_per_publish": pub["publish_wall_s"]
+           / max(pub["publishes"], 1),
+           "check_pack_s": pack_s, "check_unpack_and_stage_s": unpack_s,
+           "engine": {k: s[k] for k in ("prefill_chunks", "decode_steps",
+                                        "prefix_hit_blocks_total",
+                                        "prompt_blocks_total",
+                                        "weight_swaps", "tokens_total")},
+           "paged_launches": paged, "flash_launches": flash,
+           "check_forward_calls": fwd_calls,
+           "peak_mem_gb": peak_gb}
+    print("rl1 " + json.dumps(out), flush=True)
+    for i, rec in enumerate(rounds):
+        check_round(f"RL1 round {i + 1}", rec, 16, i + 1, rc.max_weight_lag)
+    check(paged > 0 and paged == RL1_LAYERS * engine_calls,
+          f"RL1 paged launches {paged} != {RL1_LAYERS} x {engine_calls}")
+    for n, c in flash.items():
+        check(c > 0 and c == RL1_LAYERS * grad_calls,
+              f"RL1 {n} launched {c} times, not {RL1_LAYERS} x {grad_calls}")
+    check(flash_after["flash_fwd"] - flash["flash_fwd"]
+          == RL1_LAYERS * fwd_calls,
+          f"the check's forwards: {flash_after} after {flash}")
+    check(err.mean() <= LOGPROB_ABS_TOL and err.max() <= RL_V0_TOKEN_BOUND,
+          f"RL1 version-0 logprobs: learner vs engine mean err "
+          f"{err.mean()} (bar {LOGPROB_ABS_TOL}), max {err.max()} (bound "
+          f"{RL_V0_TOKEN_BOUND})")
+    check(np.median(ctl_err) > RL_V0_TOKEN_BOUND,
+          f"RL1 control (one position late) median err "
+          f"{np.median(ctl_err)} is inside {RL_V0_TOKEN_BOUND}: the check "
+          f"does not separate it")
+    check(abs(first["ratio_mean"] - 1) <= 1e-2,
+          f"RL1 first gradient round ratio_mean {first['ratio_mean']}")
+    check(all(math.isfinite(first[k]) for k in ("total_loss", "grad_norm")),
+          f"RL1 first gradient round not finite: {first}")
+    check(set(v for _, v, _ in served) == {1},
+          f"RL1 probe stamped {[v for _, v, _ in served]}, not version 1")
+    check(served[0][0] == ref_tok,
+          f"RL1 probe served token {served[0][0]}, the published tree's "
+          f"argmax {ref_tok}")
+    check(abs(served[0][2] - ref_lp) <= LOGPROB_ABS_TOL,
+          f"RL1 probe logprob {served[0][2]} vs the published tree's "
+          f"{ref_lp}")
+    check(abs(served[0][2] - v0_lp) > abs(served[0][2] - ref_lp),
+          f"RL1 probe logprob {served[0][2]} is no farther from version "
+          f"0's {v0_lp} than from the published tree's {ref_lp}")
+    return out
+
+
+def learner_ready(inst):
+    """A remote PPO learner's card, process and memory, and the flash
+    launch counts of its process (set to 0 here)."""
+    reset_flash_counts()
+    dev = inst._learner.device
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    return {"device": device_name(dev), "pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9
+            if on_card else 0.0}
+
+
+def learner_after(inst):
+    """A remote learner's flash launch counts, call walls, peak memory
+    and a sha256 of each of its weights' bytes."""
+    import hashlib
+    dev = inst._learner.device
+    from ray_tpu_torch.models.training import tree_leaves
+    digest = hashlib.sha256()
+    for t in tree_leaves(inst._learner._state["params"]):
+        digest.update(t.detach().cpu().numpy().tobytes())
+    return {"launches": flash_counts(), "walls": inst.walls,
+            "weights_sha256": digest.hexdigest(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+            if dev.type == "cuda" else 0.0}
+
+
+def phase_rl2(dev, card: str, seed: int):
+    """RL2: sebulba, 2 remote learners (``{"num_cpus": 1}`` each, on the
+    card through ``device=None`` in their workers), 2 engines in the
+    driver, GPT-J-6B width at 2 layers, 8 rollouts, one gradient round of
+    4 rows a learner, one round, on a runtime whose store holds 6 f32
+    weight trees. Two learners used on disjoint shards, their weights
+    bit-identical after the round, a publish, no sync stall, staleness
+    <= 1, each learner's flash launches 2 x its ``compute_gradients``
+    calls; the gradient round's wall split into compute, gradients out
+    through the store, the host mean, and the mean back."""
+    import shutil
+
+    import ray_tpu_torch
+    from ray_tpu_torch.ops.paged_flash import paged_flash_attention
+    from ray_tpu_torch.rlhf import RLHFTrainer
+    cfg = rl_model(RL2_LAYERS)
+    rc = rl_config(cfg, seed, placement="sebulba", num_learners=2,
+                   num_engines=2, rollouts_per_round=8, minibatch_size=8)
+    payload = 4 * cfg.num_params
+    shm = shutil.disk_usage("/dev/shm")
+    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
+                       _num_initial_workers=3,
+                       object_store_memory=6 * payload)
+    trainer = None
+    try:
+        t0 = time.perf_counter()
+        trainer = RLHFTrainer(rc)
+        build_s = time.perf_counter() - t0
+        streams = watch_streams(trainer.rollout)
+        actors = trainer.learners._remote
+        ready = ray_tpu_torch.get([a.__ray_call__.remote(learner_ready)
+                                   for a in actors], timeout=ACTOR_TIMEOUT_S)
+        for info in ready:
+            check(info["device"] == device_name(dev),
+                  f"an RL2 learner runs on {info['device']!r}")
+        check(ready[0]["pid"] != ready[1]["pid"],
+              "the two RL2 learners share a process")
+        reset_launches()
+        t0 = time.perf_counter()
+        out = trainer.train_round()
+        wall = time.perf_counter() - t0
+        stats = [wait_idle(e) for e in trainer.rollout.engines]
+        paged = paged_flash_attention.kernel_launches
+        after = ray_tpu_torch.get([a.__ray_call__.remote(learner_after)
+                                   for a in actors], timeout=ACTOR_TIMEOUT_S)
+        shard_uids = [list(u) for u in trainer.learners.shard_uids]
+        round_walls = list(trainer.learners.round_walls)
+        pub = trainer.publisher.stats()
+        rec = round_record(out, wall, streams[0])
+    finally:
+        if trainer is not None:
+            trainer.shutdown()
+        ray_tpu_torch.shutdown()
+    engine_calls = sum(s["prefill_chunks"] + s["decode_steps"]
+                       for s in stats)
+    split = []
+    for i, (gather_s, mean_s, apply_s) in enumerate(round_walls):
+        compute = max(a["walls"]["compute_gradients"][i] for a in after)
+        to_host = max(a["walls"]["grads_to_host"][i] for a in after)
+        applied = max(a["walls"]["apply_gradients"][i] for a in after)
+        split.append({"round_s": gather_s + mean_s + apply_s,
+                      "compute_s": compute, "grads_to_host_s": to_host,
+                      "grads_out_through_store_s": gather_s - compute
+                      - to_host,
+                      "host_mean_s": mean_s,
+                      "mean_back_through_store_s": apply_s - applied,
+                      "apply_in_learner_s": applied})
+    res = {"card": card, "config": f"gptj-6b n_layers={RL2_LAYERS}",
+           "params": cfg.num_params, "grad_payload_bytes": payload,
+           "dev_shm_bytes": shm.total, "build_s": build_s,
+           "learners": ready, "round": rec,
+           "shard_uids": shard_uids, "gradient_rounds": split,
+           "publisher": pub, "engine_calls": engine_calls,
+           "paged_launches": paged,
+           "learner_launches": [a["launches"] for a in after],
+           "learner_walls": [a["walls"] for a in after],
+           "learner_peak_mem_gb": [a["peak_mem_gb"] for a in after],
+           "weights_sha256": [a["weights_sha256"] for a in after]}
+    print("rl2 " + json.dumps(res), flush=True)
+    check(out["trajectories"] == 8, f"RL2: {out['trajectories']} "
+          f"trajectories, not 8")
+    check(out["learners_used"] == 2.0,
+          f"RL2 learners used: {out['learners_used']}")
+    u0, u1 = map(set, shard_uids)
+    check(bool(u0) and bool(u1) and not (u0 & u1),
+          f"RL2 shards not disjoint: {shard_uids}")
+    check(after[0]["weights_sha256"] == after[1]["weights_sha256"],
+          "RL2 learners' weights differ after the round")
+    check(out["weight_syncs"] >= 1 and out["sync_stall_s"] == 0.0
+          and out["staleness_max"] is not None
+          and out["staleness_max"] <= rc.max_weight_lag,
+          f"RL2 syncs {out['weight_syncs']}, stall {out['sync_stall_s']}, "
+          f"staleness {out['staleness_max']}")
+    check(paged > 0 and paged == RL2_LAYERS * engine_calls,
+          f"RL2 paged launches {paged} != {RL2_LAYERS} x {engine_calls}")
+    for i, a in enumerate(after):
+        calls = len(a["walls"]["compute_gradients"])
+        for n, c in a["launches"].items():
+            check(calls > 0 and c == RL2_LAYERS * calls,
+                  f"RL2 learner {i}: {n} launched {c} times, not "
+                  f"{RL2_LAYERS} x {calls}")
+    return res
+
+
+def rlhf_phases(dev, card: str, seed: int):
+    """RL1 and RL2 after S2; the card's free memory must come back after
+    each. Returns the two phases' records."""
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    out = {}
+    for name, phase in (("RL1", phase_rl1), ("RL2", phase_rl2)):
+        t0 = time.perf_counter()
+        out[name] = phase(dev, card, seed)
+        gc.collect()       # the watchers' wrappers close reference cycles
+        torch.cuda.empty_cache()
+        deadline = time.monotonic() + 60
+        while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
+                and time.monotonic() < deadline:
+            time.sleep(0.5)
+        free1 = torch.cuda.mem_get_info()[0]
+        print(f"phase {name} wall: {time.perf_counter() - t0:.1f} s; card "
+              f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f}"
+              f" GB after", flush=True)
+        check(free1 >= free0 - (1 << 30),
+              f"{name}'s card memory did not come back")
+    return out
+
+
 # --------------------------------------------------------------- phase 2
 SOURCES = ("paged_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
            "flash_attention.cu")
@@ -2290,6 +2806,11 @@ def flash_shapes():
                    True),
         # ragged tiles (200 = 3 x 64 + 8), non-causal, f32
         FlashShape("ragged_f32", 2, 200, 200, 4, 64, torch.float32, False),
+        # RL1's PPO learner: a minibatch of 4 trajectories teacher-forced
+        # over 288 + 64 - 1 = 351 tokens, the last tile partial, bf16
+        FlashShape("rl1_learner", RL_MINIBATCH, RL_SYSTEM + RL_SUFFIX
+                   + RL_NEW - 1, RL_SYSTEM + RL_SUFFIX + RL_NEW - 1, 16,
+                   256, torch.bfloat16, True),
     ]
 
 
@@ -2792,7 +3313,15 @@ def main(argv=None) -> int:
     paged["serve_launches"] = served["S1"]["paged_launches"]
     paged["disagg_launches"] = served["S2"]["prefill_launches"] \
         + served["S2"]["decode_launches"]
-    kernels.extend(training_phases(dev, card, args.seed))
+    rl = rlhf_phases(dev, card, args.seed)
+    paged["rlhf_launches"] = {name: rl[name]["paged_launches"]
+                              for name in ("RL1", "RL2")}
+    flash = training_phases(dev, card, args.seed)
+    for rec in flash:
+        rec["rlhf_learner_launches"] = {
+            "RL1": rl["RL1"]["flash_launches"][rec["name"]],
+            "RL2": [n[rec["name"]] for n in rl["RL2"]["learner_launches"]]}
+    kernels.extend(flash)
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,7 +8,9 @@ model keeps f32 masters and casts at each use (``.astype(dt)``), which
 gives the same numbers. For training (``masters=True``) every leaf stays
 f32, as the JAX trainer holds it. Norm scales and biases stay f32 either
 way. :func:`train_state_from_jax` carries a whole JAX train state (params
-and the optax ``clip -> adamw`` moments) into the port's.
+and the optax ``clip -> adamw`` moments) into the port's, and
+:func:`policy_state_from_jax` an RLHF ``PolicyLearner``'s (params and the
+optax ``clip -> adam`` moments).
 """
 
 from __future__ import annotations
@@ -44,10 +46,11 @@ def params_from_jax(tree: Dict[str, Any], config, device,
 
 
 def to_numpy(tree):
-    """Tensor tree (or tensor) -> numpy f32 arrays of the same tree."""
+    """Tensor tree (or tensor) -> numpy f32 arrays of the same tree, each a
+    copy (never a view of a CPU tensor that may change later)."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
-    return tree.detach().to("cpu", torch.float32).numpy()
+    return tree.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
 def _find_adam_state(opt_state):
@@ -63,6 +66,31 @@ def _find_adam_state(opt_state):
     return None
 
 
+def _adam_from_jax(opt_state, config, dev) -> Dict[str, Any]:
+    """The optax adam moments of a numpy-converted chain state as the
+    port's ``{"count", "mu", "nu"}`` (f32, on ``dev``)."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no adam state (count, mu, nu) in the opt_state")
+    return {"count": torch.tensor(int(np.asarray(adam.count)),
+                                  dtype=torch.int32, device=dev),
+            "mu": params_from_jax(adam.mu, config, dev, masters=True),
+            "nu": params_from_jax(adam.nu, config, dev, masters=True)}
+
+
+def policy_state_from_jax(state: Dict[str, Any], config,
+                          device) -> Dict[str, Any]:
+    """A JAX RLHF ``PolicyLearner``'s state (``{"params", "opt_state"}``
+    with an optax ``clip_by_global_norm -> adam`` chain state, leaves as
+    numpy arrays) -> the port's ``PolicyLearner`` state (f32 params and
+    ``{"count", "mu", "nu"}`` on ``device``), which its ``load_state``
+    takes, so a learner resumes where the JAX one stopped."""
+    dev = torch.device(device)
+    return {"params": params_from_jax(state["params"], config, dev,
+                                      masters=True),
+            "opt_state": _adam_from_jax(state["opt_state"], config, dev)}
+
+
 def train_state_from_jax(state: Dict[str, Any], config,
                          device) -> Dict[str, Any]:
     """A JAX train state (``{"params", "opt_state", "step"}`` with an optax
@@ -70,15 +98,8 @@ def train_state_from_jax(state: Dict[str, Any], config,
     the port's train state: f32 params, ``{"count", "mu", "nu"}`` and
     ``step`` on ``device``, so a run resumes where the JAX one stopped."""
     dev = torch.device(device)
-    adam = _find_adam_state(state["opt_state"])
-    if adam is None:
-        raise ValueError("no adam state (count, mu, nu) in the opt_state")
     return {
         "params": params_from_jax(state["params"], config, dev, masters=True),
-        "opt_state": {
-            "count": torch.tensor(int(np.asarray(adam.count)),
-                                  dtype=torch.int32, device=dev),
-            "mu": params_from_jax(adam.mu, config, dev, masters=True),
-            "nu": params_from_jax(adam.nu, config, dev, masters=True)},
+        "opt_state": _adam_from_jax(state["opt_state"], config, dev),
         "step": torch.tensor(int(np.asarray(state["step"])),
                              dtype=torch.int32, device=dev)}

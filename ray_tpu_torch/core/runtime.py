@@ -504,6 +504,15 @@ class Runtime:
             # stamp + ring-record critical one-way messages BEFORE the
             # chaos filter: a dropped message must already be tracked
             msgs = [(mt, rel.stamp(target, mt, pl)) for mt, pl in msgs]
+            # a slow flush (a call carrying a large argument) can find one
+            # retransmit queued twice: the same stamped dict would pickle
+            # as ONE shared object, whose stamp the receiver's dedup pops
+            # at the first copy, so the second copy would pass as new and
+            # run a call twice. Ship each stamped object once a flush.
+            seen = set()
+            msgs = [(mt, pl) for mt, pl in msgs
+                    if not (isinstance(pl, dict) and RD.STAMP in pl)
+                    or not (id(pl) in seen or seen.add(id(pl)))]
         if getattr(self, "_chaos", None) is not None:
             msgs = self._chaos_filter(target, msgs)
             if not msgs:

@@ -119,8 +119,8 @@ class TrainStepBundle:
     step_fn: Callable[[Dict, Dict], Tuple[Dict, Dict]]  # (state, batch)
     grad_transport: str = "fp32"
     shard_weight_update: bool = False
-    #: accepted for the JAX signature; unused until the metrics plane is
-    #: ported (the step records no telemetry)
+    #: accepted for the JAX signature; unused: the step records no
+    #: telemetry yet (the metrics plane is ported, the reporting is not)
     telemetry_interval_s: float = 0.5
     device: Optional[torch.device] = None
 
@@ -161,8 +161,10 @@ def make_train_step(config: TransformerConfig, mesh=None, rules=None,
 
     Not ported yet, each raising ``NotImplementedError``: a mesh of more
     than one device, ``grad_transport="int8"``, ``shard_weight_update``,
-    MoE configs. ``telemetry_interval_s`` is accepted and unused: the port
-    has no metrics plane yet.
+    MoE configs. ``telemetry_interval_s`` is accepted and unused: the
+    step does not report through the runtime's metrics plane yet
+    (``core/metrics_plane.py``, copied with the core runtime), as the JAX
+    trainer does.
     """
     if grad_transport not in GRAD_TRANSPORTS:
         raise ValueError(f"grad_transport must be one of "

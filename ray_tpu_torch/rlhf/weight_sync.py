@@ -12,20 +12,26 @@ no bfloat16 of its own).
 The refresh is version-stamped at the source: ``pack_weights`` bakes
 the policy version into the payload, and the engine stamps every token
 it emits after the swap with it. Dequantization runs on the caller's
-thread (the actor call that delivers the payload), never on the
-engine's step thread.
+thread (the actor call that delivers the payload, or the publisher's),
+never on the engine's step thread.
 
-The publisher, the rollout engine and the trainer of the JAX package's
-``rlhf/`` are still to be ported (ROADMAP Queue 1 item 7).
+:class:`WeightPublisher` fans a refresh out to in-process engines
+(``stage_weights``, after a dequantization into each engine's dtypes on
+its device) and to remote handles (``sync_weights``, which ship the
+packed payload).
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from ray_tpu_torch._bridge import params_from_jax
+from ray_tpu_torch.exceptions import EngineDeadError
 from ray_tpu_torch.parallel.quantization import (DEFAULT_BLOCK_SIZE,
                                                  dequantize_int8_np,
                                                  quantize_int8_np)
@@ -118,3 +124,128 @@ def packed_wire_bytes(packed: Dict[str, Any]) -> int:
         else:
             total += e["q"].nbytes + e["scales"].nbytes
     return total
+
+
+def _f32_bytes(packed: Dict[str, Any]) -> int:
+    """Bytes the payload's leaves would take in f32 (raw leaves as
+    shipped): the denominator of the wire's compression."""
+    total = 0
+    for e in packed["entries"].values():
+        if "raw" in e:
+            total += e["raw"].nbytes
+        else:
+            total += 4 * int(np.prod(e["shape"])) if e["shape"] else 4
+    return total
+
+
+def await_version(engine, version: int, timeout_s: float = 60.0) -> None:
+    """Wait until ``engine`` (an in-process ``LLMEngine``) has swapped in
+    ``version`` or a newer one: its step thread swaps a staged tree at
+    its next step boundary."""
+    deadline = time.monotonic() + timeout_s
+    while engine.stats()["weight_version"] < version:
+        if engine._dead is not None:
+            raise EngineDeadError(
+                f"engine step loop died: {engine._dead!r}")
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"weight swap to version {version} never "
+                               f"landed")
+        time.sleep(0.002)
+
+
+class WeightPublisher:
+    """Monotone-versioned weight fan-out to a set of engines.
+
+    Targets may be in-process :class:`~ray_tpu_torch.serve.llm_engine.
+    LLMEngine` objects (``stage_weights``: the payload is dequantized
+    HERE, on the publisher's thread, and carried into the engine's
+    dtypes on its device; engines that share a device and a model
+    config share one staged tree; a target with no ``model_config``
+    takes the numpy tree) or remote handles exposing
+    ``sync_weights`` (the packed payload ships; the replica dequantizes
+    on its own actor thread). Either way the engine's step thread only
+    swaps a pointer. ``publish`` returns once every in-process engine has
+    swapped the new version in (at most one engine step later; decode
+    never waits), so every token emitted after it returns carries that
+    version or a newer one, and each publish is one swap: publishes that
+    a step thread would otherwise see staged together no longer coalesce
+    into one swap (the JAX publisher returns at staging: ROADMAP
+    Queue 3). ``stats()`` also keeps the host seconds spent in
+    :func:`pack_weights` and :func:`unpack_weights`.
+    """
+
+    def __init__(self, engines: List[Any],
+                 block_size: int = DEFAULT_BLOCK_SIZE,
+                 recorder=None):
+        self._engines = list(engines)
+        self._block_size = block_size
+        self._recorder = recorder
+        self._lock = threading.Lock()
+        self._version = 0
+        self._publishes = 0
+        self._wire_bytes = 0
+        self._f32_bytes = 0
+        self._publish_wall_s = 0.0
+        self._pack_wall_s = 0.0
+        self._unpack_wall_s = 0.0
+
+    @property
+    def version(self) -> int:
+        with self._lock:
+            return self._version
+
+    def publish(self, params: Dict[str, Any]) -> int:
+        """Pack and fan out one refresh; returns the new version."""
+        t0 = time.monotonic()
+        with self._lock:
+            self._version += 1
+            version = self._version
+        packed = pack_weights(params, version, self._block_size)
+        t_pack = time.monotonic() - t0
+        unpacked, t_unpack = None, 0.0
+        staged: Dict[Any, Dict[str, Any]] = {}
+        swapping = []
+        for eng in self._engines:
+            if hasattr(eng, "stage_weights"):
+                if unpacked is None:
+                    t1 = time.monotonic()
+                    unpacked, _ = unpack_weights(packed)
+                    t_unpack = time.monotonic() - t1
+                cfg = getattr(eng, "model_config", None)
+                if cfg is None:     # a target that takes the numpy tree
+                    eng.stage_weights(unpacked, version)
+                    continue
+                key = (str(eng.device), cfg)
+                if key not in staged:
+                    staged[key] = params_from_jax(unpacked, cfg,
+                                                  eng.device)
+                eng.stage_weights(staged[key], version)
+                swapping.append(eng)
+            else:
+                eng.sync_weights(packed)
+        for eng in swapping:
+            await_version(eng, version)
+        wall = time.monotonic() - t0
+        with self._lock:
+            self._publishes += 1
+            self._wire_bytes += packed_wire_bytes(packed)
+            self._f32_bytes += _f32_bytes(packed)
+            self._publish_wall_s += wall
+            self._pack_wall_s += t_pack
+            self._unpack_wall_s += t_unpack
+        return version
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "version": self._version,
+                "publishes": self._publishes,
+                "wire_bytes_total": self._wire_bytes,
+                "f32_bytes_total": self._f32_bytes,
+                "compression": (round(self._f32_bytes
+                                      / self._wire_bytes, 3)
+                                if self._wire_bytes else None),
+                "publish_wall_s": round(self._publish_wall_s, 4),
+                "pack_wall_s": round(self._pack_wall_s, 4),
+                "unpack_wall_s": round(self._unpack_wall_s, 4),
+            }

@@ -204,11 +204,12 @@ def test_spec_prompts_repeat_a_segment():
 def test_runtime_phases_run_between_serving_and_training():
     """R1-R3 come after the serving phases have released their weights
     and before the trainer's, in the order store, runtime, actor; S1-S2
-    after them."""
+    after them, then RL1-RL2."""
     import inspect
     main = inspect.getsource(chip_smoke.main)
     assert main.index("serving_phases(") < main.index("runtime_phases(") \
-        < main.index("serve_phases(") < main.index("training_phases(")
+        < main.index("serve_phases(") < main.index("rlhf_phases(") \
+        < main.index("training_phases(")
     r = inspect.getsource(chip_smoke.runtime_phases)
     assert r.index("phase_store(") < r.index("phase_runtime(") \
         < r.index("phase_actor_server(") < r.index("ray_tpu_torch.kill(") \
@@ -366,3 +367,53 @@ def test_serve_phases_on_the_cpu(monkeypatch):
         chip_smoke.handoff_bytes(n, "bf16", cfg)
         for n in s2["prompt_tokens"])
     assert len(failed) == 4 and all("launches" in f for f in failed), failed
+
+
+def test_rlhf_phases_on_the_cpu(monkeypatch):
+    """RL1 and RL2 at gptj-tiny width (the phases' depths, 16 new tokens
+    a rollout) on the CPU: the anakin rounds meet their bars (16
+    trajectories, prefix hit rate over 0.5, no sync stall, staleness
+    within the lag, one publish a round), version-0 logprobs recomputed by the learner's forward match
+    the engine's with the one-late control outside, the probe reads the
+    published tree; the sebulba round uses both remote learners on
+    disjoint shards and leaves their weights bit-identical. The kernel
+    wrappers launch nothing on the CPU, so the launch checks (RL1's paged
+    and four flash counts and its check's forwards, RL2's paged count and
+    each learner's four flash counts) are the only ones that fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.serve import llm_engine
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(
+        llm_engine, "_server_device",
+        lambda device: torch.device("cpu" if device is None else device))
+    monkeypatch.setattr(chip_smoke, "rl_model", lambda n: dataclasses.replace(
+        get_config("gptj-tiny"), n_layers=n, max_seq_len=1024))
+    monkeypatch.setattr(chip_smoke, "RL_NEW", 16)   # fewer CPU decode steps
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        out = chip_smoke.rlhf_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    rl1, rl2 = out["RL1"], out["RL2"]
+    assert [r["trajectories"] for r in rl1["rounds"]] == \
+        [16] * chip_smoke.RL1_ROUNDS
+    assert rl1["compute_gradients_calls"] == 4 * chip_smoke.RL1_ROUNDS
+    assert rl1["v0_logprob_abs_err_max"] < 1e-4
+    assert rl1["control_abs_err_max"] > chip_smoke.LOGPROB_ABS_TOL
+    assert rl1["probe"]["versions"] == [1] * 4
+    assert rl2["round"]["learners_used"] == 2.0
+    assert all(r["prefix_hit_rate"] > 0.5 for r in rl1["rounds"])
+    assert len(set(rl2["weights_sha256"])) == 1
+    assert [len(w["compute_gradients"]) for w in rl2["learner_walls"]] \
+        == [1, 1]
+    assert rl1["paged_launches"] == rl2["paged_launches"] == 0
+    assert len(failed) == 1 + 4 + 1 + 1 + 8 and all(
+        "launch" in f or "forwards" in f for f in failed), failed

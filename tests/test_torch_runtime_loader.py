@@ -1,10 +1,12 @@
-"""Run the JAX package's ``tests/core`` and ``tests/serve`` bodies on the
-port's runtime.
+"""Run the JAX package's ``tests/core``, ``tests/serve`` and ``tests/rlhf``
+bodies on the port's runtime.
 
 Each ``tests/test_torch_runtime_<name>.py`` file loads
 ``tests/core/test_<name>.py`` with :func:`load_core_tests`, and each
 ``tests/test_torch_serve_<name>.py`` loads ``tests/serve/test_<name>.py``
-(named ``"serve/test_<name>.py"``): the source is
+(named ``"serve/test_<name>.py"``), and each
+``tests/test_torch_rlhf_<name>.py`` that loads bodies
+``tests/rlhf/test_<name>.py`` (``"rlhf/test_<name>.py"``): the source is
 read, ``ray_tpu`` is rewritten to ``ray_tpu_torch`` on word boundaries
 and ``RAY_TPU_<NAME>`` environment variables to ``RAY_TPU_TORCH_<NAME>``,
 every ``ray_tpu_torch.get``/``ray_tpu_torch.wait`` call without a timeout
@@ -14,9 +16,14 @@ workers receive its functions by value and never import the JAX test
 module or ``ray_tpu``. The file then takes the module's tests, fixtures
 and helpers into its own namespace, less the bodies it leaves out (each
 named with its reason), beside this module's fixtures: the
-``tests/conftest.py`` fixtures ``ray_start_regular``/``ray_start_shared``
-and the ``tests/serve/conftest.py`` fixture ``serve_session`` on the
-port's runtime, and a metrics-registry reset for the port's registry.
+``tests/conftest.py`` fixtures ``ray_start_regular``/``ray_start_shared``,
+the ``tests/serve/conftest.py`` fixture ``serve_session`` and the
+``tests/rlhf/conftest.py`` fixture ``rlhf_cluster`` on the port's
+runtime, and a metrics-registry reset for the port's registry. The RLHF
+files also take ``RLHF_ON_THE_CPU``: the JAX bodies build trainers and
+rollout engines in the test process with no device named (the JAX
+package's run on the CPU platform there), so the fixture names the CPU
+for them, as a test passes ``device="cpu"``.
 
 The tests of this file check the loader itself.
 """
@@ -35,6 +42,7 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_TESTS = ROOT / "tests"
 JAX_CORE = JAX_TESTS / "core"
 JAX_SERVE = JAX_TESTS / "serve"
+JAX_RLHF = JAX_TESTS / "rlhf"
 #: a get or wait in a loaded body that names no timeout gets this one
 DEFAULT_TIMEOUT_S = 120.0
 
@@ -131,6 +139,15 @@ def serve_session():
     ray_tpu_torch.shutdown()
 
 
+@pytest.fixture
+def rlhf_cluster():
+    import ray_tpu_torch
+    info = ray_tpu_torch.init(num_cpus=8, _num_initial_workers=4,
+                              ignore_reinit_error=True)
+    yield info
+    ray_tpu_torch.shutdown()
+
+
 @pytest.fixture(autouse=True)
 def _port_metrics_registry_isolation():
     """The port's twin of tests/conftest.py's registry reset: metrics a
@@ -144,16 +161,32 @@ def _port_metrics_registry_isolation():
     mx.restore_registry(mark)
 
 
+@pytest.fixture(autouse=True)
+def _rlhf_devices_on_the_cpu(monkeypatch):
+    """The RLHF learners and rollout engines that a loaded body builds
+    with no device run on the CPU (their ``device=None`` is the card)."""
+    import torch
+
+    from ray_tpu_torch.serve import llm_engine
+    monkeypatch.setattr(
+        llm_engine, "_server_device",
+        lambda device: torch.device("cpu" if device is None else device))
+
+
+RLHF_ON_THE_CPU = {"_rlhf_devices_on_the_cpu": _rlhf_devices_on_the_cpu}
+
 FIXTURES = {"ray_start_regular": ray_start_regular,
             "ray_start_shared": ray_start_shared,
             "serve_session": serve_session,
+            "rlhf_cluster": rlhf_cluster,
             "_port_metrics_registry_isolation":
                 _port_metrics_registry_isolation}
 
 
 @pytest.mark.parametrize("filename", sorted(
     p.name for p in JAX_CORE.glob("test_*.py")) + sorted(
-    f"serve/{p.name}" for p in JAX_SERVE.glob("test_*.py")))
+    f"serve/{p.name}" for p in JAX_SERVE.glob("test_*.py")) + sorted(
+    f"rlhf/{p.name}" for p in JAX_RLHF.glob("test_*.py")))
 def test_rewrite_leaves_no_jax_package_import(filename):
     """After the rewrite no import names the JAX package."""
     tree = ast.parse(port_source(filename))
