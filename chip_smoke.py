@@ -166,8 +166,9 @@ RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
    versions at GPT-J-6B's training shape (B=2, H=16, S=2048, D=256, bf16,
    causal), ``entry()``'s (B=2, H=4, S=256, D=128, bf16), a cross-length
    causal shape (sq=128, sk=384), a ragged non-causal f32 shape (S=200,
-   D=64) and RL1's learner shape (B=4, H=16, S=351, D=256, bf16, causal,
-   its last tile partial), each (row, head) vector of O, dQ, dK, dV held relative
+   D=64), RL1's learner shape (B=4, H=16, S=351, D=256, bf16, causal,
+   its last tile partial) and a P1 rank's (B=1, H=8, S=2048, D=256, bf16,
+   causal), each (row, head) vector of O, dQ, dK, dV held relative
    to that vector's max (floored at 1% of the tensor's max), LSE and delta
    absolutely; at the training shape ``kernel_ms``, ``plain_ms``,
    ``bound_ms`` (from the products each kernel does on the causal pairs
@@ -199,14 +200,43 @@ RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
 10. Where the time goes in a train step: one profiler window, device time
     by kind (flash forward, flash backward, matmul, other) and the idle
     share.
+P1. Sharding, on a runtime of its own: four rank actors (``num_gpus=
+    0.25`` each, all on this card) joined into one gloo group through
+    ``init_torch_distributed``, each building ``MeshSpec(fsdp=2, tp=2)``
+    (``__graft_entry__._factor_mesh(4)``) and ``make_train_step`` at
+    GPT-J-6B width cut to 8 layers under ``FSDP_RULES``, remat
+    ``"dots"``, lr 1e-4, global batch 2 x 2048 (one row a data rank),
+    one warm-up and 3 timed steps. Losses finite, equal on every rank and
+    falling; each rank launched each flash kernel 8 x steps (at 8 heads,
+    its tp half); each rank's shard shapes are ``FSDP_RULES``'; leaves
+    replicated over tp bit-identical across each tp pair. Step wall,
+    tokens/s, MFU, each rank's peak memory, and the wall split into
+    compute and collectives (``CollectiveClock`` wraps the collective
+    layer's one entry into torch.distributed in each rank).
+P2. The sharded step against the one-device step at 2 layers, 1 x 2048 a
+    data rank, same weights (the sharded init is a slice of the
+    one-device init) and batch: loss and gradients (each rank's shards
+    against the slices of the one-device gradients; global and worst-leaf
+    relative L2) within P2's bounds, a faulty control (wk/wv's gradients
+    not summed over tp) outside them; then 3
+    steps with ``grad_transport="int8"`` and ``shard_weight_update``
+    within JAX's bound (1e-2) of 3 fp32 sharded steps, the int8 bytes the
+    scatter legs sent equal to ``tree_wire_bytes`` of what the step
+    reduces.
+P3. NCCL at world size 1: a rank actor (``num_gpus=1``) runs
+    ``init_torch_distributed(backend="nccl")`` and every eager op of the
+    collective layer on a CUDA tensor; each result equals its input (the
+    quantized ones the input's two-leg round trip) on ``cuda:0``. The card's
+    free memory comes back after the group.
 
 Before them the script's total wall is printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
 verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
 ``serve_launches``, S2's ``disagg_launches``, both replicas', and RL1's
 and RL2's ``rlhf_launches``; each flash kernel's carries RL1's and each RL2
-learner's ``rlhf_learner_launches``); the last
-line is ``{"ok": true, "device": {...}}``.
+learner's ``rlhf_learner_launches`` and each P1 rank's
+``sharded_launches``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -2811,6 +2841,9 @@ def flash_shapes():
         FlashShape("rl1_learner", RL_MINIBATCH, RL_SYSTEM + RL_SUFFIX
                    + RL_NEW - 1, RL_SYSTEM + RL_SUFFIX + RL_NEW - 1, 16,
                    256, torch.bfloat16, True),
+        # P1's ranks: one row a data rank, the tp half of the 16 heads
+        FlashShape("p1_rank", SHARD_BATCH // SHARD_MESH["fsdp"], 2048, 2048,
+                   16 // SHARD_MESH["tp"], 256, torch.bfloat16, True),
     ]
 
 
@@ -3281,6 +3314,530 @@ def training_phases(dev, card: str, seed: int):
     return records
 
 
+# ------------------------------------------------------- phases P1-P3
+# Sharding and collectives. The ranks are actors of the port's runtime,
+# four processes (num_gpus=0.25 each) on the one card, joined into one
+# gloo group: NCCL refuses two ranks on one device, so the collectives
+# between ranks cross host memory through gloo (the collective layer
+# copies CUDA tensors through a host buffer where gloo does not take
+# them) while the flash kernels and the matmuls run on the card. NCCL is
+# driven at world size 1 (P3).
+SHARD_MESH = {"fsdp": 2, "tp": 2}   # __graft_entry__._factor_mesh(4)
+SHARD_BATCH = 2                     # global rows: 1 x 2048 a data rank
+P1_LAYERS = 8
+P1_TIMED_STEPS = 3
+P2_LAYERS = 2
+P2_STEPS = 3
+P3_BACKEND = "nccl"
+# P2's bounds: the sharded step sums bf16 partial products across the
+# heads axis (row-parallel outputs, the vocab-parallel loss) where one
+# device accumulates in one matmul, so its bf16 activations round apart
+# from the one-device step's at each block; the control (wk/wv's
+# gradients not summed over tp) drops half of their columns.
+P2_LOSS_REL_BOUND = 2e-3
+P2_GRAD_REL_L2_BOUND = 3e-2
+P2_LEAF_REL_L2_BOUND = 6e-2
+# JAX's own acceptance bound for int8 transport (tests/models/
+# test_sharded_update.py:64): |loss - fp32 loss| < 1e-2, still learning.
+INT8_LOSS_BOUND = 1e-2
+
+
+def shard_model(n_layers: int):
+    """GPT-J-6B's published width at ``n_layers`` layers, bf16 compute."""
+    from ray_tpu_torch.models import get_config
+    return get_config("gptj-6b", n_layers=n_layers)
+
+
+class CollectiveClock:
+    """Wraps the collective layer's one entry into torch.distributed
+    (``collective._run``) in this process: seconds and bytes sent per op,
+    the card synchronised before and after each call so that the time is
+    the collective's alone."""
+
+    def __init__(self, cuda: bool):
+        from ray_tpu_torch.parallel import collective
+        self.mod, self.cuda = collective, cuda
+        self.inner = collective._run
+        self.reset()
+
+    def reset(self):
+        self.seconds, self.bytes, self.calls = {}, {}, {}
+
+    def __enter__(self):
+        def run(op, fn, out, *inputs, pg):
+            if self.cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.inner(op, fn, out, *inputs, pg=pg)
+            if self.cuda:
+                torch.cuda.synchronize()
+            sent = inputs[0] if inputs else out
+            self.seconds[op] = self.seconds.get(op, 0.0) \
+                + time.perf_counter() - t0
+            self.bytes[op] = self.bytes.get(op, 0) \
+                + sent.numel() * sent.element_size()
+            self.calls[op] = self.calls.get(op, 0) + 1
+        self.mod._run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._run = self.inner
+
+    def snapshot(self):
+        return {"seconds": dict(self.seconds), "bytes": dict(self.bytes),
+                "calls": dict(self.calls)}
+
+
+def _rank_mesh(rank, dev_str: str):
+    """Build (once) this rank's mesh over SHARD_MESH on the device's
+    type; returns it."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    if "mesh" not in rank.state:
+        dev = torch.device(dev_str)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        rank.state["mesh"] = build_mesh(MeshSpec(**SHARD_MESH),
+                                        device_type=dev.type)
+    return rank.state["mesh"]
+
+
+def _rank_release(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _tp_replicated_sha(params, specs):
+    """sha256 of the bytes of every leaf that no spec entry splits over
+    ``tp``."""
+    import hashlib
+    from ray_tpu_torch.parallel.sharding import spec_axes
+    out = {}
+    for name, t in _named(params):
+        spec = specs
+        for k in name.split("."):
+            spec = spec[k]
+        if not any("tp" in spec_axes(e) for e in spec):
+            out[name] = hashlib.sha256(
+                t.detach().cpu().contiguous().view(torch.uint8)
+                .numpy().tobytes()).hexdigest()
+    return out
+
+
+def p1_rank(rank, cfg, dev_str: str, seed: int, timed_steps: int):
+    """P1 on one rank: the sharded trainer, one warm-up step and
+    ``timed_steps`` timed ones."""
+    from ray_tpu_torch.models import make_train_step
+    from ray_tpu_torch.models.transformer import param_shapes
+    from ray_tpu_torch.parallel.mesh import axis_sizes, mesh_coordinate
+    from ray_tpu_torch.parallel.sharding import FSDP_RULES, local_shape
+    dev = torch.device(dev_str)
+    cuda = dev.type == "cuda"
+    mesh = _rank_mesh(rank, dev_str)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    bundle = make_train_step(cfg, mesh, FSDP_RULES, learning_rate=1e-4,
+                             remat_policy="dots", ce_chunk_size=512,
+                             device=dev)
+    t0 = time.perf_counter()
+    state = bundle.init(seed=seed)
+    if cuda:
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    S = cfg.max_seq_len
+    rng = np.random.default_rng(seed + 3)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (SHARD_BATCH, S))}
+    reset_flash_counts()
+    losses, norms, walls, split = [], [], [], []
+    with CollectiveClock(cuda) as clock:
+        for _ in range(1 + timed_steps):
+            if cuda:
+                torch.cuda.synchronize()
+            clock.reset()
+            t0 = time.perf_counter()
+            state, m = bundle.step(state, batch)
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            if cuda:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            split.append(clock.snapshot())
+    sizes = axis_sizes(mesh)
+    shapes = param_shapes(cfg)
+    specs = bundle.state_shardings["params"]
+    shard_shapes, want = {}, {}
+    for name, t in _named(state["params"]):
+        shard_shapes[name] = list(t.shape)
+        shape, spec = shapes, specs
+        for k in name.split("."):
+            shape, spec = shape[k], spec[k]
+        want[name] = list(local_shape(shape, spec, sizes))
+    out = {"coordinate": mesh_coordinate(mesh), "pid": os.getpid(),
+           "device": device_name(dev), "init_s": init_s, "losses": losses,
+           "grad_norms": norms, "walls_s": walls, "collectives": split,
+           "launches": flash_counts(), "shard_shapes": shard_shapes,
+           "want_shapes": want,
+           "state_gb": nbytes(state) / 1e9,
+           "tp_replicated_sha": _tp_replicated_sha(state["params"], specs),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+           if cuda else 0.0}
+    del state, bundle
+    _rank_release(dev)
+    return out
+
+
+def phase_p1(dev, card: str, seed: int, actors):
+    """P1: ``make_train_step`` at GPT-J-6B width cut to P1_LAYERS layers
+    on MeshSpec(fsdp=2, tp=2) over four rank processes sharing the card,
+    global batch 2 x 2048; losses finite, equal on every rank and
+    falling, each flash kernel launched P1_LAYERS x steps on each rank,
+    FSDP_RULES' shard shapes, leaves replicated over tp bit-identical
+    across each tp pair; step wall, tokens/s, MFU, peak memory a rank and
+    the wall split into compute and collectives."""
+    from ray_tpu_torch.parallel.dryrun import run_on_ranks
+    cfg = shard_model(P1_LAYERS)
+    S = cfg.max_seq_len
+    t0 = time.perf_counter()
+    outs = run_on_ranks(actors, p1_rank, cfg, str(dev), seed,
+                        P1_TIMED_STEPS)
+    wall = time.perf_counter() - t0
+    steps = 1 + P1_TIMED_STEPS
+    timed = [max(o["walls_s"][i] for o in outs) for i in range(1, steps)]
+    step_s = float(np.mean(timed))
+    tok_s = SHARD_BATCH * S / step_s
+    flops_tok = cfg.flops_per_token(S)
+    coll = [float(np.mean([sum(o["collectives"][i]["seconds"].values())
+                           for i in range(1, steps)])) for o in outs]
+    res = {"card": card, "config": f"gptj-6b n_layers={P1_LAYERS}",
+           "mesh": SHARD_MESH, "backend": "gloo", "params": cfg.num_params,
+           "batch": [SHARD_BATCH, S], "remat_policy": "dots",
+           "phase_wall_s": wall, "step_s": step_s,
+           "step_s_min": min(timed), "step_s_max": max(timed),
+           "tokens_per_s": tok_s, "flops_per_token": flops_tok,
+           "mfu": flops_tok * tok_s / PEAK_FLOPS[torch.bfloat16],
+           "compute_s_per_step": [step_s - c for c in coll],
+           "collective_s_per_step": coll,
+           "collectives_by_op_last_step": [o["collectives"][-1]
+                                           for o in outs],
+           "ranks": [{k: o[k] for k in ("coordinate", "pid", "device",
+                                        "init_s", "losses", "grad_norms",
+                                        "walls_s", "launches", "state_gb",
+                                        "peak_mem_gb")} for o in outs]}
+    print("p1 " + json.dumps(res), flush=True)
+    losses = [o["losses"] for o in outs]
+    check(all(math.isfinite(x) for row in losses for x in row)
+          and all(math.isfinite(x) for o in outs for x in o["grad_norms"]),
+          f"P1 non-finite loss or grad norm: {losses}")
+    check(all(row == losses[0] for row in losses),
+          f"P1 losses differ between ranks: {losses}")
+    check(losses[0][-1] < losses[0][0], f"P1 loss did not fall: {losses[0]}")
+    for i, o in enumerate(outs):
+        check(o["device"] == device_name(dev),
+              f"P1 rank {i} runs on {o['device']!r}")
+        for n, c in o["launches"].items():
+            check(c == P1_LAYERS * steps,
+                  f"P1 rank {i}: {n} launched {c} times, not "
+                  f"{P1_LAYERS} x {steps}")
+        check(o["shard_shapes"] == o["want_shapes"],
+              f"P1 rank {i}: shard shapes {o['shard_shapes']} are not "
+              f"FSDP_RULES' {o['want_shapes']}")
+    pairs = {}
+    for o in outs:
+        key = tuple(v for a, v in sorted(o["coordinate"].items())
+                    if a != "tp")
+        pairs.setdefault(key, []).append(o["tp_replicated_sha"])
+    for key, shas in pairs.items():
+        check(len(shas) == SHARD_MESH["tp"] and shas[0]
+              and all(s == shas[0] for s in shas),
+              f"P1 leaves replicated over tp differ across the tp group at "
+              f"{key}")
+    return res
+
+
+def p2_rank(rank, cfg, dev_str: str, seed: int, steps: int):
+    """P2 on one rank: the gradients of one sharded step (this rank's
+    shards, summed over the data axes each leaf is replicated over) and
+    of the faulty control, then ``steps`` fp32 steps and ``steps`` int8
+    steps with the sharded weight update from the same weights."""
+    from ray_tpu_torch.models import lm_loss, make_train_step
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.training import (_paths, int8_wire_lengths,
+                                               leaf_plans)
+    from ray_tpu_torch.parallel.collective import psum_tree
+    from ray_tpu_torch.parallel.quantization import tree_wire_bytes
+    from ray_tpu_torch.parallel.sharding import FSDP_RULES
+    dev = torch.device(dev_str)
+    cuda = dev.type == "cuda"
+    mesh = _rank_mesh(rank, dev_str)
+    S = cfg.max_seq_len
+    rng = np.random.default_rng(seed + 5)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (SHARD_BATCH, S))}
+    bundle = make_train_step(cfg, mesh, FSDP_RULES, remat_policy="dots",
+                             device=dev)
+    params = bundle.init(seed + 4)["params"]
+    local = bundle.local_batch(batch)
+    plans = leaf_plans(cfg, mesh, FSDP_RULES, False)
+    paths = _paths(params)
+    leaves = [t.requires_grad_() for _, t in _named(params)]
+    out = {}
+    kv = transformer._kv_weight_to_tp
+    for run in ("sharded", "control"):
+        if run == "control":     # the tp sum of wk/wv's gradients left out
+            transformer._kv_weight_to_tp = lambda w, group: w
+        try:
+            loss, _ = lm_loss(cfg, params, local, mesh=mesh,
+                              rules=FSDP_RULES)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            transformer._kv_weight_to_tp = kv
+        reduced = {}
+        for path, g in zip(paths, grads):
+            if run == "control" and path[-1] not in ("wk", "wv"):
+                continue        # the control changes wk/wv's alone
+            group = plans[path].replicated
+            reduced[".".join(path)] = (psum_tree(g, group)
+                                       if group.size > 1 else g) \
+                .detach().float().cpu().numpy()
+        out[run] = {"loss": loss.item(), "grads": reduced,
+                    "counts": {".".join(p): plans[p].counts
+                               for p in paths}}
+        del grads
+    del params, leaves, bundle
+    _rank_release(dev)
+    for name, kw in (("fp32", {}), ("int8", {"grad_transport": "int8",
+                                             "shard_weight_update": True})):
+        b = make_train_step(cfg, mesh, FSDP_RULES, learning_rate=1e-4,
+                            remat_policy="dots", device=dev, **kw)
+        state = b.init(seed + 4)
+        losses = []
+        with CollectiveClock(cuda) as clock:
+            for _ in range(steps):
+                state, m = b.step(state, batch)
+                losses.append(m["loss"].item())
+        out[name] = {"losses": losses, "collectives": clock.snapshot()}
+        del state, b
+        _rank_release(dev)
+    lengths = int8_wire_lengths(cfg, mesh, FSDP_RULES, True)
+    out["int8"]["want_wire_bytes"] = steps * tree_wire_bytes(lengths)
+    out["int8"]["wire_bytes"] = out["int8"]["collectives"]["bytes"].get(
+        "all_to_all", 0)
+    return out
+
+
+def phase_p2(dev, card: str, seed: int, actors):
+    """P2: the sharded step against the one-device step at P2_LAYERS
+    layers, 1 x 2048 a data rank, same weights (the sharded init is a
+    slice of the one-device init from the seed) and batch: loss relative
+    difference and gradient relative L2 (global, worst leaf) within the
+    P2 bounds, the faulty control outside them; then int8 transport with
+    the sharded weight update for P2_STEPS steps within INT8_LOSS_BOUND
+    of the fp32 sharded run, its int8 wire bytes equal to
+    ``tree_wire_bytes`` of what it reduces."""
+    from ray_tpu_torch.models import init_params, lm_loss
+    from ray_tpu_torch.models.transformer import logical_axes
+    from ray_tpu_torch.parallel.dryrun import run_on_ranks
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+    from ray_tpu_torch.parallel.sharding import FSDP_RULES, local_slices
+    cfg = dataclasses.replace(shard_model(P2_LAYERS), remat=None,
+                              remat_policy="dots")
+    t0 = time.perf_counter()
+    outs = run_on_ranks(actors, p2_rank, cfg, str(dev), seed, P2_STEPS)
+    ranks_s = time.perf_counter() - t0
+    params = init_params(cfg, seed=seed + 4, device=dev)
+    names = [n for n, _ in _named(params)]
+    leaves = [t.requires_grad_() for _, t in _named(params)]
+    rng = np.random.default_rng(seed + 5)
+    batch = {"input_ids": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (SHARD_BATCH, cfg.max_seq_len)), device=dev)}
+    loss_ref, _ = lm_loss(cfg, params, batch)
+    ref = dict(zip(names, torch.autograd.grad(loss_ref, leaves)))
+    del params, leaves
+    specs = {}
+    axes = logical_axes(cfg)
+    for n in names:
+        a = axes
+        for k in n.split("."):
+            a = a[k]
+        specs[n] = FSDP_RULES.spec_for(a)
+    sizes = {a: SHARD_MESH.get(a, 1) for a in AXIS_ORDER}
+    read = {}
+    for run in ("sharded", "control"):
+        num = den = 0.0
+        leaf = {}
+        for n in names:
+            ln = ld = 0.0
+            for r, o in enumerate(outs):
+                coord = dict(zip(AXIS_ORDER, np.unravel_index(
+                    r, [sizes[a] for a in AXIS_ORDER])))
+                want = ref[n][local_slices(ref[n].shape, specs[n], sizes,
+                                           coord)].float()
+                grads = o[run]["grads"]
+                got = torch.from_numpy(np.array(
+                    grads[n] if n in grads else o["sharded"]["grads"][n]
+                )).to(dev)
+                if o[run]["counts"][n]:       # each replica once
+                    ln += ((got - want) ** 2).sum().item()
+                    ld += (want ** 2).sum().item()
+            num, den = num + ln, den + ld
+            leaf[n] = math.sqrt(ln / max(ld, 1e-30))
+        worst = max(leaf, key=leaf.get)
+        lx = outs[0][run]["loss"]
+        read[run] = {"loss": lx, "loss_rel": abs(lx - loss_ref.item())
+                     / abs(loss_ref.item()),
+                     "grad_rel_l2": math.sqrt(num / den),
+                     "worst_leaf": worst, "worst_leaf_rel_l2": leaf[worst],
+                     "leaf_rel_l2": leaf}
+    fp32 = outs[0]["fp32"]["losses"]
+    int8 = outs[0]["int8"]["losses"]
+    res = {"card": card, "config": f"gptj-6b n_layers={P2_LAYERS}",
+           "mesh": SHARD_MESH, "loss_one_device": loss_ref.item(),
+           "sharded": read["sharded"],
+           "control": {k: read["control"][k] for k in
+                       ("loss", "loss_rel", "grad_rel_l2", "worst_leaf",
+                        "worst_leaf_rel_l2")},
+           "bounds": [P2_LOSS_REL_BOUND, P2_GRAD_REL_L2_BOUND,
+                      P2_LEAF_REL_L2_BOUND],
+           "fp32_losses": [o["fp32"]["losses"] for o in outs],
+           "int8_losses": [o["int8"]["losses"] for o in outs],
+           "int8_loss_diff_last": abs(int8[-1] - fp32[-1]),
+           "int8_wire_bytes": [o["int8"]["wire_bytes"] for o in outs],
+           "int8_want_wire_bytes": [o["int8"]["want_wire_bytes"]
+                                    for o in outs],
+           "fp32_collectives": outs[0]["fp32"]["collectives"],
+           "int8_collectives": outs[0]["int8"]["collectives"],
+           "ranks_s": ranks_s}
+    print("p2 " + json.dumps(res), flush=True)
+    k, ctl = read["sharded"], read["control"]
+    check(k["loss_rel"] <= P2_LOSS_REL_BOUND,
+          f"P2 loss rel {k['loss_rel']} > {P2_LOSS_REL_BOUND}")
+    check(k["grad_rel_l2"] <= P2_GRAD_REL_L2_BOUND,
+          f"P2 grad rel L2 {k['grad_rel_l2']} > {P2_GRAD_REL_L2_BOUND}")
+    check(k["worst_leaf_rel_l2"] <= P2_LEAF_REL_L2_BOUND,
+          f"P2 leaf {k['worst_leaf']} grad rel L2 {k['worst_leaf_rel_l2']}"
+          f" > {P2_LEAF_REL_L2_BOUND}")
+    check(ctl["grad_rel_l2"] > P2_GRAD_REL_L2_BOUND
+          or ctl["worst_leaf_rel_l2"] > P2_LEAF_REL_L2_BOUND,
+          f"the faulty control's gradients (rel L2 {ctl['grad_rel_l2']}, "
+          f"worst leaf {ctl['worst_leaf_rel_l2']}) pass P2's bounds")
+    check(all(o["fp32"]["losses"] == fp32 and o["int8"]["losses"] == int8
+              for o in outs), "P2 losses differ between ranks")
+    check(all(math.isfinite(x) for x in fp32 + int8)
+          and int8[-1] < int8[0] and fp32[-1] < fp32[0],
+          f"P2 runs did not learn: fp32 {fp32}, int8 {int8}")
+    check(res["int8_loss_diff_last"] < INT8_LOSS_BOUND,
+          f"P2 int8 loss {int8[-1]} is {res['int8_loss_diff_last']} from "
+          f"fp32's {fp32[-1]} (bound {INT8_LOSS_BOUND})")
+    for i, o in enumerate(outs):
+        check(o["int8"]["wire_bytes"] == o["int8"]["want_wire_bytes"] > 0,
+              f"P2 rank {i}: int8 wire bytes {o['int8']['wire_bytes']} != "
+              f"tree_wire_bytes {o['int8']['want_wire_bytes']}")
+    return res
+
+
+def p3_rank(rank, dev_str: str, seed: int):
+    """P3 in a one-rank group: every eager op of the collective layer on
+    a tensor on the device; the results and their devices."""
+    from ray_tpu_torch.parallel import collective as col
+    from ray_tpu_torch.parallel.quantization import (dequantize_int8,
+                                                     quantize_int8)
+    dev = torch.device(dev_str)
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    x = torch.randn((64, 300), generator=g, device=dev)
+    name = "p3"
+    got = {
+        "allreduce_sum": col.allreduce(x, name),
+        "allreduce_mean": col.allreduce(x, name, op="mean"),
+        "allreduce_max": col.allreduce(x, name, op="max"),
+        "allgather": col.allgather(x, name)[0],
+        "reducescatter": col.reducescatter(x, name),
+        "reduce": col.reduce(x, 0, name),
+        "broadcast": col.broadcast(x, 0, name),
+        "quantized_allreduce": col.quantized_allreduce(x, name),
+        "quantized_reducescatter": col.quantized_reducescatter(x, name),
+    }
+    col.barrier(name)
+    # world 1: the reduction of one rank's tensor is the tensor; the
+    # quantized ones carry both wire legs' rounding
+    leg = dequantize_int8(*quantize_int8(x, jitted_scales=True))
+    want_q = dequantize_int8(*quantize_int8(leg, jitted_scales=True),
+                             shape=x.shape)
+    out = {}
+    for op, t in got.items():
+        want = want_q if op.startswith("quantized") else x
+        out[op] = {"device": str(t.device), "shape": list(t.shape),
+                   "equal": bool(torch.equal(t, want)),
+                   "max_abs_err": float((t - want).abs().max())}
+    import torch.distributed as dist
+    out["backend"] = str(dist.get_backend())
+    out["world_size"] = dist.get_world_size()
+    return out
+
+
+def phase_p3(dev, card: str, seed: int):
+    """P3: ``init_torch_distributed(backend=P3_BACKEND)`` at world size 1
+    in a rank process on the card, and every eager op on a CUDA tensor:
+    each result equals its input (the quantized ones the input's two-leg
+    round trip) and stays on the card."""
+    from ray_tpu_torch.parallel.dryrun import (run_on_ranks, start_ranks,
+                                               stop_ranks)
+    actors = start_ranks(1, P3_BACKEND, group_name="p3",
+                         num_gpus=1.0 if dev.type == "cuda" else 0.0)
+    try:
+        out = run_on_ranks(actors, p3_rank, str(dev), seed)[0]
+    finally:
+        stop_ranks(actors)
+    res = {"card": card, **out}
+    print("p3 " + json.dumps(res), flush=True)
+    check(out["backend"] == P3_BACKEND and out["world_size"] == 1,
+          f"P3 group: {out['backend']} world {out['world_size']}")
+    for op, r in out.items():
+        if isinstance(r, dict):
+            check(r["equal"] and r["device"] == str(
+                torch.device(dev.type, 0) if dev.type == "cuda" else dev),
+                f"P3 {op}: {r}")
+    return res
+
+
+def sharding_phases(dev, card: str, seed: int):
+    """P1-P3 on a runtime of their own, after the training phases; the
+    card's free memory must come back after them. Returns their
+    records."""
+    import ray_tpu_torch
+    from ray_tpu_torch.parallel.dryrun import start_ranks, stop_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    n = SHARD_MESH["fsdp"] * SHARD_MESH["tp"]
+    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
+                       _num_initial_workers=0)
+    out = {}
+    try:
+        actors = start_ranks(n, "gloo", group_name="shard",
+                             num_gpus=1.0 / n if dev.type == "cuda"
+                             else 0.0)
+        try:
+            out["P1"] = phase_p1(dev, card, seed, actors)
+            out["P2"] = phase_p2(dev, card, seed, actors)
+        finally:
+            stop_ranks(actors)
+        out["P3"] = phase_p3(dev, card, seed)
+    finally:
+        ray_tpu_torch.shutdown()
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + 60
+    while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
+            and time.monotonic() < deadline:
+        time.sleep(0.5)
+    free1 = torch.cuda.mem_get_info()[0]
+    print(f"phases P1-P3 wall: {time.perf_counter() - t0:.1f} s; card "
+          f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f} GB "
+          f"after", flush=True)
+    check(free1 >= free0 - (1 << 30),
+          "P1-P3's card memory did not come back")
+    return out
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3322,6 +3879,10 @@ def main(argv=None) -> int:
             "RL1": rl["RL1"]["flash_launches"][rec["name"]],
             "RL2": [n[rec["name"]] for n in rl["RL2"]["learner_launches"]]}
     kernels.extend(flash)
+    sharded = sharding_phases(dev, card, args.seed)
+    for rec in flash:
+        rec["sharded_launches"] = [r["launches"][rec["name"]]
+                                   for r in sharded["P1"]["ranks"]]
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

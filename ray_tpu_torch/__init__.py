@@ -8,7 +8,9 @@ scheduling CUDA devices as the ``GPU`` resource (``num_gpus``). Entry
 points of the model, serving and training subpackages (``init_params``,
 ``LLMEngine``, ``make_train_step``, ``make_eval_step``) run on the CUDA
 device unless the caller passes ``device="cpu"``, and raise when no CUDA
-device is present.
+device is present. ``ray_tpu_torch.parallel`` holds meshes, sharding rules
+and collectives on ``torch.distributed``; ``make_train_step(config,
+mesh)`` trains over one on every rank.
 """
 
 from ray_tpu_torch._version import __version__
@@ -52,8 +54,8 @@ from ray_tpu_torch.exceptions import (
 )
 from ray_tpu_torch.runtime_context import RuntimeContext
 
-# The model, serving and training subpackages are imported on use: they
-# pull in torch.
+# The model, serving, training and parallel subpackages are imported on
+# use: they pull in torch.
 from ray_tpu_torch import util  # noqa: F401
 
 __all__ = [

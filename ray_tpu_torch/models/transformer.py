@@ -47,6 +47,12 @@ from ray_tpu_torch.ops import (apply_rotary, cross_entropy_loss,
                                fused_lm_head_loss, layer_norm,
                                multihead_attention, paged_attention,
                                rms_norm, rotary_table)
+from ray_tpu_torch.parallel.collective import (_all_reduce, copy_to_region,
+                                               gather_shards, gather_slices,
+                                               reduce_from_region)
+from ray_tpu_torch.parallel.mesh import AXIS_ORDER, axis_group, axis_sizes
+from ray_tpu_torch.parallel.sharding import (FSDP_RULES, constrain,
+                                             param_specs, spec_axes)
 
 REMAT_POLICIES = ("full", "none", "dots", "dots_all", "offload")
 
@@ -144,6 +150,73 @@ def resolve_device(device=None) -> torch.device:
 
 
 # ------------------------------------------------------------------ init
+def init_leaves(config: TransformerConfig, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32):
+    """``(path, tensor)`` of every leaf of :func:`init_params`' tree, one
+    at a time, in the order it draws them from ``seed``'s generator: a
+    caller that keeps a slice of each leaf (the sharded init) frees the
+    rest before the next is drawn, and holds the same numbers."""
+    c = config
+    if c.n_experts:
+        raise NotImplementedError("the port does not run MoE configs yet")
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(int(seed))
+    h = c.n_heads * c.head_dim
+    kvh = c.kv_heads * c.head_dim
+    L, e = c.n_layers, c.d_model
+    out_scale = 0.02 / (2 * L) ** 0.5
+
+    def mat(shape, scale=0.02):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        return w.mul_(scale)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    yield ("layers", "wq"), mat((L, e, h))
+    yield ("layers", "wk"), mat((L, e, kvh))
+    yield ("layers", "wv"), mat((L, e, kvh))
+    yield ("layers", "wo"), mat((L, h, e), out_scale)
+    if c.block_style == "llama":
+        yield ("layers", "w_gate"), mat((L, e, c.d_ff))
+        yield ("layers", "w_up"), mat((L, e, c.d_ff))
+        yield ("layers", "w_down"), mat((L, c.d_ff, e), out_scale)
+        yield ("layers", "attn_norm"), ones(L, e)
+        yield ("layers", "mlp_norm"), ones(L, e)
+        yield ("final_norm", "scale"), ones(e)
+        yield ("lm_head", "w"), mat((e, c.vocab_size))
+    else:
+        yield ("layers", "fc_in"), mat((L, e, c.d_ff))
+        yield ("layers", "fc_in_b"), zeros(L, c.d_ff)
+        yield ("layers", "fc_out"), mat((L, c.d_ff, e), out_scale)
+        yield ("layers", "fc_out_b"), zeros(L, e)
+        yield ("layers", "ln_scale"), ones(L, e)
+        yield ("layers", "ln_bias"), zeros(L, e)
+        yield ("final_norm", "scale"), ones(e)
+        yield ("final_norm", "bias"), zeros(e)
+        yield ("lm_head", "w"), mat((e, c.vocab_size))
+        yield ("lm_head", "b"), zeros(c.vocab_size)
+    yield ("embed",), mat((c.vocab_size, e))
+
+
+def param_shapes(config: TransformerConfig) -> Dict:
+    """The params' tree of global shapes, drawing nothing."""
+    shapes: Dict = {"embed": None}
+    for path, leaf in init_leaves(config, 0, "meta"):
+        set_leaf(shapes, path, tuple(leaf.shape))
+    return shapes
+
+
+def set_leaf(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
 def init_params(config: TransformerConfig, seed: int = 0,
                 device=None, dtype: torch.dtype = torch.float32) -> Dict:
     """Random weights from ``seed`` in the JAX package's tree: matrices
@@ -154,57 +227,50 @@ def init_params(config: TransformerConfig, seed: int = 0,
     of a 6B-parameter model. The numbers differ from the JAX package's
     (another generator); tests carry weights over with
     ``_bridge.params_from_jax``."""
+    params: Dict = {"embed": None}
+    for path, value in init_leaves(config, seed, device, dtype):
+        set_leaf(params, path, value)
+    return params
+
+
+def logical_axes(config: TransformerConfig) -> Dict:
+    """Tree (the params' structure) of logical-axis tuples, the JAX
+    package's ``logical_axes`` for the dense layouts."""
     c = config
     if c.n_experts:
-        raise NotImplementedError("the port does not run MoE configs yet")
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    dt = dtype
-    h = c.n_heads * c.head_dim
-    kvh = c.kv_heads * c.head_dim
-    L = c.n_layers
-    out_scale = 0.02 / (2 * L) ** 0.5
-
-    def mat(shape, scale=0.02):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=dt)
-        return w.mul_(scale)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=dev)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
-
-    layers = {
-        "wq": mat((L, c.d_model, h)),
-        "wk": mat((L, c.d_model, kvh)),
-        "wv": mat((L, c.d_model, kvh)),
-        "wo": mat((L, h, c.d_model), out_scale),
+        raise NotImplementedError("the port does not run MoE configs yet "
+                                  "(ROADMAP Queue 1 item 8)")
+    common = {
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv"),
+        "wv": ("layers", "embed", "kv"),
+        "wo": ("layers", "heads", "embed"),
     }
     if c.block_style == "llama":
-        layers.update({
-            "w_gate": mat((L, c.d_model, c.d_ff)),
-            "w_up": mat((L, c.d_model, c.d_ff)),
-            "w_down": mat((L, c.d_ff, c.d_model), out_scale),
-            "attn_norm": ones(L, c.d_model),
-            "mlp_norm": ones(L, c.d_model),
-        })
-        final = {"scale": ones(c.d_model)}
-        head = {"w": mat((c.d_model, c.vocab_size))}
+        layers = {**common,
+                  "w_gate": ("layers", "embed", "mlp"),
+                  "w_up": ("layers", "embed", "mlp"),
+                  "w_down": ("layers", "mlp", "embed"),
+                  "attn_norm": ("layers", "embed"),
+                  "mlp_norm": ("layers", "embed")}
+        final = {"scale": ("embed",)}
+        head = {"w": ("embed", "vocab")}
     else:
-        layers.update({
-            "fc_in": mat((L, c.d_model, c.d_ff)),
-            "fc_in_b": zeros(L, c.d_ff),
-            "fc_out": mat((L, c.d_ff, c.d_model), out_scale),
-            "fc_out_b": zeros(L, c.d_model),
-            "ln_scale": ones(L, c.d_model),
-            "ln_bias": zeros(L, c.d_model),
-        })
-        final = {"scale": ones(c.d_model), "bias": zeros(c.d_model)}
-        head = {"w": mat((c.d_model, c.vocab_size)),
-                "b": zeros(c.vocab_size)}
-    return {"embed": mat((c.vocab_size, c.d_model)), "layers": layers,
-            "final_norm": final, "lm_head": head}
+        layers = {**common,
+                  "fc_in": ("layers", "embed", "mlp"),
+                  "fc_in_b": ("layers", "mlp"),
+                  "fc_out": ("layers", "mlp", "embed"),
+                  "fc_out_b": ("layers", "embed"),
+                  "ln_scale": ("layers", "embed"),
+                  "ln_bias": ("layers", "embed")}
+        final = {"scale": ("embed",), "bias": ("embed",)}
+        head = {"w": ("embed", "vocab"), "b": ("vocab",)}
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": layers,
+        "final_norm": final,
+        "lm_head": head,
+    }
 
 
 # ---------------------------------------------------------------- layers
@@ -319,19 +385,10 @@ def _rotary(c: TransformerConfig, length: int, device):
     return sin, cos, "gptj" if c.block_style == "gptj" else "neox"
 
 
-def run_layers(config: TransformerConfig, layer_params: Dict,
-               x: torch.Tensor) -> Tuple[torch.Tensor, float]:
-    """The transformer blocks in ``layer_params`` (leaves stacked
-    ``[n, ...]``) over hidden states ``x``: (b, s, e) -> ((b, s, e),
-    moe_aux), one block per layer under the config's remat policy."""
-    c = config
-    if c.n_experts:
-        raise NotImplementedError("the port does not run MoE configs yet")
-    sin, cos, layout = _rotary(c, x.shape[1], x.device)
-    block = _gptj_block if c.block_style == "gptj" else _llama_block
-    attn = functools.partial(_attn_sublayer, c, sin=sin, cos=cos,
-                             layout=layout)
-    body = functools.partial(block, c, attn=attn)
+def _run_blocks(c: TransformerConfig, layer_params: Dict, x: torch.Tensor,
+                body, after=None) -> torch.Tensor:
+    """``body(x, lp)`` for each layer of ``layer_params`` under the
+    config's remat policy (``after(x)`` once a block is done)."""
     policy = c.resolved_remat_policy
     kwargs = {}
     if policy != "none":
@@ -345,35 +402,85 @@ def run_layers(config: TransformerConfig, layer_params: Dict,
         else:
             x = checkpoint(body, x, lp, use_reentrant=False,
                            preserve_rng_state=False, **kwargs)
-    return x, 0.0
+        if after is not None:
+            after(x)
+    return x
+
+
+def run_layers(config: TransformerConfig, layer_params: Dict,
+               x: torch.Tensor, mesh=None,
+               rules=None) -> Tuple[torch.Tensor, float]:
+    """The transformer blocks in ``layer_params`` (leaves stacked
+    ``[n, ...]``) over hidden states ``x``: (b, s, e) -> ((b, s, e),
+    moe_aux), one block per layer under the config's remat policy.
+    Under ``mesh`` (a ``build_mesh`` DeviceMesh; ``rules`` default to
+    ``FSDP_RULES``) ``layer_params`` are this rank's shards and ``x`` its
+    rows (see :func:`model_layout`)."""
+    c = config
+    if c.n_experts:
+        raise NotImplementedError("the port does not run MoE configs yet")
+    if mesh is not None:
+        lay = model_layout(c, mesh, rules)
+        layers = gather_params(c, layer_params, lay.specs["layers"], lay)
+        return _run_layers_sharded(c, layers, x, lay), 0.0
+    sin, cos, layout = _rotary(c, x.shape[1], x.device)
+    block = _gptj_block if c.block_style == "gptj" else _llama_block
+    attn = functools.partial(_attn_sublayer, c, sin=sin, cos=cos,
+                             layout=layout)
+    return _run_blocks(c, layer_params, x,
+                       functools.partial(block, c, attn=attn)), 0.0
 
 
 def hidden_states(config: TransformerConfig, params: Dict,
-                  input_ids: torch.Tensor):
+                  input_ids: torch.Tensor, mesh=None, rules=None):
     """Embed -> blocks -> final norm: (b, s) ids -> ((b, s, e), moe_aux),
-    the trunk under both :func:`apply` and :func:`lm_loss`."""
+    the trunk under both :func:`apply` and :func:`lm_loss` (under
+    ``mesh``: this rank's shards and rows)."""
     c = config
+    if mesh is not None:
+        lay = model_layout(c, mesh, rules)
+        return _trunk_sharded(c, gather_params(c, params, lay.specs, lay),
+                              input_ids, lay), 0.0
     x = F.embedding(input_ids.long(), params["embed"]).to(c.dtype)
     x, moe_aux = run_layers(c, params["layers"], x)
     return _final_norm(c, params, x), moe_aux
 
 
 def apply(config: TransformerConfig, params: Dict, input_ids: torch.Tensor,
-          return_moe_aux: bool = False):
+          mesh=None, rules=None, return_moe_aux: bool = False):
     """Forward pass: (batch, seq) ids -> (batch, seq, vocab) logits in
     the compute dtype; with ``return_moe_aux`` also the MoE aux loss (0.0
-    for dense configs)."""
-    x, moe_aux = hidden_states(config, params, input_ids)
-    logits = _lm_head(config, params, x)
+    for dense configs). Under ``mesh``: this rank's rows' logits over the
+    whole vocabulary (gathered over the vocab axis)."""
+    c = config
+    if mesh is not None:
+        lay = model_layout(c, mesh, rules)
+        g = gather_params(c, params, lay.specs, lay)
+        x = copy_to_region(_trunk_sharded(c, g, input_ids, lay), lay.vocab)
+        logits = gather_slices(_lm_head(c, g, x), 2, lay.vocab)
+        return (logits, 0.0) if return_moe_aux else logits
+    x, moe_aux = hidden_states(c, params, input_ids)
+    logits = _lm_head(c, params, x)
     return (logits, moe_aux) if return_moe_aux else logits
 
 
-def lm_loss(config: TransformerConfig, params: Dict,
-            batch: Dict) -> Tuple[torch.Tensor, Dict]:
+def lm_loss(config: TransformerConfig, params: Dict, batch: Dict,
+            mesh=None, rules=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token LM loss. ``batch``: ``{"input_ids": (b, s), "loss_mask":
     optional (b, s)}``. Returns ``(loss, {"n_tokens": n})``. With
     ``config.ce_chunk_size > 0`` (default) the LM-head projection is fused
-    into the chunked cross entropy; ``0`` materializes the logits."""
+    into the chunked cross entropy; ``0`` materializes the logits.
+
+    Under ``mesh`` ``params`` are this rank's shards and ``batch`` its
+    rows; the loss is the mean over every rank's unmasked tokens (each
+    rank's masked sum over the global count, summed over the data axes,
+    never a mean of per-rank means), the same on every rank. Gradients
+    of sharded leaves come back reduce-scattered; those of leaves
+    replicated over a data axis are this rank's share, which the train
+    step sums."""
+    if mesh is not None:
+        lay = model_layout(config, mesh, rules)
+        return lm_loss_sharded(config, params, batch, lay)
     c = config
     ids = batch["input_ids"]
     labels = ids[:, 1:]
@@ -389,6 +496,261 @@ def lm_loss(config: TransformerConfig, params: Dict,
         logits = apply(c, params, ids)
         loss, n = cross_entropy_loss(logits[:, :-1], labels, mask=mask)
     return loss, {"n_tokens": n}
+
+
+# ------------------------------------------------------- sharded forward
+# Under a mesh every rank holds its shards of the params (as
+# parallel.sharding.shard_params places them) and its rows of the batch.
+# The storage axes of the "embed" rule (fsdp) are gathered before use;
+# "heads"/"mlp" split the attention heads and the MLP over one axis
+# (column-parallel q/k/v and fc_in, row-parallel wo and fc_out, whose
+# partial sums are all-reduced, the Megatron layout that JAX's constraint
+# of each block's output to ("batch", "sequence", None) implies);
+# "vocab" splits the embedding and the LM head (vocab-parallel).
+
+@dataclasses.dataclass
+class ModelLayout:
+    """How this rank's shards of a model sit on a mesh."""
+    mesh: Any
+    rules: Any
+    specs: Dict                 # the spec of every param leaf
+    storage: Tuple[str, ...]    # the "embed" axes, gathered before use
+    heads: Any                  # AxisGroup heads and MLP are split over
+    vocab: Any                  # AxisGroup the vocabulary is split over
+    kv_split: bool              # k/v heads split as well (rules' "kv")
+    data: Any                   # AxisGroup of the batch axes
+    transport: Any              # collective.GradTransport of the gathers
+
+
+def _one_axis(rules, name: str) -> Optional[str]:
+    axes = spec_axes(rules.get(name))
+    if len(axes) > 1:
+        raise NotImplementedError(
+            f"the port splits {name!r} over one mesh axis, not {axes}")
+    return axes[0] if axes else None
+
+
+def model_layout(config: TransformerConfig, mesh, rules=None,
+                 transport=None) -> ModelLayout:
+    """Check that ``config`` can run on ``mesh`` under ``rules`` (default
+    ``FSDP_RULES``) and say how: "embed" may map only to batch axes (its
+    shards are gathered), "heads" and "mlp" to one axis together, "kv"
+    and "vocab" to that axis or None; ``sp``, ``ep`` and ``pp`` must be 1
+    (ring attention and MoE are ROADMAP Queue 1 item 8, pipelines item
+    9); heads, kv heads, d_ff and vocab must divide."""
+    from ray_tpu_torch.parallel.collective import FP32
+    rules = FSDP_RULES if rules is None else rules
+    sizes = axis_sizes(mesh)          # raises TypeError for a JAX Mesh
+    if sizes["sp"] > 1:
+        raise NotImplementedError(
+            "sp > 1 needs ring attention over the sp axis (ROADMAP Queue 1 "
+            "item 8), not ported yet")
+    if sizes["ep"] > 1 or config.n_experts:
+        raise NotImplementedError(
+            "expert parallelism and MoE configs are ROADMAP Queue 1 item 8, "
+            "not ported yet")
+    if sizes["pp"] > 1:
+        raise NotImplementedError(
+            "pipeline parallelism is ROADMAP Queue 1 item 9, not ported yet")
+    if spec_axes(rules.get("layers")):
+        raise NotImplementedError("the port keeps the layers axis whole")
+    batch = set(spec_axes(rules.get("batch")))
+    storage = spec_axes(rules.get("embed"))
+    if not set(storage) <= batch or \
+            tuple(a for a in AXIS_ORDER if a in storage) != storage:
+        raise NotImplementedError(
+            f"'embed' maps to {storage}: the port gathers embed shards "
+            f"over batch axes {tuple(batch)} only, listed in AXIS_ORDER")
+    split = _one_axis(rules, "heads")
+    if _one_axis(rules, "mlp") != split:
+        raise NotImplementedError("'heads' and 'mlp' must map to one axis")
+    kv = _one_axis(rules, "kv")
+    vocab = _one_axis(rules, "vocab")
+    if kv not in (None, split) or vocab not in (None, split):
+        raise NotImplementedError(
+            f"'kv' and 'vocab' map to None or to {split!r}")
+    heads_g = axis_group(mesh, split)
+    for what, n in (("n_heads", config.n_heads), ("d_ff", config.d_ff)) + \
+            ((("n_kv_heads", config.kv_heads),) if kv else ()):
+        if n % heads_g.size:
+            raise ValueError(f"{what} {n} not divisible by {split}="
+                             f"{heads_g.size}")
+    return ModelLayout(mesh=mesh, rules=rules,
+                       specs=param_specs(logical_axes(config), rules),
+                       storage=storage, heads=heads_g,
+                       vocab=axis_group(mesh, vocab), kv_split=bool(kv),
+                       data=axis_group(mesh, rules.get("batch")),
+                       transport=FP32 if transport is None else transport)
+
+
+def gather_params(c: TransformerConfig, params: Dict, specs: Dict,
+                  lay: ModelLayout) -> Dict:
+    """Every leaf of ``params`` (shards) joined over the storage axes
+    (``gather_shards``: all-gather forward, reduce-scatter backward);
+    per-layer matrices are cast to the compute dtype first, so the wire
+    carries what the products read. Dims split over the heads or vocab
+    axis stay split."""
+    def one(x, spec, cast):
+        for d, entry in enumerate(spec):
+            axes = spec_axes(entry)
+            if axes and set(axes) <= set(lay.storage):
+                return gather_shards(x, d, axis_group(lay.mesh, axes),
+                                     c.dtype if cast else None,
+                                     lay.transport)
+        return x
+    if "layers" not in specs:       # a layers tree alone
+        return {k: one(v, specs[k], v.dim() >= 3) for k, v in params.items()}
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            out[k] = gather_params(c, v, specs[k], lay)
+        elif isinstance(v, dict):
+            out[k] = {n: one(t, specs[k][n], False) for n, t in v.items()}
+        else:
+            out[k] = one(v, specs[k], False)
+    return out
+
+
+def _kv_weight_to_tp(w: torch.Tensor, group) -> torch.Tensor:
+    """wk/wv on their way into the heads' split. ``FSDP_RULES`` and
+    ``DDP_RULES`` map "kv" to None: wk and wv are replicated over the
+    heads axis while wq is split over it, so each rank projects only the
+    k/v heads its own q heads read and its gradient of wk/wv is its
+    heads' share. Identity forward, all-reduce backward: the gradients
+    are summed over the axis (``llama2-tiny``'s GQA in the tests)."""
+    return copy_to_region(w, group)
+
+
+def _local_kv(c: TransformerConfig, hd, lp, lay: ModelLayout, hl: int,
+              sin, cos, layout):
+    """k and v (rotated) for this rank's ``hl`` q heads: [b, s, hl, D]
+    each, kv head ``j // rep`` for q head ``j`` as the GQA repeat
+    gives."""
+    b, s, _ = hd.shape
+    dt, D = c.dtype, c.head_dim
+    rep = c.n_heads // c.kv_heads
+    if lay.kv_split:
+        first = 0
+        wk, wv = lp["wk"].to(dt), lp["wv"].to(dt)
+        heads = torch.arange(hl, device=hd.device) // rep
+    else:
+        q0 = lay.heads.rank * hl
+        first, last = q0 // rep, (q0 + hl - 1) // rep + 1
+        cols = slice(first * D, last * D)
+        wk = _kv_weight_to_tp(lp["wk"].to(dt), lay.heads)[:, cols]
+        wv = _kv_weight_to_tp(lp["wv"].to(dt), lay.heads)[:, cols]
+        heads = (q0 + torch.arange(hl, device=hd.device)) // rep - first
+    k = apply_rotary((hd @ wk).view(b, s, -1, D), sin, cos, layout=layout)
+    v = (hd @ wv).view(b, s, -1, D)
+    if k.shape[2] != hl:
+        k, v = k.index_select(2, heads), v.index_select(2, heads)
+    return k, v
+
+
+def _attn_part(c: TransformerConfig, h, lp, sin, cos, layout,
+               lay: ModelLayout):
+    """This rank's heads of the attention sublayer: its share of the
+    output projection (row-parallel; the caller all-reduces it)."""
+    b, s, _ = h.shape
+    dt = c.dtype
+    hl = c.n_heads // lay.heads.size
+    hd = h.to(dt)
+    q = apply_rotary((hd @ lp["wq"].to(dt)).view(b, s, hl, c.head_dim),
+                     sin, cos, layout=layout)
+    k, v = _local_kv(c, hd, lp, lay, hl, sin, cos, layout)
+    att = _attention(c, q, k, v)
+    return att.reshape(b, s, hl * c.head_dim) @ lp["wo"].to(dt)
+
+
+def _mlp_part(c: TransformerConfig, h, lp):
+    """This rank's slice of the MLP (column-parallel in, row-parallel
+    out, no output bias): its share of the output."""
+    dt = c.dtype
+    if c.block_style == "llama":
+        gate = F.silu(h @ lp["w_gate"].to(dt))
+        return (gate * (h @ lp["w_up"].to(dt))) @ lp["w_down"].to(dt)
+    mlp = h.to(dt) @ lp["fc_in"].to(dt) + lp["fc_in_b"].to(dt)
+    return F.gelu(mlp, approximate="tanh") @ lp["fc_out"].to(dt)
+
+
+def _gptj_block_sharded(c: TransformerConfig, x, lp, sin, cos, layout,
+                        lay: ModelLayout):
+    """The GPT-J block with heads and MLP split: one all-reduce sums the
+    attention and MLP shares, and the output bias is added once after
+    it."""
+    h = copy_to_region(layer_norm(x, lp["ln_scale"], lp["ln_bias"]),
+                       lay.heads)
+    part = _attn_part(c, h, lp, sin, cos, layout, lay) + _mlp_part(c, h, lp)
+    out = reduce_from_region(part, lay.heads) + lp["fc_out_b"].to(c.dtype)
+    return x + out.to(x.dtype)
+
+
+def _llama_block_sharded(c: TransformerConfig, x, lp, sin, cos, layout,
+                         lay: ModelLayout):
+    h = copy_to_region(rms_norm(x, lp["attn_norm"]), lay.heads)
+    x = x + reduce_from_region(_attn_part(c, h, lp, sin, cos, layout, lay),
+                               lay.heads).to(x.dtype)
+    h2 = copy_to_region(rms_norm(x, lp["mlp_norm"]).to(c.dtype), lay.heads)
+    return x + reduce_from_region(_mlp_part(c, h2, lp),
+                                  lay.heads).to(x.dtype)
+
+
+def _run_layers_sharded(c: TransformerConfig, layers: Dict, x, lay):
+    sin, cos, layout = _rotary(c, x.shape[1], x.device)
+    block = _gptj_block_sharded if c.block_style == "gptj" \
+        else _llama_block_sharded
+    body = functools.partial(block, c, sin=sin, cos=cos, layout=layout,
+                             lay=lay)
+    return _run_blocks(c, layers, x, body, after=lambda out: constrain(
+        out, lay.mesh, lay.rules, ("batch", "sequence", None)))
+
+
+def _embed_sharded(c: TransformerConfig, embed, ids, lay: ModelLayout):
+    """Vocab-parallel lookup: each rank looks up the ids in its slice
+    (zeros elsewhere) and the rows are summed over the vocab axis."""
+    if lay.vocab.size == 1:
+        return F.embedding(ids.long(), embed).to(c.dtype)
+    vl = embed.shape[0]
+    local = ids.long() - lay.vocab.rank * vl
+    inside = (local >= 0) & (local < vl)
+    x = F.embedding(local.clamp(0, vl - 1), embed) * inside[..., None]
+    return reduce_from_region(x, lay.vocab).to(c.dtype)
+
+
+def _trunk_sharded(c: TransformerConfig, g: Dict, ids, lay: ModelLayout):
+    """Embed -> blocks -> final norm over gathered params ``g``."""
+    x = _embed_sharded(c, g["embed"], ids, lay)
+    x = _run_layers_sharded(c, g["layers"], x, lay)
+    return _final_norm(c, g, x)
+
+
+def lm_loss_sharded(c: TransformerConfig, params: Dict, batch: Dict,
+                    lay: ModelLayout) -> Tuple[torch.Tensor, Dict]:
+    """:func:`lm_loss` under ``lay``: ``params`` this rank's shards,
+    ``batch`` its rows. The train step calls it with its own gradient
+    transport in ``lay``."""
+    ids = batch["input_ids"]
+    labels = ids[:, 1:]
+    mask = batch.get("loss_mask")
+    mask = mask[:, 1:] if mask is not None else None
+    # the global batch's mean: each rank divides its masked sum by the
+    # count over every data rank, and the losses are summed over them
+    local_n = mask.float().sum() if mask is not None else torch.tensor(
+        float(labels.numel()), device=ids.device)
+    n = _all_reduce(local_n.reshape(1).clone(), lay.data)[0].clamp_min(1.0)
+    g = gather_params(c, params, lay.specs, lay)
+    x = copy_to_region(_trunk_sharded(c, g, ids, lay), lay.vocab)
+    head = g["lm_head"]
+    if c.ce_chunk_size:
+        loss, _ = fused_lm_head_loss(
+            x.to(c.dtype)[:, :-1], head["w"], labels,
+            head_bias=head.get("b"), mask=mask, chunk_size=c.ce_chunk_size,
+            tp_group=lay.vocab, normalizer=n)
+    else:
+        logits = gather_slices(_lm_head(c, g, x), 2, lay.vocab)
+        loss, _ = cross_entropy_loss(logits[:, :-1], labels, mask=mask,
+                                     normalizer=n)
+    return reduce_from_region(loss, lay.data), {"n_tokens": n}
 
 
 # ------------------------------------------------------- inference (KV)
@@ -554,7 +916,7 @@ def decode_step(config: TransformerConfig, params: Dict,
 
 class Transformer:
     """Convenience wrapper binding a config: ``init`` / ``apply`` /
-    ``loss``."""
+    ``loss`` plus the sharding-annotation tree."""
 
     def __init__(self, config: TransformerConfig):
         self.config = config
@@ -562,8 +924,11 @@ class Transformer:
     def init(self, seed: int = 0, device=None) -> Dict:
         return init_params(self.config, seed, device)
 
-    def apply(self, params, input_ids):
-        return apply(self.config, params, input_ids)
+    def logical_axes(self) -> Dict:
+        return logical_axes(self.config)
 
-    def loss(self, params, batch):
-        return lm_loss(self.config, params, batch)
+    def apply(self, params, input_ids, mesh=None, rules=None):
+        return apply(self.config, params, input_ids, mesh=mesh, rules=rules)
+
+    def loss(self, params, batch, mesh=None, rules=None):
+        return lm_loss(self.config, params, batch, mesh=mesh, rules=rules)

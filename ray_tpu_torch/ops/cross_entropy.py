@@ -15,6 +15,17 @@ products in f32 and returns them in f32 (``torch.mm(..., out_dtype=
 torch.float32)`` on the card), as the JAX package's
 ``preferred_element_type=jnp.float32`` does, so they are not rounded to
 bf16 before the log-sum-exp.
+
+Vocab-parallel (``tp_group``, the group the head's vocab dim is split
+over): each rank projects its vocab slice, and per chunk the row max,
+the sum of exponentials and the target's logit are all-reduced over the
+group, so that every rank holds the full log-sum-exp and loss; the
+backward is the local softmax minus the one-hot of targets in this
+rank's slice, and its ``dx`` is this slice's share (the caller sums it
+over the group, ``collective.copy_to_region``). The head is never
+gathered. ``normalizer`` divides the masked sum by a count the caller
+gives (the global batch's, under data parallelism) instead of the local
+one.
 """
 
 from __future__ import annotations
@@ -22,6 +33,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from ray_tpu_torch.parallel.collective import _all_reduce
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -36,11 +49,13 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
-                       z_loss_coeff: float = 0.0
+                       z_loss_coeff: float = 0.0,
+                       normalizer: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean token cross entropy. ``logits (..., vocab)``, ``labels (...)``
     int, ``mask (...)`` of valid positions. Returns ``(loss,
-    n_valid_tokens)``."""
+    n_valid_tokens)``; with ``normalizer`` the masked sum over it and
+    ``normalizer`` as the count."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
@@ -49,10 +64,14 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         nll = nll + z_loss_coeff * lse.square()
     if mask is None:
         n = torch.tensor(float(nll.numel()), device=nll.device)
-        return nll.sum() / n, n
-    mask = mask.float()
-    n = mask.sum().clamp_min(1.0)
-    return (nll * mask).sum() / n, n
+        total = nll.sum()
+    else:
+        mask = mask.float()
+        n = mask.sum().clamp_min(1.0)
+        total = (nll * mask).sum()
+    if normalizer is not None:
+        n = normalizer
+    return total / n, n
 
 
 class _FusedLMHeadLoss(torch.autograd.Function):
@@ -60,10 +79,12 @@ class _FusedLMHeadLoss(torch.autograd.Function):
     backward (the JAX package's ``_fused_ce`` custom VJP)."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, labels, mask, chunk: int, z: float):
+    def forward(ctx, x, w, bias, labels, mask, chunk: int, z: float, tp,
+                normalizer):
         b, s, e = x.shape
         wd = w.to(x.dtype)
-        labels = labels.long()
+        # this rank's vocab slice [lo, lo + vl) of the labels' index space
+        labels = labels.long() - (tp.rank * w.shape[-1] if tp else 0)
         loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         lses = torch.empty((b, s), dtype=torch.float32, device=x.device)
         for i in range(0, s, chunk):
@@ -71,16 +92,25 @@ class _FusedLMHeadLoss(torch.autograd.Function):
             logits = _mm_f32(x[:, i:j].reshape(-1, e), wd)
             if bias is not None:
                 logits = logits + bias.float()
-            lse = torch.logsumexp(logits, dim=-1)
-            ll = logits.gather(1, labels[:, i:j].reshape(-1, 1))[:, 0]
+            lab = labels[:, i:j].reshape(-1, 1)
+            if tp is None:
+                lse = torch.logsumexp(logits, dim=-1)
+                ll = logits.gather(1, lab)[:, 0]
+            else:
+                inside = (lab >= 0) & (lab < logits.shape[1])
+                m = _all_reduce(logits.amax(dim=-1), tp, "max")
+                se = _all_reduce(torch.exp(logits - m[:, None]).sum(-1), tp)
+                lse = m + torch.log(se)
+                ll = _all_reduce((logits.gather(
+                    1, lab.clamp(0, logits.shape[1] - 1)) * inside)[:, 0], tp)
             nll = lse - ll
             if z:
                 nll = nll + z * lse.square()
             loss_sum = loss_sum + (nll * mask[:, i:j].reshape(-1)).sum()
             lses[:, i:j] = lse.view(b, j - i)
-        n = mask.sum().clamp_min(1.0)
+        n = mask.sum().clamp_min(1.0) if normalizer is None else normalizer
         ctx.save_for_backward(x, w, bias, labels, mask, lses, n)
-        ctx.chunk, ctx.z = chunk, z
+        ctx.chunk, ctx.z, ctx.tp = chunk, z, tp
         ctx.mark_non_differentiable(n)
         return loss_sum / n, n
 
@@ -104,15 +134,21 @@ class _FusedLMHeadLoss(torch.autograd.Function):
             coef = scale * mask[:, i:j].reshape(-1)
             zf = coef * (1.0 + 2.0 * z * lse) if z else coef
             dl = torch.exp(logits - lse[:, None]).mul_(zf[:, None])
-            rows = torch.arange(dl.shape[0], device=dl.device)
-            dl[rows, labels[:, i:j].reshape(-1)] -= coef
+            lab = labels[:, i:j].reshape(-1)
+            if ctx.tp is None:
+                rows = torch.arange(dl.shape[0], device=dl.device)
+                dl[rows, lab] -= coef
+            else:       # the one-hot of the targets in this vocab slice
+                inside = (lab >= 0) & (lab < dl.shape[1])
+                dl.scatter_add_(1, lab.clamp(0, dl.shape[1] - 1)[:, None],
+                                (-coef * inside)[:, None])
             db += dl.sum(dim=0)
             dlc = dl.to(x.dtype)
             dx[:, i:j] = (dlc @ wd.t()).view(b, j - i, e)
             dw += _mm_f32(xi.t(), dlc)
         return (dx, dw.to(w.dtype),
                 db.to(bias.dtype) if bias is not None else None,
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def fused_lm_head_loss(x: torch.Tensor, head_w: torch.Tensor,
@@ -120,7 +156,8 @@ def fused_lm_head_loss(x: torch.Tensor, head_w: torch.Tensor,
                        head_bias: Optional[torch.Tensor] = None,
                        mask: Optional[torch.Tensor] = None,
                        z_loss_coeff: float = 0.0,
-                       chunk_size: int = 512
+                       chunk_size: int = 512, tp_group=None,
+                       normalizer: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked fused LM-head projection + cross entropy.
 
@@ -130,11 +167,15 @@ def fused_lm_head_loss(x: torch.Tensor, head_w: torch.Tensor,
     valid positions (data: it gets no gradient). ``chunk_size`` tokens of
     each sequence are projected at a time (``0`` or ``>= s``: one chunk).
     Returns ``(mean_loss, n_valid_tokens)`` like
-    :func:`cross_entropy_loss`.
+    :func:`cross_entropy_loss`. ``tp_group`` (an ``AxisGroup``) makes
+    ``head_w (e, v / tp)`` and ``head_bias`` this rank's vocab slice and
+    the loss vocab-parallel; ``normalizer`` replaces the local count.
     """
     b, s, _ = x.shape
     mask = (torch.ones((b, s), dtype=torch.float32, device=x.device)
             if mask is None else mask.float())
     chunk = chunk_size if chunk_size and chunk_size > 0 else s
+    tp = tp_group if tp_group is not None and tp_group.size > 1 else None
     return _FusedLMHeadLoss.apply(x, head_w, head_bias, labels, mask,
-                                  int(chunk), float(z_loss_coeff))
+                                  int(chunk), float(z_loss_coeff), tp,
+                                  normalizer)

@@ -11,13 +11,19 @@ block costs ``block_size`` bytes plus 4 bytes of scale.
 any device, so a CUDA slab is quantized on the card before its one copy
 to the host; they give the same int8 values and scales, byte for byte,
 as the numpy twins :func:`quantize_int8_np` / :func:`dequantize_int8_np`
-(the same f32 division and the same rounding). Stochastic rounding and
-the collective helpers wait for the port's sharding slice.
+(the same f32 division and the same rounding).
+
+Rounding is round-half-to-even by default; ``stochastic_rounding=True``
+makes the quantizer unbiased (``E[dequant(quant(x))] = x``), drawing its
+uniforms from an explicit ``torch.Generator`` (the JAX package draws
+them from a PRNG key, so the two packages' stochastic bits differ).
+:func:`fake_quant` is one wire leg's error, :func:`compression_ratio`
+and :func:`tree_wire_bytes` the wire's size.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,11 +48,39 @@ def wire_bytes(numel: int, block_size: int = DEFAULT_BLOCK_SIZE,
     return nblocks * block_size + 4 * nblocks
 
 
-def quantize_int8(x: torch.Tensor, block_size: int = DEFAULT_BLOCK_SIZE
+def compression_ratio(numel: int,
+                      block_size: int = DEFAULT_BLOCK_SIZE) -> float:
+    """f32 bytes over int8-wire bytes for a ``numel`` tensor: payload is
+    1 byte/elem (after padding) + 4 bytes of scale per block."""
+    nblocks = -(-numel // block_size)
+    return (4.0 * numel) / (nblocks * block_size + 4.0 * nblocks)
+
+
+def tree_wire_bytes(shapes, block_size: int = DEFAULT_BLOCK_SIZE,
+                    transport: str = "int8") -> int:
+    """Sum of :func:`wire_bytes` over an iterable of shapes (or sizes):
+    the per-step gradient wire budget of one rank."""
+    total = 0
+    for s in shapes:
+        numel = int(s) if np.isscalar(s) else int(np.prod(s)) if s else 1
+        total += wire_bytes(numel, block_size, transport)
+    return total
+
+
+def quantize_int8(x: torch.Tensor, block_size: int = DEFAULT_BLOCK_SIZE,
+                  stochastic_rounding: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  jitted_scales: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x`` (any shape, dtype and device) -> ``(values int8 [nblocks,
     block_size], scales f32 [nblocks])`` on ``x``'s device, blocks taken
-    over the row-major flattening of ``x``."""
+    over the row-major flattening of ``x``. ``stochastic_rounding``
+    rounds ``floor(x / scale + u)``, ``u ~ U[0, 1)`` from ``generator``
+    (required, on ``x``'s device). ``jitted_scales`` computes each scale
+    as ``amax * float32(1 / 127)``: XLA rewrites the JAX function's
+    division by the constant 127 into that product under ``jit``, so the
+    JAX package's jitted collectives carry those scales (1 ulp off the
+    quotient the numpy twin and the KV wire codec compute)."""
     flat = x.reshape(-1).to(torch.float32)
     n = flat.shape[0]
     flat = F.pad(flat, (0, _padded_len(n, block_size) - n))
@@ -55,10 +89,20 @@ def quantize_int8(x: torch.Tensor, block_size: int = DEFAULT_BLOCK_SIZE
     # divide by a tensor: PyTorch's CUDA division by a Python scalar
     # multiplies by its rounded reciprocal, 1 ulp off the f32 quotient
     # numpy computes
-    scales = torch.where(amax > 0, amax / torch.full_like(amax, _QMAX),
-                         torch.ones_like(amax))
-    q = torch.round(blocks / scales[:, None]).clamp_(-_QMAX, _QMAX)
-    return q.to(torch.int8), scales
+    if jitted_scales:
+        scaled_max = amax * torch.full_like(amax, np.float32(1.0 / _QMAX))
+    else:
+        scaled_max = amax / torch.full_like(amax, _QMAX)
+    scales = torch.where(amax > 0, scaled_max, torch.ones_like(amax))
+    scaled = blocks / scales[:, None]
+    if stochastic_rounding:
+        if generator is None:
+            raise ValueError("stochastic_rounding requires a generator")
+        q = torch.floor(scaled + torch.rand(
+            scaled.shape, generator=generator, device=scaled.device))
+    else:
+        q = torch.round(scaled)
+    return q.clamp_(-_QMAX, _QMAX).to(torch.int8), scales
 
 
 def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, shape=None,
@@ -71,6 +115,15 @@ def dequantize_int8(values: torch.Tensor, scales: torch.Tensor, shape=None,
         size = int(np.prod(shape)) if shape else 1
         flat = flat[:size].reshape(tuple(shape))
     return flat.to(dtype) if dtype is not None else flat
+
+
+def fake_quant(x: torch.Tensor, block_size: int = DEFAULT_BLOCK_SIZE,
+               stochastic_rounding: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``dequant(quant(x))`` in ``x``'s shape and dtype: the error a tensor
+    picks up crossing one quantized wire leg."""
+    q, s = quantize_int8(x, block_size, stochastic_rounding, generator)
+    return dequantize_int8(q, s, x.shape, x.dtype)
 
 
 # ------------------------------------------------- NumPy reference twins

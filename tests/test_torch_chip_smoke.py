@@ -417,3 +417,48 @@ def test_rlhf_phases_on_the_cpu(monkeypatch):
     assert rl1["paged_launches"] == rl2["paged_launches"] == 0
     assert len(failed) == 1 + 4 + 1 + 1 + 8 and all(
         "launch" in f or "forwards" in f for f in failed), failed
+
+
+def test_sharding_phases_on_the_cpu(monkeypatch):
+    """P1-P3 at gptj-tiny width (the phases' depths) on four gloo ranks
+    on the CPU, P3 on a one-rank gloo group: P1's losses equal on every
+    rank and falling with FSDP_RULES' shard shapes and tp-replicated
+    leaves bit-identical; P2's sharded gradients match the one-device
+    ones (the faulty control does not), int8 with the sharded update stays
+    within JAX's bound and its wire bytes are tree_wire_bytes'; P3's ops
+    return their input. The flash wrappers launch nothing on the CPU, so
+    P1's launch checks (four kernels on four ranks) are the only ones that
+    fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    from ray_tpu_torch.models import get_config
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(chip_smoke, "shard_model", lambda n: dataclasses.replace(
+        get_config("gptj-tiny"), n_layers=n, dtype=torch.bfloat16))
+    monkeypatch.setattr(chip_smoke, "P3_BACKEND", "gloo")
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        out = chip_smoke.sharding_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    p1, p2, p3 = out["P1"], out["P2"], out["P3"]
+    losses = [r["losses"] for r in p1["ranks"]]
+    assert all(row == losses[0] for row in losses)
+    assert losses[0][-1] < losses[0][0]
+    assert all(r["launches"] == dict.fromkeys(r["launches"], 0)
+               for r in p1["ranks"])
+    assert p2["sharded"]["grad_rel_l2"] <= chip_smoke.P2_GRAD_REL_L2_BOUND
+    assert p2["control"]["worst_leaf_rel_l2"] > \
+        chip_smoke.P2_LEAF_REL_L2_BOUND
+    assert p2["control"]["worst_leaf"].rsplit(".", 1)[1] in ("wk", "wv")
+    assert p2["int8_wire_bytes"] == p2["int8_want_wire_bytes"]
+    assert p2["int8_loss_diff_last"] < chip_smoke.INT8_LOSS_BOUND
+    assert p3["world_size"] == 1 and all(
+        r["equal"] for r in p3.values() if isinstance(r, dict))
+    assert len(failed) == 16 and all("launched" in f for f in failed), failed

@@ -10,7 +10,8 @@
 - A 20-step ``make_train_step`` trajectory (loss and unclipped grad norm
   at every step) against JAX's on a one-device CPU mesh, and a resume at
   step 10 from ``train_state_from_jax``.
-- What is not ported raises ``NotImplementedError``; entry points need
+- What is not ported raises (``NotImplementedError``; a JAX ``Mesh`` a
+  ``TypeError``); entry points need
   CUDA unless told ``"cpu"``.
 
 On the CPU JAX runs ``attention_reference`` and the port the flash
@@ -226,22 +227,29 @@ def test_flops_and_params_match_jax():
 
 
 def test_unported_paths_raise():
+    """What the port still refuses: MoE, the offload remat policy, an
+    unknown transport, a sequence axis over 1 (the dry run's mesh at 8
+    ranks) and a JAX ``Mesh`` (of any size). The sharded paths that
+    raised before (a mesh of several devices, int8 transport, the sharded
+    weight update) run now: ``tests/test_torch_parallel_training.py``
+    holds them against the JAX package, and holds the knobs without a
+    mesh to a ValueError."""
+    from ray_tpu_torch.parallel.dryrun import dryrun_multichip
     cfg = get_config("gptj-tiny")
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, grad_transport="int8", device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, shard_weight_update=True, device="cpu")
-    mesh8 = build_mesh(MeshSpec(dp=8), jax.devices()[:8])
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, mesh8, device="cpu")
     with pytest.raises(NotImplementedError):
         make_train_step(get_config("moe-tiny"), device="cpu")
     with pytest.raises(NotImplementedError):
         make_train_step(cfg, remat_policy="offload", device="cpu")
     with pytest.raises(ValueError):
         make_train_step(cfg, grad_transport="fp8", device="cpu")
-    one = build_mesh(MeshSpec(), jax.devices()[:1])
-    assert make_train_step(cfg, one, device="cpu").mesh is one
+    with pytest.raises(NotImplementedError, match="item 8"):
+        dryrun_multichip(8)
+    for mesh in (build_mesh(MeshSpec(dp=8), jax.devices()[:8]),
+                 build_mesh(MeshSpec(), jax.devices()[:1])):
+        with pytest.raises(TypeError, match="JAX Mesh"):
+            make_train_step(cfg, mesh, device="cpu")
+        with pytest.raises(TypeError, match="JAX Mesh"):
+            make_eval_step(cfg, mesh, device="cpu")
 
 
 def test_train_entry_points_need_cuda_unless_told_cpu():
