@@ -31,6 +31,9 @@ Phases (none catches a failure and carries on):
    serving knobs (32 slots, 32-token blocks, 1024-token window, 256-token
    prefill chunks) answers 16 seeded requests, 8 of them sharing a
    256-token prefix, so radix hits and the copy-on-write block copy run.
+   Request 0 goes alone until its first token, then the other 15 at once
+   (``gate_burst`` holds the engine at the next step boundary until all
+   15 are pending, so the step counts do not hang on arrival timing).
    Every stream must reach its length, the block pool must audit clean,
    and the kernel's launch count must equal 28 x (prefill chunks + decode
    steps).
@@ -96,7 +99,9 @@ R2. The runtime on the card: ``ray_tpu_torch.init`` counts the card as
 R3. GPT-J-6B served from a ``num_gpus=1`` actor: the actor builds the
    engine at full depth with phase 4's knobs from phase 4's seed (its
    weights' checksum equals the driver's) and answers phase 4's 16
-   requests, sent as streaming actor calls in phase 4's pattern. Streams
+   requests, sent as streaming actor calls in phase 4's pattern (the
+   actor gates its engine as phase 4's, so that the 15 calls, which
+   arrive one at a time, enter one admission). Streams
    reach their length, the pool audits clean, the actor's paged launch
    count equals 28 x (prefill chunks + decode steps), and each stream
    equals phase 4's or first leaves it at a near tie (``near_tie``, the
@@ -167,10 +172,11 @@ RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
    causal), ``entry()``'s (B=2, H=4, S=256, D=128, bf16), a cross-length
    causal shape (sq=128, sk=384), a ragged non-causal f32 shape (S=200,
    D=64), RL1's learner shape (B=4, H=16, S=351, D=256, bf16, causal,
-   its last tile partial) and a P1 rank's (B=1, H=8, S=2048, D=256, bf16,
-   causal), each (row, head) vector of O, dQ, dK, dV held relative
-   to that vector's max (floored at 1% of the tensor's max), LSE and delta
-   absolutely; at the training shape ``kernel_ms``, ``plain_ms``,
+   its last tile partial), a P1 rank's (B=1, H=8, S=2048, D=256, bf16,
+   causal) and an M1 rank's (B=1, H=16, S=2048), each (row, head)
+   vector of O, dQ, dK, dV held relative to that vector's max (floored
+   at 1% of the tensor's max), LSE and delta absolutely; at the training
+   shape ``kernel_ms``, ``plain_ms``,
    ``bound_ms`` (from the products each kernel does on the causal pairs
    of this run, or for delta the bytes of O and dO) and ``library_ms``
    (SDPA with ``is_causal=True`` for the forward; one
@@ -228,14 +234,36 @@ P3. NCCL at world size 1: a rank actor (``num_gpus=1``) runs
     collective layer on a CUDA tensor; each result equals its input (the
     quantized ones the input's two-leg round trip) on ``cuda:0``. The card's
     free memory comes back after the group.
+M1. Mixture-of-experts over ep, on a runtime of its own with four rank
+    actors as P1's: ``make_train_step`` at GPT-J-6B width with 4 experts
+    a layer (Switch top-1, capacity factor 1.25, aux weight 0.01; built
+    here with ``dataclasses.replace``) at 2 layers on ``MeshSpec(fsdp=2,
+    ep=2)``, global batch 2 x 2048, one warm-up and 3 timed steps. P1's
+    checks, each flash kernel launched 2 x steps a rank (at 1 row x 16
+    heads), the leaves ep does not split bit-identical across each ep
+    pair, each layer's dropped share printed and equal within each ep
+    pair.
+M2. Ring attention over sp: dense GPT-J-6B width at 4 layers on
+    ``MeshSpec(fsdp=2, sp=2)``, 1 row x 1024 positions a rank, one
+    warm-up and 3 timed steps. P1's checks, the flash kernels launched 0
+    times, and the ring's exchanges (host-staged: gloo takes no CUDA
+    send) 3 x 4 a step of 2 x 1 x 1024 x 16 x 256 x 4 B each, with their
+    seconds.
+M3. Gradients against one device at 2 layers on M1's and M2's meshes,
+    the ranks' shards mapped into the driver (CUDA IPC): loss relative
+    difference and gradient relative L2 (global, worst leaf) within M3's
+    bounds, each mesh's control (the ep one sums the leaves ep does not
+    split over ep as well, the sp one leaves out the sum over sp)
+    outside them. The card's free memory comes back after M1-M3.
 
 Before them the script's total wall is printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
 verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
 ``serve_launches``, S2's ``disagg_launches``, both replicas', and RL1's
 and RL2's ``rlhf_launches``; each flash kernel's carries RL1's and each RL2
-learner's ``rlhf_learner_launches`` and each P1 rank's
-``sharded_launches``); the last line is ``{"ok": true, "device":
+learner's ``rlhf_learner_launches``, each P1 rank's
+``sharded_launches``, each M1 rank's ``moe_launches`` and each M2 rank's
+``ring_launches``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -576,6 +604,27 @@ async def serve_all(engine, prompts, max_new: int):
     return streams, ttft
 
 
+def gate_burst(engine, n: int) -> None:
+    """Phase 4's burst, made exact for an engine stepping on its own
+    thread: at the first step boundary after a request has its first
+    token, the step thread waits until ``n`` requests are pending, so
+    that one admission takes the whole burst however its requests arrive
+    (15 streaming actor calls reach R3's engine one at a time). The gate
+    opens once and removes itself."""
+    inner = engine._step
+
+    def step():
+        if any(r is not None and r.generated for r in engine._slots):
+            with engine._work:
+                arrived = engine._work.wait_for(
+                    lambda: len(engine._pending) >= n, ACTOR_TIMEOUT_S)
+            del engine._step               # the class's method again
+            if not arrived:
+                raise SmokeFailure(f"a burst of {n} requests never arrived")
+        inner()
+    engine._step = step
+
+
 def wait_idle(engine, timeout_s: float = 120.0):
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
@@ -599,6 +648,7 @@ def phase_server(dev, card: str, cfg, params, seed: int):
         kv_gb = ec.resolved_num_blocks * ec.kv_block_size \
             * ec.kv_bytes_per_token(cfg) / 1e9
         paged_flash_attention.kernel_launches = 0
+        gate_burst(engine, len(prompts) - 1)
         t0 = time.perf_counter()
         streams, ttft = asyncio.run(serve_all(engine, prompts, 48))
         wall = time.perf_counter() - t0
@@ -1782,6 +1832,9 @@ class GPTJServer:
     def reset_launches(self):
         reset_launches()
 
+    def hold_burst(self, n: int):
+        gate_burst(self.engine, n)
+
     def generate(self, prompt, max_new: int):
         yield from self.engine.generate_sync(prompt, max_new,
                                              timeout_s=ACTOR_TIMEOUT_S)
@@ -1898,6 +1951,7 @@ def phase_actor_server(dev, card: str, cfg, seed: int, server, checksum):
           "zygote")
     prompts = make_requests(seed, cfg.vocab_size)
     ray_tpu_torch.get(actor.reset_launches.remote(), timeout=60)
+    ray_tpu_torch.get(actor.hold_burst.remote(len(prompts) - 1), timeout=60)
     streams, ttft, wall = serve_actor(actor, prompts, 48)
     d = ray_tpu_torch.get(actor.drained.remote(), timeout=ACTOR_TIMEOUT_S)
     s = d["stats"]
@@ -2844,6 +2898,9 @@ def flash_shapes():
         # P1's ranks: one row a data rank, the tp half of the 16 heads
         FlashShape("p1_rank", SHARD_BATCH // SHARD_MESH["fsdp"], 2048, 2048,
                    16 // SHARD_MESH["tp"], 256, torch.bfloat16, True),
+        # M1's ranks: one row a data rank, all 16 heads (ep splits no head)
+        FlashShape("m1_rank", SHARD_BATCH // MOE_MESH["fsdp"], 2048, 2048,
+                   16, 256, torch.bfloat16, True),
     ]
 
 
@@ -3388,17 +3445,22 @@ class CollectiveClock:
                 "calls": dict(self.calls)}
 
 
-def _rank_mesh(rank, dev_str: str):
-    """Build (once) this rank's mesh over SHARD_MESH on the device's
-    type; returns it."""
+def _rank_mesh(rank, dev_str: str, mesh_kw=None):
+    """Build (once) this rank's mesh over ``mesh_kw`` (SHARD_MESH by
+    default) on the device's type; returns it. A rank told to run on the
+    card that finds none raises."""
     from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
-    if "mesh" not in rank.state:
+    mesh_kw = SHARD_MESH if mesh_kw is None else mesh_kw
+    key = ("mesh",) + tuple(sorted(mesh_kw.items()))
+    if key not in rank.state:
         dev = torch.device(dev_str)
         if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"rank {os.getpid()} finds no CUDA device")
             torch.cuda.set_device(dev)
-        rank.state["mesh"] = build_mesh(MeshSpec(**SHARD_MESH),
-                                        device_type=dev.type)
-    return rank.state["mesh"]
+        rank.state[key] = build_mesh(MeshSpec(**mesh_kw),
+                                     device_type=dev.type)
+    return rank.state[key]
 
 
 def _rank_release(dev):
@@ -3407,9 +3469,9 @@ def _rank_release(dev):
         torch.cuda.empty_cache()
 
 
-def _tp_replicated_sha(params, specs):
+def _replicated_sha(params, specs, axis: str):
     """sha256 of the bytes of every leaf that no spec entry splits over
-    ``tp``."""
+    ``axis``."""
     import hashlib
     from ray_tpu_torch.parallel.sharding import spec_axes
     out = {}
@@ -3417,23 +3479,25 @@ def _tp_replicated_sha(params, specs):
         spec = specs
         for k in name.split("."):
             spec = spec[k]
-        if not any("tp" in spec_axes(e) for e in spec):
+        if not any(axis in spec_axes(e) for e in spec):
             out[name] = hashlib.sha256(
                 t.detach().cpu().contiguous().view(torch.uint8)
                 .numpy().tobytes()).hexdigest()
     return out
 
 
-def p1_rank(rank, cfg, dev_str: str, seed: int, timed_steps: int):
-    """P1 on one rank: the sharded trainer, one warm-up step and
-    ``timed_steps`` timed ones."""
+def train_rank(rank, cfg, mesh_kw, dev_str: str, seed: int,
+               timed_steps: int):
+    """P1, M1 and M2 on one rank: the sharded trainer over ``mesh_kw``,
+    one warm-up step and ``timed_steps`` timed ones on one seeded batch
+    of SHARD_BATCH x max_seq_len."""
     from ray_tpu_torch.models import make_train_step
     from ray_tpu_torch.models.transformer import param_shapes
     from ray_tpu_torch.parallel.mesh import axis_sizes, mesh_coordinate
     from ray_tpu_torch.parallel.sharding import FSDP_RULES, local_shape
     dev = torch.device(dev_str)
     cuda = dev.type == "cuda"
-    mesh = _rank_mesh(rank, dev_str)
+    mesh = _rank_mesh(rank, dev_str, mesh_kw)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     bundle = make_train_step(cfg, mesh, FSDP_RULES, learning_rate=1e-4,
@@ -3448,7 +3512,7 @@ def p1_rank(rank, cfg, dev_str: str, seed: int, timed_steps: int):
     rng = np.random.default_rng(seed + 3)
     batch = {"input_ids": rng.integers(0, cfg.vocab_size, (SHARD_BATCH, S))}
     reset_flash_counts()
-    losses, norms, walls, split = [], [], [], []
+    losses, norms, walls, split, moe = [], [], [], [], []
     with CollectiveClock(cuda) as clock:
         for _ in range(1 + timed_steps):
             if cuda:
@@ -3462,6 +3526,9 @@ def p1_rank(rank, cfg, dev_str: str, seed: int, timed_steps: int):
                 torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             split.append(clock.snapshot())
+            if cfg.n_experts:
+                moe.append({"aux": m["moe_aux"].item(),
+                            "dropped": m["moe_dropped"].tolist()})
     sizes = axis_sizes(mesh)
     shapes = param_shapes(cfg)
     specs = bundle.state_shardings["params"]
@@ -3477,8 +3544,9 @@ def p1_rank(rank, cfg, dev_str: str, seed: int, timed_steps: int):
            "grad_norms": norms, "walls_s": walls, "collectives": split,
            "launches": flash_counts(), "shard_shapes": shard_shapes,
            "want_shapes": want,
-           "state_gb": nbytes(state) / 1e9,
-           "tp_replicated_sha": _tp_replicated_sha(state["params"], specs),
+           "state_gb": nbytes(state) / 1e9, "moe": moe,
+           "replicated_sha": {a: _replicated_sha(state["params"], specs, a)
+                              for a in ("tp", "ep") if sizes[a] > 1},
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
            if cuda else 0.0}
     del state, bundle
@@ -3496,62 +3564,83 @@ def phase_p1(dev, card: str, seed: int, actors):
     the wall split into compute and collectives."""
     from ray_tpu_torch.parallel.dryrun import run_on_ranks
     cfg = shard_model(P1_LAYERS)
-    S = cfg.max_seq_len
     t0 = time.perf_counter()
-    outs = run_on_ranks(actors, p1_rank, cfg, str(dev), seed,
-                        P1_TIMED_STEPS)
-    wall = time.perf_counter() - t0
-    steps = 1 + P1_TIMED_STEPS
+    outs = run_on_ranks(actors, train_rank, cfg, SHARD_MESH, str(dev),
+                        seed, P1_TIMED_STEPS)
+    res = train_record("P1", card, cfg, SHARD_MESH, outs,
+                       time.perf_counter() - t0)
+    print("p1 " + json.dumps(res), flush=True)
+    check_train_ranks("P1", dev, outs, SHARD_MESH, P1_LAYERS * (
+        1 + P1_TIMED_STEPS))
+    return res
+
+
+def train_record(name: str, card: str, cfg, mesh_kw, outs, wall: float):
+    """A sharded trainer phase's record: step wall (the slowest rank's,
+    over the timed steps), tokens/s, MFU, the wall split into compute and
+    collectives, the collectives by op, each rank's losses, launches and
+    peak memory."""
+    S = cfg.max_seq_len
+    steps = len(outs[0]["walls_s"])
     timed = [max(o["walls_s"][i] for o in outs) for i in range(1, steps)]
     step_s = float(np.mean(timed))
     tok_s = SHARD_BATCH * S / step_s
     flops_tok = cfg.flops_per_token(S)
     coll = [float(np.mean([sum(o["collectives"][i]["seconds"].values())
                            for i in range(1, steps)])) for o in outs]
-    res = {"card": card, "config": f"gptj-6b n_layers={P1_LAYERS}",
-           "mesh": SHARD_MESH, "backend": "gloo", "params": cfg.num_params,
-           "batch": [SHARD_BATCH, S], "remat_policy": "dots",
-           "phase_wall_s": wall, "step_s": step_s,
-           "step_s_min": min(timed), "step_s_max": max(timed),
-           "tokens_per_s": tok_s, "flops_per_token": flops_tok,
-           "mfu": flops_tok * tok_s / PEAK_FLOPS[torch.bfloat16],
-           "compute_s_per_step": [step_s - c for c in coll],
-           "collective_s_per_step": coll,
-           "collectives_by_op_last_step": [o["collectives"][-1]
-                                           for o in outs],
-           "ranks": [{k: o[k] for k in ("coordinate", "pid", "device",
-                                        "init_s", "losses", "grad_norms",
-                                        "walls_s", "launches", "state_gb",
-                                        "peak_mem_gb")} for o in outs]}
-    print("p1 " + json.dumps(res), flush=True)
+    return {"phase": name, "card": card,
+            "config": f"gptj-6b n_layers={cfg.n_layers}"
+            + (f" n_experts={cfg.n_experts}" if cfg.n_experts else ""),
+            "mesh": mesh_kw, "backend": "gloo", "params": cfg.num_params,
+            "batch": [SHARD_BATCH, S], "remat_policy": "dots",
+            "phase_wall_s": wall, "step_s": step_s,
+            "step_s_min": min(timed), "step_s_max": max(timed),
+            "tokens_per_s": tok_s, "flops_per_token": flops_tok,
+            "mfu": flops_tok * tok_s / PEAK_FLOPS[torch.bfloat16],
+            "compute_s_per_step": [step_s - c for c in coll],
+            "collective_s_per_step": coll,
+            "collectives_by_op_last_step": [o["collectives"][-1]
+                                            for o in outs],
+            "ranks": [{k: o[k] for k in (
+                "coordinate", "pid", "device", "init_s", "losses",
+                "grad_norms", "walls_s", "launches", "state_gb",
+                "peak_mem_gb", "moe")} for o in outs]}
+
+
+def check_train_ranks(name: str, dev, outs, mesh_kw, flash: int):
+    """The checks of a sharded trainer phase: losses and grad norms
+    finite, the losses equal on every rank and falling, every rank on
+    this card with the rules' shard shapes and each flash kernel
+    launched ``flash`` times, and the leaves that a model axis (tp, ep)
+    does not split bit-identical across each group of that axis."""
     losses = [o["losses"] for o in outs]
     check(all(math.isfinite(x) for row in losses for x in row)
           and all(math.isfinite(x) for o in outs for x in o["grad_norms"]),
-          f"P1 non-finite loss or grad norm: {losses}")
+          f"{name} non-finite loss or grad norm: {losses}")
     check(all(row == losses[0] for row in losses),
-          f"P1 losses differ between ranks: {losses}")
-    check(losses[0][-1] < losses[0][0], f"P1 loss did not fall: {losses[0]}")
+          f"{name} losses differ between ranks: {losses}")
+    check(losses[0][-1] < losses[0][0],
+          f"{name} loss did not fall: {losses[0]}")
     for i, o in enumerate(outs):
         check(o["device"] == device_name(dev),
-              f"P1 rank {i} runs on {o['device']!r}")
+              f"{name} rank {i} runs on {o['device']!r}")
         for n, c in o["launches"].items():
-            check(c == P1_LAYERS * steps,
-                  f"P1 rank {i}: {n} launched {c} times, not "
-                  f"{P1_LAYERS} x {steps}")
+            check(c == flash, f"{name} rank {i}: {n} launched {c} times, "
+                  f"not {flash}")
         check(o["shard_shapes"] == o["want_shapes"],
-              f"P1 rank {i}: shard shapes {o['shard_shapes']} are not "
+              f"{name} rank {i}: shard shapes {o['shard_shapes']} are not "
               f"FSDP_RULES' {o['want_shapes']}")
-    pairs = {}
-    for o in outs:
-        key = tuple(v for a, v in sorted(o["coordinate"].items())
-                    if a != "tp")
-        pairs.setdefault(key, []).append(o["tp_replicated_sha"])
-    for key, shas in pairs.items():
-        check(len(shas) == SHARD_MESH["tp"] and shas[0]
-              and all(s == shas[0] for s in shas),
-              f"P1 leaves replicated over tp differ across the tp group at "
-              f"{key}")
-    return res
+    for axis in outs[0]["replicated_sha"]:
+        groups = {}
+        for o in outs:
+            key = tuple(v for a, v in sorted(o["coordinate"].items())
+                        if a != axis)
+            groups.setdefault(key, []).append(o["replicated_sha"][axis])
+        for key, shas in groups.items():
+            check(len(shas) == mesh_kw[axis] and shas[0]
+                  and all(sh == shas[0] for sh in shas),
+                  f"{name} leaves replicated over {axis} differ across the "
+                  f"{axis} group at {key}")
 
 
 def p2_rank(rank, cfg, dev_str: str, seed: int, steps: int):
@@ -3633,64 +3722,25 @@ def phase_p2(dev, card: str, seed: int, actors):
     the sharded weight update for P2_STEPS steps within INT8_LOSS_BOUND
     of the fp32 sharded run, its int8 wire bytes equal to
     ``tree_wire_bytes`` of what it reduces."""
-    from ray_tpu_torch.models import init_params, lm_loss
-    from ray_tpu_torch.models.transformer import logical_axes
     from ray_tpu_torch.parallel.dryrun import run_on_ranks
-    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
-    from ray_tpu_torch.parallel.sharding import FSDP_RULES, local_slices
     cfg = dataclasses.replace(shard_model(P2_LAYERS), remat=None,
                               remat_policy="dots")
     t0 = time.perf_counter()
     outs = run_on_ranks(actors, p2_rank, cfg, str(dev), seed, P2_STEPS)
     ranks_s = time.perf_counter() - t0
-    params = init_params(cfg, seed=seed + 4, device=dev)
-    names = [n for n, _ in _named(params)]
-    leaves = [t.requires_grad_() for _, t in _named(params)]
-    rng = np.random.default_rng(seed + 5)
-    batch = {"input_ids": torch.tensor(rng.integers(
-        0, cfg.vocab_size, (SHARD_BATCH, cfg.max_seq_len)), device=dev)}
-    loss_ref, _ = lm_loss(cfg, params, batch)
-    ref = dict(zip(names, torch.autograd.grad(loss_ref, leaves)))
-    del params, leaves
-    specs = {}
-    axes = logical_axes(cfg)
-    for n in names:
-        a = axes
-        for k in n.split("."):
-            a = a[k]
-        specs[n] = FSDP_RULES.spec_for(a)
-    sizes = {a: SHARD_MESH.get(a, 1) for a in AXIS_ORDER}
-    read = {}
-    for run in ("sharded", "control"):
-        num = den = 0.0
-        leaf = {}
-        for n in names:
-            ln = ld = 0.0
-            for r, o in enumerate(outs):
-                coord = dict(zip(AXIS_ORDER, np.unravel_index(
-                    r, [sizes[a] for a in AXIS_ORDER])))
-                want = ref[n][local_slices(ref[n].shape, specs[n], sizes,
-                                           coord)].float()
-                grads = o[run]["grads"]
-                got = torch.from_numpy(np.array(
-                    grads[n] if n in grads else o["sharded"]["grads"][n]
-                )).to(dev)
-                if o[run]["counts"][n]:       # each replica once
-                    ln += ((got - want) ** 2).sum().item()
-                    ld += (want ** 2).sum().item()
-            num, den = num + ln, den + ld
-            leaf[n] = math.sqrt(ln / max(ld, 1e-30))
-        worst = max(leaf, key=leaf.get)
-        lx = outs[0][run]["loss"]
-        read[run] = {"loss": lx, "loss_rel": abs(lx - loss_ref.item())
-                     / abs(loss_ref.item()),
-                     "grad_rel_l2": math.sqrt(num / den),
-                     "worst_leaf": worst, "worst_leaf_rel_l2": leaf[worst],
-                     "leaf_rel_l2": leaf}
+    loss_ref, ref, specs = one_device_grads(cfg, seed, dev)
+
+    def got(o, run, n):
+        grads = o[run]["grads"]
+        return torch.from_numpy(np.array(
+            grads[n] if n in grads else o["sharded"]["grads"][n])).to(dev)
+    read = {run: grad_errors(outs, run, ref, loss_ref, specs,
+                             SHARD_MESH, got)
+            for run in ("sharded", "control")}
     fp32 = outs[0]["fp32"]["losses"]
     int8 = outs[0]["int8"]["losses"]
     res = {"card": card, "config": f"gptj-6b n_layers={P2_LAYERS}",
-           "mesh": SHARD_MESH, "loss_one_device": loss_ref.item(),
+           "mesh": SHARD_MESH, "loss_one_device": loss_ref,
            "sharded": read["sharded"],
            "control": {k: read["control"][k] for k in
                        ("loss", "loss_rel", "grad_rel_l2", "worst_leaf",
@@ -3732,6 +3782,67 @@ def phase_p2(dev, card: str, seed: int, actors):
               f"P2 rank {i}: int8 wire bytes {o['int8']['wire_bytes']} != "
               f"tree_wire_bytes {o['int8']['want_wire_bytes']}")
     return res
+
+
+def one_device_grads(cfg, seed: int, dev):
+    """The one-device loss and gradients (by leaf name) of ``cfg`` from
+    the init of ``seed + 4`` on the seeded batch of SHARD_BATCH rows that
+    P2's and M3's ranks take, and each leaf's FSDP_RULES spec."""
+    from ray_tpu_torch.models import init_params, lm_loss
+    from ray_tpu_torch.models.transformer import logical_axes
+    from ray_tpu_torch.parallel.sharding import FSDP_RULES
+    params = init_params(cfg, seed=seed + 4, device=dev)
+    names = [n for n, _ in _named(params)]
+    leaves = [t.requires_grad_() for _, t in _named(params)]
+    rng = np.random.default_rng(seed + 5)
+    batch = {"input_ids": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (SHARD_BATCH, cfg.max_seq_len)), device=dev)}
+    loss, _ = lm_loss(cfg, params, batch)
+    ref = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    specs = {n: FSDP_RULES.spec_for(a) for n, a in
+             _named_axes(logical_axes(cfg))}
+    return loss.item(), ref, specs
+
+
+def _named_axes(tree, prefix=""):
+    """(dotted name, logical axes) of every leaf of a logical-axes tree."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_axes(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def grad_errors(outs, run: str, ref, loss_ref: float, specs, mesh_kw,
+                got):
+    """Run ``run`` of the ranks' losses and gradient shards (``got(o,
+    run, name)``, rank ``r``'s reduced gradient of a leaf on the device)
+    against the one-device loss and gradients ``ref`` (by leaf name),
+    each rank's shard held to the slice its spec gives it and each
+    replica counted once: the loss's relative difference, the gradients'
+    relative L2 over every leaf and per leaf, and the worst leaf."""
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+    from ray_tpu_torch.parallel.sharding import local_slices
+    sizes = {a: mesh_kw.get(a, 1) for a in AXIS_ORDER}
+    num = den = 0.0
+    leaf = {}
+    for n in ref:
+        ln = ld = 0.0
+        for r, o in enumerate(outs):
+            if not o[run]["counts"][n]:       # each replica once
+                continue
+            coord = dict(zip(AXIS_ORDER, np.unravel_index(
+                r, [sizes[a] for a in AXIS_ORDER])))
+            want = ref[n][local_slices(ref[n].shape, specs[n], sizes,
+                                       coord)].float()
+            ln += ((got(o, run, n) - want) ** 2).sum().item()
+            ld += (want ** 2).sum().item()
+        num, den = num + ln, den + ld
+        leaf[n] = math.sqrt(ln / max(ld, 1e-30))
+    worst = max(leaf, key=leaf.get)
+    lx = outs[0][run]["loss"]
+    return {"loss": lx, "loss_rel": abs(lx - loss_ref) / abs(loss_ref),
+            "grad_rel_l2": math.sqrt(num / den), "worst_leaf": worst,
+            "worst_leaf_rel_l2": leaf[worst], "leaf_rel_l2": leaf}
 
 
 def p3_rank(rank, dev_str: str, seed: int):
@@ -3838,6 +3949,285 @@ def sharding_phases(dev, card: str, seed: int):
     return out
 
 
+# ------------------------------------------------------- phases M1-M3
+# Mixture-of-experts over ep and ring attention over sp, on four rank
+# processes sharing the card over gloo, as P1-P3's. The ring's K/V
+# exchange is a send and a receive, which gloo cannot take on a CUDA
+# tensor: it crosses a host buffer, so M2's ring seconds time host copies.
+MOE_MESH = {"fsdp": 2, "ep": 2}
+RING_MESH = {"fsdp": 2, "sp": 2}
+M1_LAYERS = 2
+M2_LAYERS = 4
+M_TIMED_STEPS = 3
+M3_LAYERS = 2
+# M3's bounds, P2's and for P2's reasons: the sharded step's bf16
+# products run at other shapes than one device's (a rank's rows, its
+# chunk of the sequence; the ring's f32 blocks where the flash kernels
+# round P to bf16) and round apart from them, and a token at a near tie
+# of its router may go to another expert. The controls double or halve
+# whole leaves: the ep one sums the gradients of the leaves that ep does
+# not split over ep as well (ep is a model axis, and each of its ranks
+# holds the whole gradient of those leaves already); the sp one leaves
+# out the sum over sp (a data axis: each rank holds its chunk's share).
+M3_LOSS_REL_BOUND = 2e-3
+M3_GRAD_REL_L2_BOUND = 3e-2
+M3_LEAF_REL_L2_BOUND = 6e-2
+
+
+def moe_model(n_layers: int):
+    """GPT-J-6B's widths at ``n_layers`` layers with moe-tiny's expert
+    structure: 4 experts a layer in place of the dense MLP, Switch top-1
+    routing, capacity factor 1.25, aux weight 0.01; bf16 compute."""
+    return dataclasses.replace(shard_model(n_layers), n_experts=4,
+                               capacity_factor=1.25, moe_aux_weight=0.01)
+
+
+def ring_step_bytes(cfg, mesh_kw) -> int:
+    """Bytes one ring step of one layer sends from a rank: its K and V
+    chunk in f32, (2, rows, seq / sp, heads, head_dim)."""
+    rows = SHARD_BATCH // (mesh_kw.get("dp", 1) * mesh_kw.get("fsdp", 1))
+    heads = cfg.n_heads // mesh_kw.get("tp", 1)
+    return 2 * rows * (cfg.max_seq_len // mesh_kw["sp"]) * heads \
+        * cfg.head_dim * 4
+
+
+def phase_m1(dev, card: str, seed: int, actors):
+    """M1: ``make_train_step`` at ``moe_model(M1_LAYERS)`` on
+    ``MeshSpec(fsdp=2, ep=2)`` under FSDP_RULES over four rank processes
+    sharing the card, global batch 2 x 2048, one warm-up and
+    M_TIMED_STEPS timed steps. P1's checks (losses, shard shapes: each
+    rank holds 2 of the 4 experts and half of their embed dim), each
+    flash kernel launched M1_LAYERS x steps, the leaves that ep does not
+    split (router, attention, embedding, head, norms) bit-identical
+    across each ep pair, and each layer's share of tokens dropped for
+    capacity printed and equal within each ep pair."""
+    from ray_tpu_torch.parallel.dryrun import run_on_ranks
+    cfg = moe_model(M1_LAYERS)
+    t0 = time.perf_counter()
+    outs = run_on_ranks(actors, train_rank, cfg, MOE_MESH, str(dev), seed,
+                        M_TIMED_STEPS)
+    res = train_record("M1", card, cfg, MOE_MESH, outs,
+                       time.perf_counter() - t0)
+    res["moe_aux"] = [m["aux"] for m in outs[0]["moe"]]
+    res["dropped_share_by_layer"] = [m["dropped"] for m in outs[0]["moe"]]
+    res["moe_wi_shard"] = outs[0]["shard_shapes"]["layers.moe_wi"]
+    print("m1 " + json.dumps(res), flush=True)
+    check_train_ranks("M1", dev, outs, MOE_MESH, M1_LAYERS * (
+        1 + M_TIMED_STEPS))
+    for o in outs:
+        other = [p for p in outs if all(
+            p["coordinate"][a] == v for a, v in o["coordinate"].items()
+            if a != "ep")]
+        check(all(p["moe"] == o["moe"] for p in other),
+              f"M1 aux terms or dropped shares differ within the ep pair "
+              f"at {o['coordinate']}")
+    return res
+
+
+def phase_m2(dev, card: str, seed: int, actors):
+    """M2: dense GPT-J-6B width at M2_LAYERS layers on ``MeshSpec(fsdp=2,
+    sp=2)``, global batch 2 x 2048 (1 row x 1024 positions a rank),
+    attention through the ring over sp. P1's checks (losses, shard
+    shapes), the flash kernels launched 0 times (the ring replaced
+    them), and the ring's host-staged exchanges: each carries
+    ``ring_step_bytes`` (2 x 1 x 1024 x 16 x 256 x 4 B), and a step makes
+    3 x M2_LAYERS of them (the ring's forward, its recompute under the
+    "dots" remat in the backward, and the reverse ring), printed beside
+    their seconds."""
+    from ray_tpu_torch.parallel.dryrun import run_on_ranks
+    cfg = shard_model(M2_LAYERS)
+    t0 = time.perf_counter()
+    outs = run_on_ranks(actors, train_rank, cfg, RING_MESH, str(dev), seed,
+                        M_TIMED_STEPS)
+    res = train_record("M2", card, cfg, RING_MESH, outs,
+                       time.perf_counter() - t0)
+    per_call = ring_step_bytes(cfg, RING_MESH)
+    calls = 3 * M2_LAYERS * (RING_MESH["sp"] - 1)
+    ring = [[(st["calls"].get("ppermute", 0), st["bytes"].get(
+        "ppermute", 0), st["seconds"].get("ppermute", 0.0))
+        for st in o["collectives"]] for o in outs]
+    res["ring"] = {"bytes_per_exchange": per_call,
+                   "exchanges_per_step": calls,
+                   "want_bytes_per_step": calls * per_call,
+                   "by_rank_and_step": ring}
+    print("m2 " + json.dumps(res), flush=True)
+    check_train_ranks("M2", dev, outs, RING_MESH, 0)
+    for i, steps in enumerate(ring):
+        check(all(c == calls and b == calls * per_call
+                  for c, b, _ in steps),
+              f"M2 rank {i}: ring exchanges (calls, bytes, s) {steps}, not "
+              f"{calls} of {per_call} B a step")
+    return res
+
+
+def share(t: torch.Tensor):
+    """``t`` for the driver: on the card, a CUDA IPC handle (the driver
+    maps this process's memory, nothing is copied; the tensor must stay
+    alive until it is done), else a numpy copy."""
+    if t.is_cuda:
+        from torch.multiprocessing.reductions import reduce_tensor
+        return reduce_tensor(t)
+    return t.numpy().copy()
+
+
+def shared(x, dev) -> torch.Tensor:
+    """The tensor :func:`share` gave, on ``dev``."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x).to(dev)
+    rebuild, args = x
+    return rebuild(*args)
+
+
+def m3_rank(rank, cfg, mesh_kw, dev_str: str, seed: int, control: str):
+    """M3 on one rank: one sharded loss over ``mesh_kw`` and its
+    gradients, this rank's shards reduced as the step reduces them
+    (summed over the data axes each leaf is replicated over), and the
+    ``control``'s reduction: ``"ep"`` sums the gradients of the leaves
+    that ep does not split over ep as well, ``"sp"`` leaves out the sum
+    over sp. Both stay on this rank (``rank.state["m3"]``) until
+    ``m3_release``; the driver reads them through :func:`share`."""
+    from ray_tpu_torch.models import lm_loss, make_train_step
+    from ray_tpu_torch.models.training import _paths, leaf_plans
+    from ray_tpu_torch.parallel.collective import psum_tree
+    from ray_tpu_torch.parallel.mesh import axis_group
+    from ray_tpu_torch.parallel.sharding import FSDP_RULES, spec_axes
+    dev = torch.device(dev_str)
+    mesh = _rank_mesh(rank, dev_str, mesh_kw)
+    bundle = make_train_step(cfg, mesh, FSDP_RULES, remat_policy="dots",
+                             device=dev)
+    params = bundle.init(seed + 4)["params"]
+    rng = np.random.default_rng(seed + 5)
+    local = bundle.local_batch({"input_ids": rng.integers(
+        0, cfg.vocab_size, (SHARD_BATCH, cfg.max_seq_len))})
+    plans = leaf_plans(cfg, mesh, FSDP_RULES, False)
+    paths = _paths(params)
+    leaves = [t.requires_grad_() for _, t in _named(params)]
+    loss, _ = lm_loss(cfg, params, local, mesh=mesh, rules=FSDP_RULES)
+    grads = torch.autograd.grad(loss, leaves)
+    del params, leaves
+    runs = {"sharded": {}, "control": {}}
+    for path, g in zip(paths, grads):
+        plan, name = plans[path], ".".join(path)
+        mine = psum_tree(g, plan.replicated).detach().float()
+        runs["sharded"][name] = mine
+        if control == "ep" and not any("ep" in spec_axes(e)
+                                       for e in plan.spec):
+            runs["control"][name] = psum_tree(mine, axis_group(mesh, "ep"))
+        elif control == "sp":
+            runs["control"][name] = psum_tree(g, axis_group(mesh, tuple(
+                a for a in plan.replicated.axes if a != "sp"))).float()
+    del grads
+    rank.state["m3"] = runs
+    counts = {".".join(p): plans[p].counts for p in paths}
+    return {run: {"loss": loss.item(), "counts": counts,
+                  "grads": {n: share(t) for n, t in g.items()}}
+            for run, g in runs.items()}
+
+
+def m3_release(rank, dev_str: str):
+    rank.state.pop("m3", None)
+    _rank_release(torch.device(dev_str))
+
+
+def phase_m3(dev, card: str, seed: int, actors):
+    """M3: M1's and M2's meshes at M3_LAYERS layers against the one-device
+    step from the same weights (the sharded init is a slice of the
+    one-device init) and batch: the loss's relative difference and the
+    gradients' relative L2 (global and worst leaf) within the M3 bounds,
+    fixed before the first run; each mesh's control outside them. The
+    ranks' gradients stay on the card, mapped into the driver."""
+    from ray_tpu_torch.parallel.dryrun import run_on_ranks
+    res = {"card": card, "bounds": [M3_LOSS_REL_BOUND, M3_GRAD_REL_L2_BOUND,
+                                    M3_LEAF_REL_L2_BOUND]}
+    for name, cfg, mesh_kw, control in (
+            ("ep", moe_model(M3_LAYERS), MOE_MESH, "ep"),
+            ("sp", shard_model(M3_LAYERS), RING_MESH, "sp")):
+        cfg = dataclasses.replace(cfg, remat=None, remat_policy="dots")
+        t0 = time.perf_counter()
+        outs = run_on_ranks(actors, m3_rank, cfg, mesh_kw, str(dev), seed,
+                            control)
+        try:
+            loss_ref, ref, specs = one_device_grads(cfg, seed, dev)
+
+            def got(o, run, n):
+                grads = o[run]["grads"]
+                return shared(grads[n] if n in grads
+                              else o["sharded"]["grads"][n], dev)
+            read = {run: grad_errors(outs, run, ref, loss_ref, specs,
+                                     mesh_kw, got)
+                    for run in ("sharded", "control")}
+            del ref
+        finally:
+            gc.collect()
+            run_on_ranks(actors, m3_release, str(dev))
+        rec = {"config": f"gptj-6b n_layers={M3_LAYERS}" + (
+            f" n_experts={cfg.n_experts}" if cfg.n_experts else ""),
+            "mesh": mesh_kw, "loss_one_device": loss_ref,
+            "sharded": read["sharded"],
+            "control": {k: read["control"][k] for k in (
+                "loss", "loss_rel", "grad_rel_l2", "worst_leaf",
+                "worst_leaf_rel_l2")}, "wall_s": time.perf_counter() - t0}
+        res[name] = rec
+        print(f"m3 {name} " + json.dumps(rec), flush=True)
+        k, ctl = read["sharded"], read["control"]
+        check(k["loss_rel"] <= M3_LOSS_REL_BOUND,
+              f"M3 {name} loss rel {k['loss_rel']} > {M3_LOSS_REL_BOUND}")
+        check(k["grad_rel_l2"] <= M3_GRAD_REL_L2_BOUND,
+              f"M3 {name} grad rel L2 {k['grad_rel_l2']} > "
+              f"{M3_GRAD_REL_L2_BOUND}")
+        check(k["worst_leaf_rel_l2"] <= M3_LEAF_REL_L2_BOUND,
+              f"M3 {name} leaf {k['worst_leaf']} grad rel L2 "
+              f"{k['worst_leaf_rel_l2']} > {M3_LEAF_REL_L2_BOUND}")
+        check(ctl["grad_rel_l2"] > M3_GRAD_REL_L2_BOUND
+              or ctl["worst_leaf_rel_l2"] > M3_LEAF_REL_L2_BOUND,
+              f"M3 {name}: the control's gradients (rel L2 "
+              f"{ctl['grad_rel_l2']}, worst leaf "
+              f"{ctl['worst_leaf_rel_l2']}) pass the bounds")
+    return res
+
+
+def moe_ring_phases(dev, card: str, seed: int):
+    """M1-M3 on a runtime of their own, after P1-P3; the card's free
+    memory must come back after them. Returns their records."""
+    import ray_tpu_torch
+    from ray_tpu_torch.parallel.dryrun import start_ranks, stop_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    n = MOE_MESH["fsdp"] * MOE_MESH["ep"]
+    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
+                       _num_initial_workers=0)
+    out = {}
+    try:
+        actors = start_ranks(n, "gloo", group_name="moe-ring",
+                             num_gpus=1.0 / n if dev.type == "cuda"
+                             else 0.0)
+        try:
+            for name, phase in (("M1", phase_m1), ("M2", phase_m2),
+                                ("M3", phase_m3)):
+                t1 = time.perf_counter()
+                out[name] = phase(dev, card, seed, actors)
+                print(f"phase {name} wall: {time.perf_counter() - t1:.1f} s",
+                      flush=True)
+        finally:
+            stop_ranks(actors)
+    finally:
+        ray_tpu_torch.shutdown()
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + 60
+    while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
+            and time.monotonic() < deadline:
+        time.sleep(0.5)
+    free1 = torch.cuda.mem_get_info()[0]
+    print(f"phases M1-M3 wall: {time.perf_counter() - t0:.1f} s; card "
+          f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f} GB "
+          f"after", flush=True)
+    check(free1 >= free0 - (1 << 30),
+          "M1-M3's card memory did not come back")
+    return out
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3880,9 +4270,14 @@ def main(argv=None) -> int:
             "RL2": [n[rec["name"]] for n in rl["RL2"]["learner_launches"]]}
     kernels.extend(flash)
     sharded = sharding_phases(dev, card, args.seed)
+    moe_ring = moe_ring_phases(dev, card, args.seed)
     for rec in flash:
         rec["sharded_launches"] = [r["launches"][rec["name"]]
                                    for r in sharded["P1"]["ranks"]]
+        rec["moe_launches"] = [r["launches"][rec["name"]]
+                               for r in moe_ring["M1"]["ranks"]]
+        rec["ring_launches"] = [r["launches"][rec["name"]]
+                                for r in moe_ring["M2"]["ranks"]]
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,7 @@
 """Models of the port: the decoder-only transformer (serving and
 training paths, on one device or sharded over a mesh with
-``logical_axes``), its train step and the named configurations."""
+``logical_axes``; dense or mixture-of-experts MLPs), its train step and
+the named configurations."""
 
 from ray_tpu_torch.models.registry import MODEL_CONFIGS, get_config
 from ray_tpu_torch.models.training import (ClipAdamW, TrainStepBundle,

@@ -8,11 +8,14 @@ bundle and runs the same steps: its state holds its shards (as
 leaf's spec), it takes the global batch and keeps its rows (split over
 the rules' batch axes, ``batch_spec``), and the model's collectives
 (``models.transformer.lm_loss_sharded``) gather the fsdp shards and sum
-the tensor-parallel partials. After the backward the step sums each
-gradient over the data axes its leaf is replicated over, the global
-norm of the gradients clips them, and ``ClipAdamW`` updates the local
-shards. ``shard_weight_update`` (arXiv:2004.13336) reduce-scatters
-those gradients flat instead and updates a 1/N flat optimizer shard,
+the tensor-parallel partials; over ``sp`` the ranks hold sequence
+chunks and attend through the ring, over ``ep`` an MoE config's experts
+are split. After the backward the step sums each gradient over the data
+axes its leaf is replicated over (the batch axes and ``sp``, never
+``ep``, which splits the model and not the tokens), the global norm of
+the gradients clips them, and ``ClipAdamW`` updates the local shards.
+``shard_weight_update`` (arXiv:2004.13336) reduce-scatters those
+gradients flat instead and updates a 1/N flat optimizer shard,
 then all-gathers the params; ``grad_transport="int8"`` carries every
 gradient reduction over the data axes (the fsdp reduce-scatters too) as
 real int8 through ``collective.quantized_psum``.
@@ -295,9 +298,13 @@ def make_train_step(config: TransformerConfig, mesh=None, rules=None,
     fused-CE chunking for this step. The state is ``{"params" (f32
     masters; this rank's shards), "opt_state", "step"}``; ``step``
     updates it in place and returns it with ``{"loss", "n_tokens",
-    "grad_norm"}`` (the global norm of the unclipped gradients).
+    "grad_norm"}`` (the global norm of the unclipped gradients), and for
+    an MoE config ``"moe_aux"`` (the Switch aux term the loss includes
+    with weight ``moe_aux_weight``) and ``"moe_dropped"`` (each layer's
+    share of the batch's tokens dropped for capacity).
 
-    Communication knobs (need a mesh; its data axes carry them):
+    Communication knobs (need a mesh; its data axes, the batch axes and
+    ``sp``, carry them):
 
     - ``grad_transport``: ``"fp32"`` (exact) or ``"int8"``: every
       gradient reduction over the data axes moves real int8 values and
@@ -312,14 +319,12 @@ def make_train_step(config: TransformerConfig, mesh=None, rules=None,
       the optimizer state and the masters, and the params all-gather
       back. ``state["params"]`` keeps its layout.
 
-    MoE configs, ``sp``/``ep``/``pp`` > 1 and a JAX ``Mesh`` (TypeError)
+    ``pp`` > 1 (ROADMAP Queue 1 item 9) and a JAX ``Mesh`` (TypeError)
     raise. ``telemetry_interval_s`` is accepted and unused.
     """
     if grad_transport not in GRAD_TRANSPORTS:
         raise ValueError(f"grad_transport must be one of "
                          f"{GRAD_TRANSPORTS}, got {grad_transport!r}")
-    if config.n_experts:
-        raise NotImplementedError("the port does not train MoE configs yet")
     if mesh is None and (grad_transport != "fp32" or shard_weight_update):
         raise ValueError(
             "grad_transport='int8' and shard_weight_update act on the "
@@ -357,9 +362,7 @@ def make_train_step(config: TransformerConfig, mesh=None, rules=None,
             optimizer.update(grads, state["opt_state"], leaves, grad_norm,
                              _paths(params))
             state["step"] += 1
-        metrics = {"loss": loss.detach(), "n_tokens": aux["n_tokens"],
-                   "grad_norm": grad_norm}
-        return state, metrics
+        return state, _metrics(loss, aux, grad_norm)
 
     return TrainStepBundle(config=config, mesh=None, rules=rules,
                            init_fn=init_fn, step_fn=step_fn,
@@ -367,6 +370,15 @@ def make_train_step(config: TransformerConfig, mesh=None, rules=None,
                            shard_weight_update=shard_weight_update,
                            telemetry_interval_s=telemetry_interval_s,
                            device=dev)
+
+
+def _metrics(loss, aux: Dict, grad_norm) -> Dict:
+    out = {"loss": loss.detach(), "n_tokens": aux["n_tokens"],
+           "grad_norm": grad_norm}
+    for k in ("moe_aux", "moe_dropped"):
+        if k in aux:
+            out[k] = aux[k]
+    return out
 
 
 def _flat_chunk(x: torch.Tensor, group, block: int) -> torch.Tensor:
@@ -460,9 +472,7 @@ def _sharded_train_step(config, mesh, rules, optimizer, grad_transport,
                 optimizer.update(grads, state["opt_state"], leaves,
                                  grad_norm, paths)
             state["step"] += 1
-        metrics = {"loss": loss.detach(), "n_tokens": aux["n_tokens"],
-                   "grad_norm": grad_norm}
-        return state, metrics
+        return state, _metrics(loss, aux, grad_norm)
 
     return TrainStepBundle(
         config=config, mesh=mesh, rules=rules, init_fn=init_fn,

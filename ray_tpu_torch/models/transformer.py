@@ -9,6 +9,10 @@ Two block styles behind one config:
 - ``"llama"``: sequential pre-RMSNorm blocks, SwiGLU MLP, full-dim neox
   rotary, optional GQA (``n_kv_heads < n_heads``).
 
+With ``n_experts > 0`` every layer's MLP is a mixture of experts
+(``models/moe.py``: Switch top-1 routing with a capacity), and the LM
+loss adds ``moe_aux_weight`` times the load-balancing term.
+
 Parameters are a plain dict with the JAX package's tree and names;
 per-layer weights stay stacked on a leading ``[n_layers, ...]`` axis and
 each forward pass unbinds them once into per-layer views (so the
@@ -25,8 +29,9 @@ single-token :func:`decode_step`, with attention through
 
 Training: :func:`hidden_states` / :func:`apply` / :func:`lm_loss` over
 :func:`run_layers`, with causal attention through
-``ops.multihead_attention`` (the flash kernels on the card) and the
-chunked fused LM-head loss. Rematerialization is a named policy
+``ops.multihead_attention`` (the flash kernels on the card; over a mesh
+with ``sp > 1`` the ring, ``ops.ring_attention``) and the chunked fused
+LM-head loss. Rematerialization is a named policy
 (:func:`remat_policy_fn`): ``"none"``, ``"full"`` (recompute each block
 in the backward) or ``"dots"`` (selective checkpointing that saves the
 matmul outputs and the flash op's output, and recomputes the rest).
@@ -43,12 +48,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ray_tpu_torch.models.moe import (moe_layer, moe_logical_axes,
+                                      moe_param_shapes)
 from ray_tpu_torch.ops import (apply_rotary, cross_entropy_loss,
                                fused_lm_head_loss, layer_norm,
                                multihead_attention, paged_attention,
-                               rms_norm, rotary_table)
-from ray_tpu_torch.parallel.collective import (_all_reduce, copy_to_region,
-                                               gather_shards, gather_slices,
+                               ring_attention, rms_norm, rotary_table)
+from ray_tpu_torch.parallel.collective import (_all_gather, _all_reduce,
+                                               copy_to_region, gather_shards,
+                                               gather_slices,
                                                reduce_from_region)
 from ray_tpu_torch.parallel.mesh import AXIS_ORDER, axis_group, axis_sizes
 from ray_tpu_torch.parallel.sharding import (FSDP_RULES, constrain,
@@ -101,11 +109,14 @@ class TransformerConfig:
 
     @property
     def num_params(self) -> int:
-        """Parameter count of a dense config."""
+        """Parameter count (for MFU accounting)."""
         e, v, h = self.d_model, self.vocab_size, self.n_heads * self.head_dim
         kvh = self.kv_heads * self.head_dim
         per_layer = e * h + 2 * e * kvh + h * e
-        if self.block_style == "llama":
+        if self.n_experts:
+            per_layer += e * self.n_experts \
+                + self.n_experts * 2 * e * self.d_ff + 2 * e
+        elif self.block_style == "llama":
             per_layer += 3 * e * self.d_ff + 2 * e
         else:
             per_layer += 2 * e * self.d_ff + self.d_ff + e + 2 * e
@@ -123,10 +134,13 @@ class TransformerConfig:
 
     @property
     def num_active_params(self) -> int:
-        """Params touched per token (dense configs: all of them)."""
+        """Params touched per token: with Switch top-1 routing only one
+        expert's MLP runs per token, so FLOPs count none of the rest."""
         if not self.n_experts:
             return self.num_params
-        raise NotImplementedError("the port does not run MoE configs yet")
+        inactive = self.n_layers * (self.n_experts - 1) \
+            * 2 * self.d_model * self.d_ff
+        return self.num_params - inactive
 
     def flops_per_token(self, seq_len: Optional[int] = None) -> float:
         """Approximate train FLOPs/token (6·N active params + attention),
@@ -157,8 +171,6 @@ def init_leaves(config: TransformerConfig, seed: int = 0, device=None,
     caller that keeps a slice of each leaf (the sharded init) frees the
     rest before the next is drawn, and holds the same numbers."""
     c = config
-    if c.n_experts:
-        raise NotImplementedError("the port does not run MoE configs yet")
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(int(seed))
@@ -181,7 +193,23 @@ def init_leaves(config: TransformerConfig, seed: int = 0, device=None,
     yield ("layers", "wk"), mat((L, e, kvh))
     yield ("layers", "wv"), mat((L, e, kvh))
     yield ("layers", "wo"), mat((L, h, e), out_scale)
-    if c.block_style == "llama":
+    if c.n_experts:             # JAX's sorted order of the MoE leaves
+        for name, shape in sorted(moe_param_shapes(c).items()):
+            yield ("layers", name), mat(
+                (L,) + shape, out_scale if name == "moe_wo" else 0.02)
+        if c.block_style == "llama":
+            yield ("layers", "attn_norm"), ones(L, e)
+            yield ("layers", "mlp_norm"), ones(L, e)
+            yield ("final_norm", "scale"), ones(e)
+            yield ("lm_head", "w"), mat((e, c.vocab_size))
+        else:
+            yield ("layers", "ln_scale"), ones(L, e)
+            yield ("layers", "ln_bias"), zeros(L, e)
+            yield ("final_norm", "scale"), ones(e)
+            yield ("final_norm", "bias"), zeros(e)
+            yield ("lm_head", "w"), mat((e, c.vocab_size))
+            yield ("lm_head", "b"), zeros(c.vocab_size)
+    elif c.block_style == "llama":
         yield ("layers", "w_gate"), mat((L, e, c.d_ff))
         yield ("layers", "w_up"), mat((L, e, c.d_ff))
         yield ("layers", "w_down"), mat((L, c.d_ff, e), out_scale)
@@ -235,18 +263,27 @@ def init_params(config: TransformerConfig, seed: int = 0,
 
 def logical_axes(config: TransformerConfig) -> Dict:
     """Tree (the params' structure) of logical-axis tuples, the JAX
-    package's ``logical_axes`` for the dense layouts."""
+    package's ``logical_axes``."""
     c = config
-    if c.n_experts:
-        raise NotImplementedError("the port does not run MoE configs yet "
-                                  "(ROADMAP Queue 1 item 8)")
     common = {
         "wq": ("layers", "embed", "heads"),
         "wk": ("layers", "embed", "kv"),
         "wv": ("layers", "embed", "kv"),
         "wo": ("layers", "heads", "embed"),
     }
-    if c.block_style == "llama":
+    if c.n_experts:
+        layers = {**common, **moe_logical_axes()}
+        if c.block_style == "llama":
+            layers.update({"attn_norm": ("layers", "embed"),
+                           "mlp_norm": ("layers", "embed")})
+            final = {"scale": ("embed",)}
+            head = {"w": ("embed", "vocab")}
+        else:
+            layers.update({"ln_scale": ("layers", "embed"),
+                           "ln_bias": ("layers", "embed")})
+            final = {"scale": ("embed",), "bias": ("embed",)}
+            head = {"w": ("embed", "vocab"), "b": ("vocab",)}
+    elif c.block_style == "llama":
         layers = {**common,
                   "w_gate": ("layers", "embed", "mlp"),
                   "w_up": ("layers", "embed", "mlp"),
@@ -339,9 +376,12 @@ def remat_policy_fn(name: str):
 
 
 # --------------------------------------------------------------- forward
-def _attention(c: TransformerConfig, q, k, v):
-    """Causal attention through the ops layer's dispatcher (single
-    device: the JAX package's ring over a sequence axis is not ported)."""
+def _attention(c: TransformerConfig, q, k, v, seq=None):
+    """Dispatch causal attention: the ring over ``seq`` (a sequence
+    group of more than one rank), otherwise the ops layer's dispatcher
+    (the flash kernels on the card)."""
+    if seq is not None and seq.size > 1:
+        return ring_attention(q, k, v, seq, causal=True)
     return multihead_attention(q, k, v, causal=True, impl=c.attn_impl,
                                block_q=c.attn_block_q, block_k=c.attn_block_k)
 
@@ -364,9 +404,12 @@ def _attn_sublayer(c: TransformerConfig, h, lp, sin, cos, layout):
 
 def _gptj_block(c: TransformerConfig, x, lp, attn):
     """Parallel attention + MLP residual off one LayerNorm; ``attn(h,
-    lp)`` is the attention sublayer (training or paged serving)."""
+    lp)`` is the attention sublayer (training or paged serving). Returns
+    ``(x, moe)``, ``moe`` as :func:`_mlp_sublayer` gives it."""
     h = layer_norm(x, lp["ln_scale"], lp["ln_bias"])
-    return x + (attn(h, lp) + _mlp_sublayer(c, h, lp)).to(x.dtype)
+    att = attn(h, lp)
+    mlp, moe = _mlp_sublayer(c, h, lp)
+    return x + (att + mlp).to(x.dtype), moe
 
 
 def _llama_block(c: TransformerConfig, x, lp, attn):
@@ -374,7 +417,8 @@ def _llama_block(c: TransformerConfig, x, lp, attn):
     h = rms_norm(x, lp["attn_norm"])
     x = x + attn(h, lp).to(x.dtype)
     h2 = rms_norm(x, lp["mlp_norm"]).to(c.dtype)
-    return x + _mlp_sublayer(c, h2, lp).to(x.dtype)
+    mlp, moe = _mlp_sublayer(c, h2, lp)
+    return x + mlp.to(x.dtype), moe
 
 
 def _rotary(c: TransformerConfig, length: int, device):
@@ -386,9 +430,11 @@ def _rotary(c: TransformerConfig, length: int, device):
 
 
 def _run_blocks(c: TransformerConfig, layer_params: Dict, x: torch.Tensor,
-                body, after=None) -> torch.Tensor:
-    """``body(x, lp)`` for each layer of ``layer_params`` under the
-    config's remat policy (``after(x)`` once a block is done)."""
+                body, after=None):
+    """``body(x, lp) -> (x, moe)`` for each layer of ``layer_params``
+    under the config's remat policy (``after(x)`` once a block is done).
+    Returns ``x`` and the layers' ``moe`` terms (None for dense
+    blocks)."""
     policy = c.resolved_remat_policy
     kwargs = {}
     if policy != "none":
@@ -396,15 +442,34 @@ def _run_blocks(c: TransformerConfig, layer_params: Dict, x: torch.Tensor,
         if fn is not None:
             kwargs["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts, fn)
+    terms = []
     for lp in _unbind_layers(layer_params):
         if policy == "none":
-            x = body(x, lp)
+            x, moe = body(x, lp)
         else:
-            x = checkpoint(body, x, lp, use_reentrant=False,
-                           preserve_rng_state=False, **kwargs)
+            x, moe = checkpoint(body, x, lp, use_reentrant=False,
+                                preserve_rng_state=False, **kwargs)
+        terms.append(moe)
         if after is not None:
             after(x)
-    return x
+    return x, terms
+
+
+def _moe_totals(terms):
+    """The MoE terms of a stack of blocks: ``(aux, stats)``, the aux terms
+    summed over the layers and the ``[n_layers, 2]`` stats (each layer's
+    whole aux value and dropped share); ``(0.0, None)`` for dense
+    blocks."""
+    if not terms or terms[0] is None:
+        return 0.0, None
+    return sum(a for a, _ in terms), torch.stack([st for _, st in terms])
+
+
+def _moe_report(aux: Dict, stats) -> None:
+    """``aux["moe_aux"]`` (the whole term, summed over the layers) and
+    ``aux["moe_dropped"]`` (each layer's share of dropped tokens)."""
+    aux["moe_aux"] = stats[:, 0].sum()
+    aux["moe_dropped"] = stats[:, 1]
 
 
 def run_layers(config: TransformerConfig, layer_params: Dict,
@@ -417,67 +482,86 @@ def run_layers(config: TransformerConfig, layer_params: Dict,
     ``FSDP_RULES``) ``layer_params`` are this rank's shards and ``x`` its
     rows (see :func:`model_layout`)."""
     c = config
-    if c.n_experts:
-        raise NotImplementedError("the port does not run MoE configs yet")
     if mesh is not None:
         lay = model_layout(c, mesh, rules)
         layers = gather_params(c, layer_params, lay.specs["layers"], lay)
-        return _run_layers_sharded(c, layers, x, lay), 0.0
+        x, terms = _run_layers_sharded(c, layers, x, lay)
+    else:
+        x, terms = _run_layers(c, layer_params, x)
+    return x, _moe_totals(terms)[0]
+
+
+def _run_layers(c: TransformerConfig, layer_params: Dict, x: torch.Tensor):
     sin, cos, layout = _rotary(c, x.shape[1], x.device)
     block = _gptj_block if c.block_style == "gptj" else _llama_block
     attn = functools.partial(_attn_sublayer, c, sin=sin, cos=cos,
                              layout=layout)
     return _run_blocks(c, layer_params, x,
-                       functools.partial(block, c, attn=attn)), 0.0
+                       functools.partial(block, c, attn=attn))
+
+
+def _trunk(c: TransformerConfig, params: Dict, input_ids: torch.Tensor):
+    """Embed -> blocks -> final norm on one device: the hidden states and
+    the layers' MoE terms."""
+    x = F.embedding(input_ids.long(), params["embed"]).to(c.dtype)
+    x, terms = _run_layers(c, params["layers"], x)
+    return _final_norm(c, params, x), terms
 
 
 def hidden_states(config: TransformerConfig, params: Dict,
                   input_ids: torch.Tensor, mesh=None, rules=None):
     """Embed -> blocks -> final norm: (b, s) ids -> ((b, s, e), moe_aux),
     the trunk under both :func:`apply` and :func:`lm_loss` (under
-    ``mesh``: this rank's shards and rows)."""
+    ``mesh``: this rank's shards, rows and sequence chunk, and its share
+    of ``moe_aux``, whose sum over the data axes is the term)."""
     c = config
     if mesh is not None:
         lay = model_layout(c, mesh, rules)
-        return _trunk_sharded(c, gather_params(c, params, lay.specs, lay),
-                              input_ids, lay), 0.0
-    x = F.embedding(input_ids.long(), params["embed"]).to(c.dtype)
-    x, moe_aux = run_layers(c, params["layers"], x)
-    return _final_norm(c, params, x), moe_aux
+        x, terms = _trunk_sharded(c, gather_params(c, params, lay.specs,
+                                                   lay), input_ids, lay)
+    else:
+        x, terms = _trunk(c, params, input_ids)
+    return x, _moe_totals(terms)[0]
 
 
 def apply(config: TransformerConfig, params: Dict, input_ids: torch.Tensor,
           mesh=None, rules=None, return_moe_aux: bool = False):
     """Forward pass: (batch, seq) ids -> (batch, seq, vocab) logits in
     the compute dtype; with ``return_moe_aux`` also the MoE aux loss (0.0
-    for dense configs). Under ``mesh``: this rank's rows' logits over the
-    whole vocabulary (gathered over the vocab axis)."""
+    for dense configs). Under ``mesh``: this rank's rows' (and sequence
+    chunk's) logits over the whole vocabulary (gathered over the vocab
+    axis), and this rank's share of the aux loss."""
     c = config
     if mesh is not None:
         lay = model_layout(c, mesh, rules)
         g = gather_params(c, params, lay.specs, lay)
-        x = copy_to_region(_trunk_sharded(c, g, input_ids, lay), lay.vocab)
+        x, terms = _trunk_sharded(c, g, input_ids, lay)
+        x = copy_to_region(x, lay.vocab)
         logits = gather_slices(_lm_head(c, g, x), 2, lay.vocab)
-        return (logits, 0.0) if return_moe_aux else logits
-    x, moe_aux = hidden_states(c, params, input_ids)
-    logits = _lm_head(c, params, x)
-    return (logits, moe_aux) if return_moe_aux else logits
+    else:
+        x, terms = _trunk(c, params, input_ids)
+        logits = _lm_head(c, params, x)
+    return (logits, _moe_totals(terms)[0]) if return_moe_aux else logits
 
 
 def lm_loss(config: TransformerConfig, params: Dict, batch: Dict,
             mesh=None, rules=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token LM loss. ``batch``: ``{"input_ids": (b, s), "loss_mask":
-    optional (b, s)}``. Returns ``(loss, {"n_tokens": n})``. With
-    ``config.ce_chunk_size > 0`` (default) the LM-head projection is fused
-    into the chunked cross entropy; ``0`` materializes the logits.
+    optional (b, s)}``. Returns ``(loss, aux)`` with ``aux["n_tokens"]``;
+    an MoE config adds ``moe_aux_weight`` times the Switch aux term (summed
+    over the layers) to the loss and reports it as ``aux["moe_aux"]``,
+    with each layer's share of tokens dropped for capacity as
+    ``aux["moe_dropped"]``. With ``config.ce_chunk_size > 0`` (default)
+    the LM-head projection is fused into the chunked cross entropy; ``0``
+    materializes the logits.
 
     Under ``mesh`` ``params`` are this rank's shards and ``batch`` its
-    rows; the loss is the mean over every rank's unmasked tokens (each
-    rank's masked sum over the global count, summed over the data axes,
-    never a mean of per-rank means), the same on every rank. Gradients
-    of sharded leaves come back reduce-scattered; those of leaves
-    replicated over a data axis are this rank's share, which the train
-    step sums."""
+    rows (and, over ``sp``, its sequence chunk); the loss is the mean
+    over every rank's unmasked tokens (each rank's masked sum over the
+    global count, summed over the data axes, never a mean of per-rank
+    means), the same on every rank. Gradients of sharded leaves come back
+    reduce-scattered; those of leaves replicated over a data axis are
+    this rank's share, which the train step sums."""
     if mesh is not None:
         lay = model_layout(config, mesh, rules)
         return lm_loss_sharded(config, params, batch, lay)
@@ -486,16 +570,21 @@ def lm_loss(config: TransformerConfig, params: Dict, batch: Dict,
     labels = ids[:, 1:]
     mask = batch.get("loss_mask")
     mask = mask[:, 1:] if mask is not None else None
+    x, terms = _trunk(c, params, ids)
     if c.ce_chunk_size:
-        x, _ = hidden_states(c, params, ids)
         head = params["lm_head"]
         loss, n = fused_lm_head_loss(
             x.to(c.dtype)[:, :-1], head["w"], labels,
             head_bias=head.get("b"), mask=mask, chunk_size=c.ce_chunk_size)
     else:
-        logits = apply(c, params, ids)
+        logits = _lm_head(c, params, x)
         loss, n = cross_entropy_loss(logits[:, :-1], labels, mask=mask)
-    return loss, {"n_tokens": n}
+    aux = {"n_tokens": n}
+    if c.n_experts:
+        moe_aux, stats = _moe_totals(terms)
+        loss = loss + c.moe_aux_weight * moe_aux
+        _moe_report(aux, stats)
+    return loss, aux
 
 
 # ------------------------------------------------------- sharded forward
@@ -507,6 +596,10 @@ def lm_loss(config: TransformerConfig, params: Dict, batch: Dict,
 # partial sums are all-reduced, the Megatron layout that JAX's constraint
 # of each block's output to ("batch", "sequence", None) implies);
 # "vocab" splits the embedding and the LM head (vocab-parallel).
+# "sequence" (sp) splits each row's positions in contiguous chunks:
+# rotary positions are global, attention is the ring over sp, and sp is
+# a data axis for the loss and the gradients. "expert" (ep) splits the
+# MoE experts; the tokens are not split over it (models/moe.py).
 
 @dataclasses.dataclass
 class ModelLayout:
@@ -518,7 +611,9 @@ class ModelLayout:
     heads: Any                  # AxisGroup heads and MLP are split over
     vocab: Any                  # AxisGroup the vocabulary is split over
     kv_split: bool              # k/v heads split as well (rules' "kv")
-    data: Any                   # AxisGroup of the batch axes
+    data: Any                   # AxisGroup of the batch and sequence axes
+    seq: Any                    # AxisGroup the sequence is split over
+    experts: Any                # AxisGroup the MoE experts are split over
     transport: Any              # collective.GradTransport of the gathers
 
 
@@ -535,20 +630,12 @@ def model_layout(config: TransformerConfig, mesh, rules=None,
     """Check that ``config`` can run on ``mesh`` under ``rules`` (default
     ``FSDP_RULES``) and say how: "embed" may map only to batch axes (its
     shards are gathered), "heads" and "mlp" to one axis together, "kv"
-    and "vocab" to that axis or None; ``sp``, ``ep`` and ``pp`` must be 1
-    (ring attention and MoE are ROADMAP Queue 1 item 8, pipelines item
-    9); heads, kv heads, d_ff and vocab must divide."""
+    and "vocab" to that axis or None, "sequence" and "expert" to one axis
+    each outside those; ``pp`` must be 1 (pipelines are ROADMAP Queue 1
+    item 9); heads, kv heads, d_ff, vocab and experts must divide."""
     from ray_tpu_torch.parallel.collective import FP32
     rules = FSDP_RULES if rules is None else rules
     sizes = axis_sizes(mesh)          # raises TypeError for a JAX Mesh
-    if sizes["sp"] > 1:
-        raise NotImplementedError(
-            "sp > 1 needs ring attention over the sp axis (ROADMAP Queue 1 "
-            "item 8), not ported yet")
-    if sizes["ep"] > 1 or config.n_experts:
-        raise NotImplementedError(
-            "expert parallelism and MoE configs are ROADMAP Queue 1 item 8, "
-            "not ported yet")
     if sizes["pp"] > 1:
         raise NotImplementedError(
             "pipeline parallelism is ROADMAP Queue 1 item 9, not ported yet")
@@ -569,17 +656,29 @@ def model_layout(config: TransformerConfig, mesh, rules=None,
     if kv not in (None, split) or vocab not in (None, split):
         raise NotImplementedError(
             f"'kv' and 'vocab' map to None or to {split!r}")
+    seq, expert = _one_axis(rules, "sequence"), _one_axis(rules, "expert")
+    if {seq, expert} & (batch | {split}) - {None} or \
+            (seq is not None and seq == expert):
+        raise NotImplementedError(
+            f"'sequence' ({seq!r}) and 'expert' ({expert!r}) map to axes "
+            f"of their own, not the batch's or the heads'")
     heads_g = axis_group(mesh, split)
     for what, n in (("n_heads", config.n_heads), ("d_ff", config.d_ff)) + \
             ((("n_kv_heads", config.kv_heads),) if kv else ()):
         if n % heads_g.size:
             raise ValueError(f"{what} {n} not divisible by {split}="
                              f"{heads_g.size}")
+    experts_g = axis_group(mesh, expert)
+    if config.n_experts % experts_g.size:
+        raise ValueError(f"n_experts {config.n_experts} not divisible by "
+                         f"{expert}={experts_g.size}")
     return ModelLayout(mesh=mesh, rules=rules,
                        specs=param_specs(logical_axes(config), rules),
                        storage=storage, heads=heads_g,
                        vocab=axis_group(mesh, vocab), kv_split=bool(kv),
-                       data=axis_group(mesh, rules.get("batch")),
+                       data=axis_group(mesh, tuple(batch) + (
+                           (seq,) if seq else ())),
+                       seq=axis_group(mesh, seq), experts=experts_g,
                        transport=FP32 if transport is None else transport)
 
 
@@ -658,7 +757,7 @@ def _attn_part(c: TransformerConfig, h, lp, sin, cos, layout,
     q = apply_rotary((hd @ lp["wq"].to(dt)).view(b, s, hl, c.head_dim),
                      sin, cos, layout=layout)
     k, v = _local_kv(c, hd, lp, lay, hl, sin, cos, layout)
-    att = _attention(c, q, k, v)
+    att = _attention(c, q, k, v, lay.seq)
     return att.reshape(b, s, hl * c.head_dim) @ lp["wo"].to(dt)
 
 
@@ -677,12 +776,19 @@ def _gptj_block_sharded(c: TransformerConfig, x, lp, sin, cos, layout,
                         lay: ModelLayout):
     """The GPT-J block with heads and MLP split: one all-reduce sums the
     attention and MLP shares, and the output bias is added once after
-    it."""
-    h = copy_to_region(layer_norm(x, lp["ln_scale"], lp["ln_bias"]),
-                       lay.heads)
-    part = _attn_part(c, h, lp, sin, cos, layout, lay) + _mlp_part(c, h, lp)
+    it. An MoE MLP routes on the normed input itself (whole on every
+    rank) and its share, summed over the experts, joins the attention's
+    before the all-reduce."""
+    ln = layer_norm(x, lp["ln_scale"], lp["ln_bias"])
+    h = copy_to_region(ln, lay.heads)
+    part = _attn_part(c, h, lp, sin, cos, layout, lay)
+    if c.n_experts:
+        mlp, aux, stats = moe_layer(c, lp, ln, lay, h)
+        out = reduce_from_region(part + mlp, lay.heads)
+        return x + out.to(x.dtype), (aux, stats)
+    part = part + _mlp_part(c, h, lp)
     out = reduce_from_region(part, lay.heads) + lp["fc_out_b"].to(c.dtype)
-    return x + out.to(x.dtype)
+    return x + out.to(x.dtype), None
 
 
 def _llama_block_sharded(c: TransformerConfig, x, lp, sin, cos, layout,
@@ -690,13 +796,22 @@ def _llama_block_sharded(c: TransformerConfig, x, lp, sin, cos, layout,
     h = copy_to_region(rms_norm(x, lp["attn_norm"]), lay.heads)
     x = x + reduce_from_region(_attn_part(c, h, lp, sin, cos, layout, lay),
                                lay.heads).to(x.dtype)
-    h2 = copy_to_region(rms_norm(x, lp["mlp_norm"]).to(c.dtype), lay.heads)
+    ln2 = rms_norm(x, lp["mlp_norm"]).to(c.dtype)
+    h2 = copy_to_region(ln2, lay.heads)
+    if c.n_experts:
+        mlp, aux, stats = moe_layer(c, lp, ln2, lay, h2)
+        return x + reduce_from_region(mlp, lay.heads).to(x.dtype), \
+            (aux, stats)
     return x + reduce_from_region(_mlp_part(c, h2, lp),
-                                  lay.heads).to(x.dtype)
+                                  lay.heads).to(x.dtype), None
 
 
 def _run_layers_sharded(c: TransformerConfig, layers: Dict, x, lay):
-    sin, cos, layout = _rotary(c, x.shape[1], x.device)
+    s = x.shape[1]
+    sin, cos, layout = _rotary(c, s * lay.seq.size, x.device)
+    if lay.seq.size > 1:         # this chunk's global positions
+        sin = sin.narrow(0, lay.seq.rank * s, s)
+        cos = cos.narrow(0, lay.seq.rank * s, s)
     block = _gptj_block_sharded if c.block_style == "gptj" \
         else _llama_block_sharded
     body = functools.partial(block, c, sin=sin, cos=cos, layout=layout,
@@ -718,39 +833,70 @@ def _embed_sharded(c: TransformerConfig, embed, ids, lay: ModelLayout):
 
 
 def _trunk_sharded(c: TransformerConfig, g: Dict, ids, lay: ModelLayout):
-    """Embed -> blocks -> final norm over gathered params ``g``."""
+    """Embed -> blocks -> final norm over gathered params ``g``: the
+    hidden states and the layers' MoE terms."""
     x = _embed_sharded(c, g["embed"], ids, lay)
-    x = _run_layers_sharded(c, g["layers"], x, lay)
-    return _final_norm(c, g, x)
+    x, terms = _run_layers_sharded(c, g["layers"], x, lay)
+    return _final_norm(c, g, x), terms
+
+
+def _chunk_labels(ids, mask, seq):
+    """Labels and their mask for every position of this rank's chunk of
+    sequences split over ``seq``: the next token, the chunk's last
+    position taking the next chunk's first; the last global position
+    has none (mask 0)."""
+    if mask is None:
+        mask = torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+    firsts = _all_gather(ids[:, :1].contiguous(), seq)[:, :, 0]
+    valid = _all_gather(mask[:, :1].float().contiguous(), seq)[:, :, 0]
+    nxt = seq.rank + 1
+    if nxt < seq.size:
+        return (torch.cat([ids[:, 1:], firsts[nxt][:, None]], 1),
+                torch.cat([mask[:, 1:].float(), valid[nxt][:, None]], 1))
+    return (torch.cat([ids[:, 1:], torch.zeros_like(ids[:, :1])], 1),
+            torch.cat([mask[:, 1:].float(),
+                       torch.zeros_like(valid[0][:, None])], 1))
 
 
 def lm_loss_sharded(c: TransformerConfig, params: Dict, batch: Dict,
                     lay: ModelLayout) -> Tuple[torch.Tensor, Dict]:
     """:func:`lm_loss` under ``lay``: ``params`` this rank's shards,
-    ``batch`` its rows. The train step calls it with its own gradient
-    transport in ``lay``."""
+    ``batch`` its rows (and sequence chunk). The train step calls it with
+    its own gradient transport in ``lay``. Over ``sp`` the logits are
+    materialized, as the JAX package does for a sharded sequence."""
     ids = batch["input_ids"]
-    labels = ids[:, 1:]
     mask = batch.get("loss_mask")
-    mask = mask[:, 1:] if mask is not None else None
+    seq_split = lay.seq.size > 1
+    if seq_split:
+        labels, mask = _chunk_labels(ids, mask, lay.seq)
+    else:
+        labels = ids[:, 1:]
+        mask = mask[:, 1:] if mask is not None else None
     # the global batch's mean: each rank divides its masked sum by the
     # count over every data rank, and the losses are summed over them
     local_n = mask.float().sum() if mask is not None else torch.tensor(
         float(labels.numel()), device=ids.device)
     n = _all_reduce(local_n.reshape(1).clone(), lay.data)[0].clamp_min(1.0)
     g = gather_params(c, params, lay.specs, lay)
-    x = copy_to_region(_trunk_sharded(c, g, ids, lay), lay.vocab)
+    x, terms = _trunk_sharded(c, g, ids, lay)
+    x = copy_to_region(x, lay.vocab)
     head = g["lm_head"]
-    if c.ce_chunk_size:
+    if c.ce_chunk_size and not seq_split:
         loss, _ = fused_lm_head_loss(
             x.to(c.dtype)[:, :-1], head["w"], labels,
             head_bias=head.get("b"), mask=mask, chunk_size=c.ce_chunk_size,
             tp_group=lay.vocab, normalizer=n)
     else:
         logits = gather_slices(_lm_head(c, g, x), 2, lay.vocab)
-        loss, _ = cross_entropy_loss(logits[:, :-1], labels, mask=mask,
-                                     normalizer=n)
-    return reduce_from_region(loss, lay.data), {"n_tokens": n}
+        loss, _ = cross_entropy_loss(
+            logits if seq_split else logits[:, :-1], labels, mask=mask,
+            normalizer=n)
+    aux = {"n_tokens": n}
+    if c.n_experts:
+        moe_aux, stats = _moe_totals(terms)
+        loss = loss + c.moe_aux_weight * moe_aux
+        _moe_report(aux, stats)
+    return reduce_from_region(loss, lay.data), aux
 
 
 # ------------------------------------------------------- inference (KV)
@@ -768,17 +914,22 @@ def init_kv_cache(config: TransformerConfig, num_blocks: int,
 
 
 def _mlp_sublayer(c: TransformerConfig, h: torch.Tensor, lp: Dict):
-    """Dense MLP on normed input h, matrices cast to the compute dtype at
-    use. GPT-J's GELU is the tanh approximation, which is
+    """Dense or MoE MLP on normed input h, matrices cast to the compute
+    dtype at use: ``(out, moe)``, ``moe`` None for a dense MLP and
+    ``(aux, stats)`` of :func:`~ray_tpu_torch.models.moe.moe_layer` for
+    an MoE one. GPT-J's GELU is the tanh approximation, which is
     ``jax.nn.gelu``'s default."""
     dt = c.dtype
+    if c.n_experts:
+        out, aux, stats = moe_layer(c, lp, h.to(dt))
+        return out, (aux, stats)
     if c.block_style == "llama":
         gate = F.silu(h @ lp["w_gate"].to(dt))
         up = h @ lp["w_up"].to(dt)
-        return (gate * up) @ lp["w_down"].to(dt)
+        return (gate * up) @ lp["w_down"].to(dt), None
     mlp = h.to(dt) @ lp["fc_in"].to(dt) + lp["fc_in_b"].to(dt)
     mlp = F.gelu(mlp, approximate="tanh")
-    return mlp @ lp["fc_out"].to(dt) + lp["fc_out_b"].to(dt)
+    return mlp @ lp["fc_out"].to(dt) + lp["fc_out_b"].to(dt), None
 
 
 def _project_qkv(c: TransformerConfig, h: torch.Tensor, lp: Dict):
@@ -851,7 +1002,7 @@ def _forward_with_cache(c: TransformerConfig, params: Dict,
     token ids at absolute ``positions`` -> (B, C, vocab) logits, writing
     each layer's k/v into the paged cache as it goes. ``lens`` (B,) is
     each sequence's live token count including this call's writes."""
-    if c.n_experts:
+    if c.n_experts:       # as the JAX package's paged path
         raise NotImplementedError(
             "paged decode does not support MoE configs yet")
     bs = cache["k"].shape[2]
@@ -874,7 +1025,7 @@ def _forward_with_cache(c: TransformerConfig, params: Dict,
             kc=cache["k"][li], vc=cache["v"][li], block_tables=block_tables,
             positions=positions, rot_positions=rot_positions, plan=plan,
             lens=lens)
-        x = block(c, x, lp, attn)
+        x, _ = block(c, x, lp, attn)
 
     return _lm_head(c, params, _final_norm(c, params, x))
 

@@ -1,5 +1,6 @@
 """Numerical ops of the port: norms, rotary, attention (paged and flash,
-each with its hand-written kernels) and the LM cross entropy."""
+each with its hand-written kernels; ring attention over a sequence
+group) and the LM cross entropy."""
 
 from ray_tpu_torch.ops.attention import (attention_reference,
                                          multihead_attention,
@@ -15,6 +16,7 @@ from ray_tpu_torch.ops.paged_flash import (default_paged_block_r,
                                            paged_flash_attention,
                                            paged_flash_attention_plain,
                                            paged_work_pages)
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.ops.rotary import apply_rotary, rotary_table
 
 __all__ = [
@@ -23,6 +25,6 @@ __all__ = [
     "flash_delta", "flash_dkdv", "flash_dq", "flash_fwd",
     "fused_lm_head_loss", "layer_norm", "multihead_attention",
     "paged_attention", "paged_flash_attention",
-    "paged_flash_attention_plain", "paged_work_pages", "rms_norm",
-    "rotary_table",
+    "paged_flash_attention_plain", "paged_work_pages", "ring_attention",
+    "rms_norm", "rotary_table",
 ]

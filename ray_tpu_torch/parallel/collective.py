@@ -31,7 +31,8 @@ With deterministic rounding it gives the JAX function's numbers.
 
 Autograd-aware ops for the model (:func:`copy_to_region`,
 :func:`reduce_from_region`, :func:`gather_shards`,
-:func:`gather_slices`) take an :class:`~ray_tpu_torch.parallel.mesh.
+:func:`gather_slices`, and :func:`ppermute`, the ring attention's
+neighbour exchange) take an :class:`~ray_tpu_torch.parallel.mesh.
 AxisGroup`; a group of one rank makes each of them the identity.
 """
 
@@ -181,6 +182,35 @@ def _broadcast(t: torch.Tensor, src: int, group: AxisGroup) -> torch.Tensor:
                                                 group=group.pg),
          t, pg=group.pg)
     return t
+
+
+def _ppermute(t: torch.Tensor, group: AxisGroup,
+              perm: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
+    """This rank's result of ``jax.lax.ppermute``: ``t`` goes to the group
+    rank that a ``(src, dst)`` pair of ``perm`` names for this rank, and
+    what the pair naming this rank as ``dst`` sends arrives (zeros where
+    none does). The send and the receive are posted together
+    (``batch_isend_irecv``), so neither waits for the other; on a gloo
+    group a CUDA tensor crosses a host buffer (:func:`_via_host`)."""
+    dst = [d for s, d in perm if s == group.rank]
+    src = [s for s, d in perm if d == group.rank]
+    if dst == [group.rank]:
+        return t.clone()
+    t = t.contiguous()
+    out = torch.empty_like(t) if src else torch.zeros_like(t)
+    if not dst and not src:
+        return out
+
+    def exchange(o, i):
+        ops = [dist.P2POp(dist.isend, i, dist.get_global_rank(
+                   group.pg, dst[0]), group.pg)] if dst else []
+        if src:
+            ops.append(dist.P2POp(dist.irecv, o, dist.get_global_rank(
+                group.pg, src[0]), group.pg))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    _run("ppermute", exchange, out, t, pg=group.pg)
+    return out
 
 
 # ------------------------------------------------ int8 quantized reduction
@@ -379,6 +409,33 @@ class _GatherSlices(torch.autograd.Function):
     def backward(ctx, g):
         return (g.narrow(ctx.dim, ctx.group.rank * ctx.n, ctx.n)
                 .contiguous(), None, None)
+
+
+class _PPermute(torch.autograd.Function):
+    """:func:`_ppermute` forward, the inverse permutation backward: each
+    rank's gradient goes back to the rank its input came from."""
+
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _ppermute(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _ppermute(g, ctx.group, inverse), None, None
+
+
+def ppermute(x: torch.Tensor, group: AxisGroup, perm) -> torch.Tensor:
+    """The counterpart of ``jax.lax.ppermute`` over ``group``: ``perm``
+    lists ``(src, dst)`` pairs of group ranks (each rank at most once as
+    a source and once as a destination); a rank that no pair sends to
+    gets zeros. Differentiable: the backward applies the inverse
+    permutation, so reverse-mode through a ring runs the reverse ring."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if group.size == 1:
+        return x if (0, 0) in perm else torch.zeros_like(x)
+    return _PPermute.apply(x, group, perm)
 
 
 def copy_to_region(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:

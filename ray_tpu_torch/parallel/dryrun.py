@@ -12,9 +12,13 @@ runtime's generic actor call. The same helpers start the card's ranks
 
 :func:`dryrun_multichip` builds the mesh :func:`factor_mesh` gives, runs
 one step of ``make_train_step`` at ``gptj-tiny`` over it on every rank
-and checks the loss and the step count. A mesh with ``sp > 1`` (n >= 8)
-raises: ring attention over ``sp`` is ROADMAP Queue 1 item 8, and the
-JAX dry run's MoE (``ep``) and pipeline (``pp``) part, items 8 and 9.
+(at n >= 8 the mesh has ``sp = 2``: the ring) and checks the loss and
+the step count. At n >= 8 it then runs the JAX dry run's ep part
+(``_dryrun_ep_pp``): one step of ``moe-tiny`` with its experts sharded on
+``dp 2 x ep 2 x tp 2``. Its pp part (the GPipe ``pipeline_apply``) is
+ROADMAP Queue 1 item 9: there :func:`dryrun_multichip` raises
+:class:`DryRunIncomplete`, which carries the losses of the parts that
+ran.
 """
 
 from __future__ import annotations
@@ -25,6 +29,15 @@ from typing import Any, List
 from ray_tpu_torch.parallel.mesh import MeshSpec
 
 RANK_TIMEOUT_S = 600.0
+
+
+class DryRunIncomplete(NotImplementedError):
+    """The dry run reached a part the port does not have yet; ``results``
+    holds each finished part's per-rank losses."""
+
+    def __init__(self, message: str, results: dict):
+        super().__init__(message)
+        self.results = results
 
 
 def factor_mesh(n: int) -> MeshSpec:
@@ -84,44 +97,49 @@ def stop_ranks(actors: List[Any]) -> None:
         ray_tpu_torch.kill(a)
 
 
-def _dryrun_body(rank, n_devices: int) -> float:
-    """One rank of the dry run: returns the step's loss."""
+def _one_step(spec, name: str, batch_size: int, seed: int) -> float:
+    """One ``make_train_step`` step of ``name`` over ``spec`` on this
+    rank (the CPU); returns its loss, checked positive."""
     import numpy as np
 
     from ray_tpu_torch.models import get_config, make_train_step
     from ray_tpu_torch.parallel.mesh import build_mesh
     from ray_tpu_torch.parallel.sharding import FSDP_RULES
 
-    spec = factor_mesh(n_devices)
-    if spec.sp > 1:
-        raise NotImplementedError(
-            f"the dry run's mesh {spec} has sp > 1: ring attention over "
-            f"sp is ROADMAP Queue 1 item 8, not ported yet")
     mesh = build_mesh(spec, device_type="cpu")
-    cfg = get_config("gptj-tiny")
+    cfg = get_config(name)
     bundle = make_train_step(cfg, mesh, rules=FSDP_RULES,
                              learning_rate=1e-3, device="cpu")
     state = bundle.init(seed=0)
-    batch_size = max(4, 2 * n_devices)
-    ids = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                            (batch_size, 32))
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                               (batch_size, 32))
     state, metrics = bundle.step(state, {"input_ids": ids})
     loss = float(metrics["loss"])
     if not loss > 0.0 or int(state["step"]) != 1:
-        raise RuntimeError(f"dry run step: loss {loss}, step "
-                           f"{int(state['step'])}")
+        raise RuntimeError(f"dry run step of {name} on {spec}: loss "
+                           f"{loss}, step {int(state['step'])}")
     return loss
+
+
+def _dryrun_body(rank, n_devices: int) -> float:
+    """One rank of the dry run: returns the step's loss."""
+    return _one_step(factor_mesh(n_devices), "gptj-tiny",
+                     max(4, 2 * n_devices), 1)
+
+
+def _dryrun_ep(rank) -> float:
+    """One rank of the dry run's ep part: expert parallelism, MoE MLPs
+    sharded on ep with Switch top-1 routing, over every rank (dp 2 x ep 2
+    x tp 2 at n = 8, JAX's mesh on its first eight devices)."""
+    return _one_step(MeshSpec(dp=-1, ep=2, tp=2), "moe-tiny", 4, 2)
 
 
 def dryrun_multichip(n_devices: int) -> List[float]:
     """Validate the full sharded train step on ``n_devices`` gloo ranks on
     the CPU; returns each rank's loss. Starts a runtime on the CPU
-    platform when none is running (and shuts it down after)."""
-    if factor_mesh(n_devices).sp > 1:
-        raise NotImplementedError(
-            "n_devices >= 8 gives sp > 1 (ring attention, ROADMAP Queue 1 "
-            "item 8) and the JAX dry run's ep/pp part (MoE and pipelines, "
-            "items 8 and 9), not ported yet")
+    platform when none is running (and shuts it down after). At
+    ``n_devices >= 8`` the ep part follows the body, then
+    :class:`DryRunIncomplete` names the pp part."""
     import ray_tpu_torch
     own = not ray_tpu_torch.is_initialized()
     platform = os.environ.get("RAY_TPU_TORCH_PLATFORM")
@@ -131,7 +149,10 @@ def dryrun_multichip(n_devices: int) -> List[float]:
     actors = []
     try:
         actors = start_ranks(n_devices, "gloo", group_name="dryrun")
-        return run_on_ranks(actors, _dryrun_body, n_devices)
+        body = run_on_ranks(actors, _dryrun_body, n_devices)
+        if n_devices < 8:
+            return body
+        ep = run_on_ranks(actors, _dryrun_ep)
     finally:
         stop_ranks(actors)
         if own:
@@ -140,3 +161,7 @@ def dryrun_multichip(n_devices: int) -> List[float]:
                 os.environ.pop("RAY_TPU_TORCH_PLATFORM", None)
             else:
                 os.environ["RAY_TPU_TORCH_PLATFORM"] = platform
+    raise DryRunIncomplete(
+        "the JAX dry run's pp part (the GPipe pipeline_apply over pp) is "
+        "ROADMAP Queue 1 item 9, not ported yet; the body and the ep part "
+        "passed", {"body": body, "ep": ep})

@@ -462,3 +462,55 @@ def test_sharding_phases_on_the_cpu(monkeypatch):
     assert p3["world_size"] == 1 and all(
         r["equal"] for r in p3.values() if isinstance(r, dict))
     assert len(failed) == 16 and all("launched" in f for f in failed), failed
+
+
+def test_moe_ring_phases_on_the_cpu(monkeypatch):
+    """M1-M3 at gptj-tiny width (the phases' depths; M1's model with 4
+    experts) on four gloo ranks on the CPU: M1's losses equal on every
+    rank and falling, the expert leaves split over ep and the rest
+    bit-identical within each ep pair, tokens dropped for capacity
+    reported equal on every rank; M2's ring exchanges as many and as
+    large as ``ring_step_bytes`` says, the flash wrappers never called;
+    M3's sharded gradients match one device's on both meshes and each
+    control does not. The flash wrappers launch nothing on the CPU, so
+    M1's launch checks (four kernels on four ranks) are the only ones
+    that fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    from ray_tpu_torch.models import get_config
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(chip_smoke, "shard_model",
+                        lambda n: dataclasses.replace(
+                            get_config("gptj-tiny"), n_layers=n,
+                            dtype=torch.bfloat16))
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        out = chip_smoke.moe_ring_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    m1, m2, m3 = out["M1"], out["M2"], out["M3"]
+    for rec in (m1, m2):
+        losses = [r["losses"] for r in rec["ranks"]]
+        assert all(row == losses[0] for row in losses)
+        assert losses[0][-1] < losses[0][0]
+        assert all(r["launches"] == dict.fromkeys(r["launches"], 0)
+                   for r in rec["ranks"])
+    assert m1["moe_wi_shard"] == [chip_smoke.M1_LAYERS, 2, 32, 256]
+    assert len(m1["dropped_share_by_layer"][0]) == chip_smoke.M1_LAYERS
+    want = m2["ring"]["bytes_per_exchange"]
+    assert want == 2 * 1 * 64 * 4 * 16 * 4
+    assert all(c == m2["ring"]["exchanges_per_step"] and b == c * want
+               for steps in m2["ring"]["by_rank_and_step"]
+               for c, b, _ in steps)
+    for name in ("ep", "sp"):
+        assert m3[name]["sharded"]["grad_rel_l2"] <= \
+            chip_smoke.M3_GRAD_REL_L2_BOUND
+        assert m3[name]["control"]["grad_rel_l2"] > \
+            chip_smoke.M3_GRAD_REL_L2_BOUND
+    assert len(failed) == 16 and all("launched" in f for f in failed), failed

@@ -97,8 +97,24 @@ def test_logical_axes_and_specs_match_jax(name):
 
 
 def test_moe_logical_axes_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        logical_axes(get_config("moe-tiny"))
+    """MoE configs have their logical axes now, JAX's (the experts split
+    over ep by both rule tables); what still raises for them is the paged
+    serving path, as the JAX package's does."""
+    from ray_tpu_torch.models import init_kv_cache, init_params, prefill
+    cfg = get_config("moe-tiny")
+    jaxes = jtf.logical_axes(jax_get_config("moe-tiny"))
+    assert logical_axes(cfg) == jaxes
+    for jr, tr in RULES.values():
+        for axes in jax.tree.leaves(jaxes, is_leaf=lambda x: isinstance(
+                x, tuple)):
+            assert tr.spec_for(axes) == tuple(jr.spec_for(axes))
+    assert tsh.FSDP_RULES.spec_for(jaxes["layers"]["moe_wi"]) == \
+        (None, "ep", "fsdp", "tp")
+    cache = init_kv_cache(cfg, 4, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        prefill(cfg, init_params(cfg, 0, "cpu"), torch.ones((1, 4),
+                dtype=torch.int32), cache, torch.tensor([[1]]),
+                torch.tensor([0]), torch.tensor([4]))
 
 
 @pytest.mark.parametrize("n,shards,block", [(1, 1, 256), (1000, 8, 16),

@@ -20,7 +20,7 @@ same mesh on four CPU devices. Tolerance 1e-5 (rtol and atol) for f32:
 - the sharded init is a slice of the one-device init, ``"dots"`` remat
   matches ``"none"`` through the collectives, ``apply`` and the eval
   step match one device, the dry-run twin passes at n = 4, and what is
-  not ported (``sp > 1``) or not the port's (a JAX ``Mesh``) raises.
+  not ported (``pp > 1``) or not the port's (a JAX ``Mesh``) raises.
 """
 
 import copy
@@ -58,8 +58,8 @@ INT8_BOUND = 1e-2
 def ranks():
     import ray_tpu_torch
     from ray_tpu_torch.parallel.dryrun import start_ranks, stop_ranks
-    # room for the dry run's own four ranks beside these
-    ray_tpu_torch.init(num_cpus=2 * W, _num_initial_workers=0)
+    # room for the dry run's own eight ranks beside these
+    ray_tpu_torch.init(num_cpus=W + 8, _num_initial_workers=0)
     actors = []
     try:
         actors = start_ranks(W, "gloo", group_name="train-tests")
@@ -298,7 +298,7 @@ def test_sharded_init_apply_remat_and_eval_match_one_device(ranks):
 def _refused_on_rank(rank):
     from ray_tpu_torch.models import get_config, make_train_step
     from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
-    mesh = build_mesh(MeshSpec(sp=2, tp=2), device_type="cpu")
+    mesh = build_mesh(MeshSpec(pp=2, tp=2), device_type="cpu")
     try:
         make_train_step(get_config("gptj-tiny"), mesh, device="cpu")
     except NotImplementedError as e:
@@ -307,8 +307,15 @@ def _refused_on_rank(rank):
 
 
 def test_what_is_not_ported_raises(ranks, cpu_mesh_devices):
+    """A ``pp`` axis over 1 and the dry run's pp part at 8 ranks (ROADMAP
+    Queue 1 item 9; the sequence and expert axes run since item 8, and
+    ``tests/test_torch_parallel_moe_sp.py`` holds the dry run's body and
+    ep part), and what is not the port's (a JAX ``Mesh``, the
+    communication knobs without a mesh)."""
     from ray_tpu_torch.parallel.dryrun import dryrun_multichip
-    assert all("item 8" in msg for msg in _run(ranks, _refused_on_rank))
+    assert all("item 9" in msg for msg in _run(ranks, _refused_on_rank))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        dryrun_multichip(8)
     cfg = get_config("gptj-tiny")
     jmesh = jbuild_mesh(JMeshSpec(dp=8), cpu_mesh_devices)
     with pytest.raises(TypeError, match="JAX Mesh"):
@@ -317,8 +324,6 @@ def test_what_is_not_ported_raises(ranks, cpu_mesh_devices):
         make_train_step(cfg, grad_transport="int8", device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         make_train_step(cfg, shard_weight_update=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dryrun_multichip(8)
 
 
 def test_dryrun_twin_passes_at_four_ranks(ranks):

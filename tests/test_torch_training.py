@@ -227,23 +227,22 @@ def test_flops_and_params_match_jax():
 
 
 def test_unported_paths_raise():
-    """What the port still refuses: MoE, the offload remat policy, an
-    unknown transport, a sequence axis over 1 (the dry run's mesh at 8
-    ranks) and a JAX ``Mesh`` (of any size). The sharded paths that
-    raised before (a mesh of several devices, int8 transport, the sharded
-    weight update) run now: ``tests/test_torch_parallel_training.py``
-    holds them against the JAX package, and holds the knobs without a
-    mesh to a ValueError."""
-    from ray_tpu_torch.parallel.dryrun import dryrun_multichip
+    """What the port still refuses: the offload remat policy, an unknown
+    transport and a JAX ``Mesh`` (of any size). The paths that raised
+    before run now: sharded steps, int8 transport and the sharded weight
+    update (``tests/test_torch_parallel_training.py``), MoE configs
+    (``tests/test_torch_moe.py``; here one step on one device) and the
+    sequence and expert axes, with the dry run at 8 ranks, which raises
+    only for its pipeline part (``tests/test_torch_parallel_moe_sp.py``).
+    """
     cfg = get_config("gptj-tiny")
-    with pytest.raises(NotImplementedError):
-        make_train_step(get_config("moe-tiny"), device="cpu")
+    moe = make_train_step(get_config("moe-tiny"), device="cpu")
+    _, m = moe.step(moe.init(0), {"input_ids": np.ones((2, 8), np.int32)})
+    assert np.isfinite(float(m["loss"])) and float(m["moe_aux"]) > 0
     with pytest.raises(NotImplementedError):
         make_train_step(cfg, remat_policy="offload", device="cpu")
     with pytest.raises(ValueError):
         make_train_step(cfg, grad_transport="fp8", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dryrun_multichip(8)
     for mesh in (build_mesh(MeshSpec(dp=8), jax.devices()[:8]),
                  build_mesh(MeshSpec(), jax.devices()[:1])):
         with pytest.raises(TypeError, match="JAX Mesh"):

@@ -126,5 +126,7 @@ def test_entry_points_need_cuda_unless_told_cpu():
     p = ttf.init_params(cfg, 0, device="cpu")
     assert p["layers"]["wq"].shape == (2, 64, 64)
     assert p["layers"]["ln_scale"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        ttf.init_params(treg.get_config("moe-tiny"), 0, device="cpu")
+    moe = ttf.init_params(treg.get_config("moe-tiny"), 0, device="cpu")
+    assert moe["layers"]["moe_wi"].shape == (2, 4, 64, 128)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttf.init_params(treg.get_config("moe-tiny"), 0)
