@@ -152,8 +152,9 @@ RL1. RLHF, anakin: ``RLHFTrainer`` with one local PPO learner and one
    round's ratio_mean is within 1e-2 of 1. After round 1's publish a
    probe prompt is served at version 1, its first token the argmax and
    its log-probability that of direct ``prefill`` logits of
-   ``unpack_weights(pack_weights(w))``, farther from version 0's. Paged launches 8 x the engine's prefill chunks and decode
-   steps, each flash kernel 8 x ``compute_gradients`` calls. Round,
+   ``unpack_weights(pack_weights(w))``, farther from version 0's. Paged
+   launches 8 x the engine's prefill chunks and decode steps, each flash
+   kernel 8 x ``compute_gradients`` calls. Round,
    rollout, update and publish walls, wire bytes, pack/unpack host time,
    peak memory.
 RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
@@ -210,10 +211,10 @@ P1. Sharding, on a runtime of its own: four rank actors (``num_gpus=
     0.25`` each, all on this card) joined into one gloo group through
     ``init_torch_distributed``, each building ``MeshSpec(fsdp=2, tp=2)``
     (``__graft_entry__._factor_mesh(4)``) and ``make_train_step`` at
-    GPT-J-6B width cut to 8 layers under ``FSDP_RULES``, remat
+    GPT-J-6B width cut to 4 layers under ``FSDP_RULES``, remat
     ``"dots"``, lr 1e-4, global batch 2 x 2048 (one row a data rank),
     one warm-up and 3 timed steps. Losses finite, equal on every rank and
-    falling; each rank launched each flash kernel 8 x steps (at 8 heads,
+    falling; each rank launched each flash kernel 4 x steps (at 8 heads,
     its tp half); each rank's shard shapes are ``FSDP_RULES``'; leaves
     replicated over tp bit-identical across each tp pair. Step wall,
     tokens/s, MFU, each rank's peak memory, and the wall split into
@@ -255,6 +256,33 @@ M3. Gradients against one device at 2 layers on M1's and M2's meshes,
     bounds, each mesh's control (the ep one sums the leaves ep does not
     split over ep as well, the sp one leaves out the sum over sp)
     outside them. The card's free memory comes back after M1-M3.
+PL1. Pipelines, on a runtime of their own: ``ParallelPlan(pp=2,
+    n_microbatches=4).build`` at GPT-J-6B width and 8 layers (two stage
+    actors of 4 layers sharing the card, ``num_gpus=0.5`` each; their
+    activations and gradients cross the object store), global batch 4 x
+    2048, one warm-up and 3 timed steps: step wall, tokens/s, MFU over one
+    card, the measured bubble beside the analytic 0.2, each stage's busy,
+    idle, forward, backward and optimizer seconds, the hops' bytes and
+    seconds, each stage's peak memory. Losses finite and falling, each
+    flash kernel launched 16 times a stage a step, and no gradient
+    reaching the driver (the bytes it takes a step).
+PL2. PL1 interleaved (``virtual=2``), 2 timed steps: the same checks,
+    the analytic bubble 1/9, the first loss equal to PL1's.
+PL3. At 2 layers, ``ParallelPlan(pp=2)``'s pipeline: its first step,
+    the optimizer off, against the one-device loss and gradients (P2's
+    bounds), a control seeding every microbatch's backward with 1
+    outside them (the gap of its gradients' norm to the one-device norm,
+    a lower bound of their distance, already passes the bound); then a
+    step, its checkpoint, and the next step: the checkpoint loaded back
+    into the pipeline and into the one-device plan gives the same next
+    loss.
+PL4. ``pipeline_apply`` over MeshSpec(pp=4) on four rank actors
+    (``num_gpus=0.25``, gloo), one GPT-J-6B-width layer a rank, x 4 x
+    2048 x 4096 bf16, M=4: output and gradients against the sequential
+    layers on one device with the all-reduce-backward control outside;
+    each flash kernel launched 7 times a rank (garbage ticks included);
+    the exchanges' host-staged bytes and seconds. The card's free memory
+    comes back after PL1-PL4.
 
 Before them the script's total wall is printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
@@ -262,9 +290,10 @@ verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
 ``serve_launches``, S2's ``disagg_launches``, both replicas', and RL1's
 and RL2's ``rlhf_launches``; each flash kernel's carries RL1's and each RL2
 learner's ``rlhf_learner_launches``, each P1 rank's
-``sharded_launches``, each M1 rank's ``moe_launches`` and each M2 rank's
-``ring_launches``); the last line is ``{"ok": true, "device":
-{...}}``.
+``sharded_launches``, each M1 rank's ``moe_launches``, each M2 rank's
+``ring_launches``, each PL1 and PL2 stage's ``pipeline_launches`` and
+each PL4 rank's ``gpipe_launches``); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2631,11 +2660,12 @@ def learner_after(inst):
 def phase_rl2(dev, card: str, seed: int):
     """RL2: sebulba, 2 remote learners (``{"num_cpus": 1}`` each, on the
     card through ``device=None`` in their workers), 2 engines in the
-    driver, GPT-J-6B width at 2 layers, 8 rollouts, one gradient round of
-    4 rows a learner, one round, on a runtime whose store holds 6 f32
-    weight trees. Two learners used on disjoint shards, their weights
-    bit-identical after the round, a publish, no sync stall, staleness
-    <= 1, each learner's flash launches 2 x its ``compute_gradients``
+    driver, GPT-J-6B width at RL2_LAYERS layers, 8 rollouts, one
+    gradient round of 4 rows a learner, one round, on a runtime whose
+    store holds 6 f32 weight trees. Two learners used on disjoint
+    shards, their weights bit-identical after the round, a publish, no
+    sync stall, staleness <= 1, each learner's flash launches RL2_LAYERS
+    x its ``compute_gradients``
     calls; the gradient round's wall split into compute, gradients out
     through the store, the host mean, and the mean back."""
     import shutil
@@ -3381,7 +3411,7 @@ def training_phases(dev, card: str, seed: int):
 # driven at world size 1 (P3).
 SHARD_MESH = {"fsdp": 2, "tp": 2}   # __graft_entry__._factor_mesh(4)
 SHARD_BATCH = 2                     # global rows: 1 x 2048 a data rank
-P1_LAYERS = 8
+P1_LAYERS = 4                       # 8 before the pipeline phases
 P1_TIMED_STEPS = 3
 P2_LAYERS = 2
 P2_STEPS = 3
@@ -4228,6 +4258,539 @@ def moe_ring_phases(dev, card: str, seed: int):
     return out
 
 
+# ------------------------------------------------------- phases PL1-PL4
+# Pipelines. PL1-PL3 drive the MPMD pipeline of stage actors through
+# ParallelPlan: two stage actors share the card (num_gpus=0.5 each, as
+# MPMDPipeline asks where the runtime counts fewer cards than stages) and
+# their activations and gradients cross the object store (a copy to the
+# host, the shared-memory write, a copy to the receiving stage's card).
+# PL4 drives the GPipe pipeline_apply over MeshSpec(pp=4) on four rank
+# actors sharing the card over gloo: each tick's exchange crosses a host
+# buffer (collective._GLOO_CUDA_OPS).
+PIPE_LAYERS = 8                    # 4 a stage: about 1.01 B params each
+PIPE_BATCH = 4                     # 4 x 2048: microbatches of 1 x 2048
+PIPE_MICROBATCHES = 4
+PL1_TIMED_STEPS = 3
+PL2_TIMED_STEPS = 2
+PL3_LAYERS = 2                     # one layer a stage
+PL4_STAGES = 4
+# PL2's first step against PL1's: the same weights and batch, bf16 hops
+# that carry the activations bit for bit; only the chunking differs.
+PL2_FIRST_LOSS_REL = 1e-3
+# PL3: P2's bounds (the pipeline's microbatches round their bf16 products
+# apart from the one-device batch's); its control seeds every
+# microbatch's backward with 1 where the step seeds n_i / N, so its
+# gradients are about 4x the step's. PL3's reloads: the next step's loss
+# within PL3_RELOAD_LOSS_REL of the source pipeline's.
+PL3_RELOAD_LOSS_REL = 2e-3
+# PL4 against the sequential 4 layers on one device: bf16 layers, the
+# same products per microbatch; the control sums the output over pp in
+# the backward as well, which multiplies every gradient by 4.
+PL4_OUT_REL_L2 = 1e-2
+PL4_GRAD_REL_L2 = 3e-2
+
+
+def pipe_model(n_layers: int):
+    """GPT-J-6B's published width at ``n_layers`` layers, bf16 compute,
+    remat "dots", the fused LM-head loss in 512-token chunks."""
+    return dataclasses.replace(shard_model(n_layers), remat=None,
+                               remat_policy="dots", ce_chunk_size=512)
+
+
+def pipe_batch(cfg, seed: int):
+    rng = np.random.default_rng(seed + 9)
+    return {"input_ids": rng.integers(0, cfg.vocab_size,
+                                      (PIPE_BATCH, cfg.max_seq_len))}
+
+
+def stage_probe(stage, what: str):
+    """In a stage actor: ``"reset"`` zeroes its flash launch counts and
+    its card's peak memory; ``"read"`` returns them."""
+    cuda = stage.device.type == "cuda"
+    if what == "reset":
+        reset_flash_counts()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        return None
+    return {"launches": flash_counts(), "device": device_name(stage.device),
+            "pid": os.getpid(), "peak_gb": torch.cuda.max_memory_allocated()
+            / 1e9 if cuda else 0.0}
+
+
+def on_stages(pipe, what: str):
+    import ray_tpu_torch
+    return ray_tpu_torch.get([a.__ray_call__.remote(stage_probe, what)
+                              for a in pipe.stages], timeout=ACTOR_TIMEOUT_S)
+
+
+def driver_bytes() -> float:
+    """Bytes the runtime materialized in this (the driver's) process."""
+    from ray_tpu_torch.core.metric_defs import runtime_metrics
+    return float(sum(runtime_metrics().materialized_bytes._values.values()))
+
+
+def pipe_run(name: str, card: str, cfg, plan, seed: int, steps: int):
+    """``plan.build(cfg)`` and ``steps`` steps on PIPE_BATCH x 2048 (the
+    first a warm-up): the step wall, tokens/s and MFU over one card, the
+    measured bubble beside the analytic one, each stage's busy, idle,
+    forward, backward and optimizer seconds, the hops' bytes and seconds,
+    each stage's launches in the last step and its peak memory (at init
+    and over the steps), and the bytes the driver took while stepping."""
+    from ray_tpu_torch.parallel.mpmd_pipeline import analytic_bubble
+    t0 = time.perf_counter()
+    prog = plan.build(cfg, learning_rate=1e-4, seed=seed)
+    build_s = time.perf_counter() - t0
+    try:
+        init = on_stages(prog.pipeline, "read")
+        on_stages(prog.pipeline, "reset")
+        batch = pipe_batch(cfg, seed)
+        res, walls, bytes0 = [], [], driver_bytes()
+        for i in range(steps):
+            if i == steps - 1:
+                on_stages(prog.pipeline, "reset")
+            t1 = time.perf_counter()
+            res.append(prog.step(batch))
+            walls.append(time.perf_counter() - t1)
+        took = driver_bytes() - bytes0
+        after = on_stages(prog.pipeline, "read")
+    finally:
+        prog.shutdown()
+    S = cfg.max_seq_len
+    timed = walls[1:]
+    step_s = float(np.mean(timed))
+    tok_s = PIPE_BATCH * S / step_s
+    flops_tok = cfg.flops_per_token(S)
+    stats = [r.detail.stage_stats for r in res]
+    rec = {"phase": name, "card": card,
+           "config": f"gptj-6b n_layers={cfg.n_layers}",
+           "plan": plan.describe(), "stage_gpus": prog.pipeline.stage_gpus,
+           "params": cfg.num_params, "batch": [PIPE_BATCH, S],
+           "microbatches": plan.n_microbatches, "build_s": build_s,
+           "losses": [r.loss for r in res],
+           "grad_norms": [r.grad_norm for r in res], "walls_s": walls,
+           "step_s": step_s, "tokens_per_s": tok_s,
+           "mfu_one_card": flops_tok * tok_s / PEAK_FLOPS[torch.bfloat16],
+           "bubble": [r.bubble_fraction for r in res],
+           "bubble_analytic": analytic_bubble(plan.pp, plan.n_microbatches,
+                                              plan.virtual),
+           "stages_last_step": [{k: st[k] for k in (
+               "busy_s", "idle_s", "fwd_s", "bwd_s", "opt_s", "ops",
+               "sent_bytes", "sent_s", "recv_bytes", "to_device_s")}
+               for st in stats[-1]],
+           "launches_last_step": [a["launches"] for a in after],
+           "peak_gb_init": [a["peak_gb"] for a in init],
+           "peak_gb_steps": [a["peak_gb"] for a in after],
+           "devices": [a["device"] for a in after],
+           "driver_bytes_per_step": took / steps}
+    print(f"{name.lower()} " + json.dumps(rec), flush=True)
+    return rec
+
+
+def check_pipe_run(name: str, dev, rec, layers_a_stage: int):
+    losses = rec["losses"]
+    check(all(math.isfinite(x) for x in losses + rec["grad_norms"]),
+          f"{name} non-finite loss or grad norm: {losses}")
+    check(losses[-1] < losses[0], f"{name} loss did not fall: {losses}")
+    want = layers_a_stage * PIPE_MICROBATCHES
+    for s, counts in enumerate(rec["launches_last_step"]):
+        check(rec["devices"][s] == device_name(dev),
+              f"{name} stage {s} runs on {rec['devices'][s]!r}")
+        for n, c in counts.items():
+            check(c == want, f"{name} stage {s}: {n} launched {c} times in "
+                  f"a step, not {want}")
+    # the driver takes M loss dicts, the stages' stats and scalars a step;
+    # one stage's gradients would be gigabytes
+    check(rec["driver_bytes_per_step"] < 1e6,
+          f"{name}: the driver took {rec['driver_bytes_per_step']} B a "
+          f"step: gradients or params reached it")
+
+
+def phase_pl1(dev, card: str, seed: int):
+    """PL1: ``ParallelPlan(pp=2, n_microbatches=4)`` at GPT-J-6B width and
+    PIPE_LAYERS layers, one warm-up and PL1_TIMED_STEPS timed steps."""
+    from ray_tpu_torch.parallel.plan import ParallelPlan
+    rec = pipe_run("PL1", card, pipe_model(PIPE_LAYERS), ParallelPlan(
+        pp=2, n_microbatches=PIPE_MICROBATCHES), seed, 1 + PL1_TIMED_STEPS)
+    check_pipe_run("PL1", dev, rec, PIPE_LAYERS // 2)
+    return rec
+
+
+def phase_pl2(dev, card: str, seed: int, pl1):
+    """PL2: PL1 interleaved, ``virtual=2``: one warm-up and
+    PL2_TIMED_STEPS timed steps; the first step's loss equals PL1's."""
+    from ray_tpu_torch.parallel.plan import ParallelPlan
+    rec = pipe_run("PL2", card, pipe_model(PIPE_LAYERS), ParallelPlan(
+        pp=2, virtual=2, n_microbatches=PIPE_MICROBATCHES), seed,
+        1 + PL2_TIMED_STEPS)
+    rel = abs(rec["losses"][0] - pl1["losses"][0]) / abs(pl1["losses"][0])
+    rec["first_loss_rel_to_pl1"] = rel
+    print(f"pl2 first loss {rec['losses'][0]} against PL1's "
+          f"{pl1['losses'][0]}: rel {rel}", flush=True)
+    check_pipe_run("PL2", dev, rec, PIPE_LAYERS // 2)
+    check(rel <= PL2_FIRST_LOSS_REL, f"PL2's first loss is {rel} from "
+          f"PL1's (bound {PL2_FIRST_LOSS_REL})")
+    return rec
+
+
+def control_grad_norm(pipe, batch) -> float:
+    """The control of PL3: the serial chunk walk over the pipeline's
+    stages with every microbatch's backward seeded with 1; the L2 norm of
+    the gradients it leaves in the stages (one scalar a stage reaches
+    the driver, as in a train step's clip)."""
+    import ray_tpu_torch
+    ids_mb, mask_mb, _ = pipe._split(batch)
+    K, S = pipe.n_chunks, pipe.n_stages
+    get = lambda r: ray_tpu_torch.get(r, timeout=ACTOR_TIMEOUT_S)  # noqa
+    get([a.reset_step.remote() for a in pipe.stages])
+    for i in range(pipe.n_microbatches):
+        act = ids_mb[i]
+        for ch in range(K):
+            st = pipe.stages[ch % S]
+            act = get(st.forward_one.remote(ch, i, act, ids_mb[i],
+                                            mask_mb[i]) if ch == K - 1
+                      else st.forward_one.remote(ch, i, act))
+        g = np.float32(1.0)
+        for ch in range(K - 1, -1, -1):
+            g = get(pipe.stages[ch % S].backward_one.remote(ch, i, g))
+    return math.sqrt(sum(get([a.grad_sq_norm.remote()
+                              for a in pipe.stages])))
+
+
+def merged_grad_errors(cfg, parts, ref, loss, loss_ref, dev):
+    """Stage gradients (numpy trees by chunk) merged into the one-device
+    tree, against ``ref`` (by leaf name, on ``dev``)."""
+    from ray_tpu_torch.models.transformer import merge_stage_params
+    merged = dict(_named(merge_stage_params(cfg, dict(enumerate(parts)))))
+    num = den = 0.0
+    leaf = {}
+    for n, want in ref.items():
+        got = torch.from_numpy(merged[n]).to(dev)
+        ln = ((got - want.float()) ** 2).sum().item()
+        ld = (want.float() ** 2).sum().item()
+        num, den = num + ln, den + ld
+        leaf[n] = math.sqrt(ln / max(ld, 1e-30))
+    worst = max(leaf, key=leaf.get)
+    return {"loss": loss, "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            "grad_rel_l2": math.sqrt(num / den), "worst_leaf": worst,
+            "worst_leaf_rel_l2": leaf[worst]}
+
+
+def phase_pl3(dev, card: str, seed: int):
+    """PL3 at PL3_LAYERS layers on ``ParallelPlan(pp=2)``'s pipeline. Its
+    first step, ``pipeline.train`` off so that ``grads()`` reads the
+    step's gradients as a ``train=False`` pipeline's, is held against the
+    one-device loss and gradients from the same weights and batch (P2's
+    bounds). The seed-1 control's gradients stay in the stages: the
+    difference of their norm and the one-device norm, over the one-device
+    norm, is at most their relative L2 distance, and it alone must pass
+    the bound. Then the pipeline takes a step, saves its checkpoint and
+    takes the next step; the checkpoint loads back into the pipeline and
+    into the one-device plan: their next losses equal the pipeline's."""
+    import psutil
+    from ray_tpu_torch.models import init_params, lm_loss
+    from ray_tpu_torch.parallel.plan import ParallelPlan
+    cfg = pipe_model(PL3_LAYERS)
+    batch = pipe_batch(cfg, seed)
+    res = {"card": card, "config": f"gptj-6b n_layers={PL3_LAYERS}",
+           "bounds": [P2_LOSS_REL_BOUND, P2_GRAD_REL_L2_BOUND,
+                      P2_LEAF_REL_L2_BOUND]}
+    host = {}
+
+    def note(what):
+        host[what] = psutil.virtual_memory().used / 1e9
+    t0 = time.perf_counter()
+    got = {}
+    prog = ParallelPlan(pp=2, n_microbatches=PIPE_MICROBATCHES).build(
+        cfg, learning_rate=1e-4, seed=seed)
+    try:
+        pipe = prog.pipeline
+        pipe.train = False
+        step = pipe.step(batch)
+        grads = pipe.grads()
+        ctl_norm = control_grad_norm(pipe, batch)
+        pipe.train = True
+        prog.step(batch)
+        t1 = time.perf_counter()
+        note("before_save")
+        ck = prog.save_checkpoint()
+        save_s = time.perf_counter() - t1
+        note("saved")
+        want = prog.step(batch).loss
+        t1 = time.perf_counter()
+        prog.load_checkpoint(ck)
+        load_s = time.perf_counter() - t1
+        note("pp2_v1_loaded")
+        got["pp2_v1"] = prog.step(batch).loss
+    finally:
+        prog.shutdown()
+    params = init_params(cfg, seed, dev)
+    names = [n for n, _ in _named(params)]
+    leaves = [t.requires_grad_() for _, t in _named(params)]
+    loss, _ = lm_loss(cfg, params, {"input_ids": torch.tensor(
+        batch["input_ids"], device=dev)})
+    ref = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    del params, leaves
+    k = merged_grad_errors(cfg, grads, ref, step.loss, loss.item(), dev)
+    ref_norm = math.sqrt(sum((g.float() ** 2).sum().item()
+                             for g in ref.values()))
+    c = {"grad_norm": ctl_norm, "grad_norm_one_device": ref_norm,
+         "grad_rel_l2_at_least": abs(ctl_norm - ref_norm) / ref_norm}
+    del ref, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = ParallelPlan().build(cfg, learning_rate=1e-4, seed=seed + 1,
+                               device=dev)
+    one.load_checkpoint(ck)
+    note("one_device_loaded")
+    got["pp1"] = one.step(batch).loss
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = {k2: abs(x - want) / abs(want) for k2, x in got.items()}
+    res.update(pipeline=k, control=c, reload={
+        "checkpoint_bytes": nbytes_np(ck), "save_s": save_s,
+        "load_pp2_v1_s": load_s, "host_used_gb": host,
+        "next_loss_source": want, "next_loss": got, "rel": rel},
+        wall_s=time.perf_counter() - t0)
+    print("pl3 " + json.dumps(res), flush=True)
+    check(k["loss_rel"] <= P2_LOSS_REL_BOUND,
+          f"PL3 loss rel {k['loss_rel']} > {P2_LOSS_REL_BOUND}")
+    check(k["grad_rel_l2"] <= P2_GRAD_REL_L2_BOUND,
+          f"PL3 grad rel L2 {k['grad_rel_l2']} > {P2_GRAD_REL_L2_BOUND}")
+    check(k["worst_leaf_rel_l2"] <= P2_LEAF_REL_L2_BOUND,
+          f"PL3 leaf {k['worst_leaf']} grad rel L2 "
+          f"{k['worst_leaf_rel_l2']} > {P2_LEAF_REL_L2_BOUND}")
+    check(c["grad_rel_l2_at_least"] > P2_GRAD_REL_L2_BOUND,
+          f"PL3: the control's gradients (rel L2 at least "
+          f"{c['grad_rel_l2_at_least']}) may pass the bounds")
+    for k2, r in rel.items():
+        check(r <= PL3_RELOAD_LOSS_REL, f"PL3 reload into {k2}: next loss "
+              f"{got[k2]} is {r} from the source's {want}")
+    return res
+
+
+def nbytes_np(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(nbytes_np(v) for v in tree.values())
+    return int(getattr(tree, "nbytes", 0))
+
+
+class _SumBothWays(torch.autograd.Function):
+    """PL4's control: the output summed over pp in the backward too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ray_tpu_torch.parallel.collective import _all_reduce
+        ctx.group = group
+        return _all_reduce(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ray_tpu_torch.parallel.collective import _all_reduce
+        return _all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+def gpipe_input(cfg, seed: int, dev):
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    return torch.randn((PIPE_BATCH, cfg.max_seq_len, cfg.d_model),
+                       generator=g, device=dev).to(cfg.dtype)
+
+
+def gpipe_layers(cfg, seed: int, dev, keep=None):
+    """The stacked layer leaves of ``init_params(cfg, seed)`` (layers
+    ``keep`` only), drawn leaf by leaf."""
+    from ray_tpu_torch.models.transformer import init_leaves
+    out = {}
+    for path, full in init_leaves(cfg, seed, dev):
+        if path[0] == "layers":
+            out[path[1]] = full if keep is None else full[keep].clone()
+        del full
+    return out
+
+
+def gpipe_rank(rank, cfg, dev_str: str, seed: int, control: bool):
+    """PL4 on one rank: its layer of ``cfg`` through ``pipeline_apply``
+    over MeshSpec(pp=PL4_STAGES) with PIPE_MICROBATCHES microbatches,
+    forward and the backward of mean(out.float() ** 2); the output, its
+    layer's gradients (shared with the driver), the flash launches, the
+    exchanges' seconds and bytes, the wall and the peak memory."""
+    from ray_tpu_torch.models.transformer import run_layers
+    from ray_tpu_torch.ops import pipeline
+    from ray_tpu_torch.parallel.mesh import axis_group
+    dev = torch.device(dev_str)
+    cuda = dev.type == "cuda"
+    mesh = _rank_mesh(rank, dev_str, {"pp": PL4_STAGES})
+    s = axis_group(mesh, "pp").rank
+    mine = {k: v.unsqueeze(0).requires_grad_() for k, v in gpipe_layers(
+        cfg, seed, dev, slice(s, s + 1)).items()}
+    x = gpipe_input(cfg, seed, dev)
+    inner = pipeline.reduce_from_region
+    if control:
+        pipeline.reduce_from_region = _SumBothWays.apply
+    reset_flash_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with CollectiveClock(cuda) as clock:
+            out = pipeline.pipeline_apply(
+                lambda p, h: run_layers(cfg, p, h)[0], mine, x, mesh,
+                PIPE_MICROBATCHES)
+            loss = (out.float() ** 2).mean()
+            loss.backward()
+            if cuda:
+                torch.cuda.synchronize()
+            coll = clock.snapshot()
+    finally:
+        pipeline.reduce_from_region = inner
+    wall = time.perf_counter() - t0
+    grads = {k: t.grad[0] for k, t in mine.items()}
+    out = out.detach().float()
+    rank.state["pl4"] = (out, grads)       # alive while the driver reads
+    return {"stage": s, "loss": loss.item(), "wall_s": wall,
+            "launches": flash_counts(), "collectives": coll,
+            "device": device_name(dev),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+            else 0.0,
+            "out": share(out),
+            "grads": {k: share(g) for k, g in grads.items()}}
+
+
+def pl4_release(rank, dev_str: str):
+    rank.state.pop("pl4", None)
+    _rank_release(torch.device(dev_str))
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+def phase_pl4(dev, card: str, seed: int, actors):
+    """PL4: ``pipeline_apply`` over MeshSpec(pp=4), one GPT-J-6B-width
+    layer a rank (``run_layers`` over a 1-layer slice), x 4 x 2048 x 4096
+    bf16 from the seed, M=4: forward and backward of mean(out.float() **
+    2). Output and gradients against the sequential 4 layers on one
+    device (rel L2 within PL4_OUT_REL_L2 and PL4_GRAD_REL_L2), the
+    control's gradients outside; each flash kernel launched M + S - 1 = 7
+    times a rank (the schedule's garbage ticks included); the exchanges'
+    host-staged bytes and seconds."""
+    from ray_tpu_torch.models.transformer import run_layers
+    from ray_tpu_torch.parallel.dryrun import run_on_ranks
+    cfg = pipe_model(PL4_STAGES)
+    t0 = time.perf_counter()
+    layers = {k: v.requires_grad_() for k, v in gpipe_layers(
+        cfg, seed, dev).items()}
+    x = gpipe_input(cfg, seed, dev)
+    ref_out, _ = run_layers(cfg, layers, x)
+    ref_loss = (ref_out.float() ** 2).mean()
+    names = list(layers)
+    ref = dict(zip(names, torch.autograd.grad(ref_loss,
+                                              [layers[n] for n in names])))
+    ref_out = ref_out.detach()
+    del layers
+    res = {"card": card, "config": f"gptj-6b layer a stage, pp={PL4_STAGES}",
+           "x": list(x.shape), "microbatches": PIPE_MICROBATCHES,
+           "bounds": [PL4_OUT_REL_L2, PL4_GRAD_REL_L2],
+           "loss_sequential": ref_loss.item()}
+    for run, control in (("gpipe", False), ("control", True)):
+        outs = run_on_ranks(actors, gpipe_rank, cfg, str(dev), seed,
+                            control)
+        try:
+            outs = sorted(outs, key=lambda o: o["stage"])
+            out_err = max(rel_l2(shared(o["out"], dev), ref_out)
+                          for o in outs)
+            num = den = 0.0
+            for n, want in ref.items():
+                got = torch.cat([shared(o["grads"][n], dev) for o in outs])
+                num += ((got.float() - want.float()) ** 2).sum().item()
+                den += (want.float() ** 2).sum().item()
+            rec = {"loss": outs[0]["loss"], "out_rel_l2": out_err,
+                   "grad_rel_l2": math.sqrt(num / den),
+                   "wall_s": [o["wall_s"] for o in outs],
+                   "exchanges": [{k: o["collectives"][k].get("ppermute")
+                                  for k in ("seconds", "bytes", "calls")}
+                                 for o in outs],
+                   "sum_over_pp": [{k: o["collectives"][k].get("all_reduce")
+                                    for k in ("seconds", "bytes", "calls")}
+                                   for o in outs]}
+            if not control:
+                rec.update(
+                    launches=[o["launches"] for o in outs],
+                    peak_gb=[o["peak_gb"] for o in outs],
+                    devices=[o["device"] for o in outs])
+            res[run] = rec
+        finally:
+            del outs
+            gc.collect()
+            run_on_ranks(actors, pl4_release, str(dev))
+    res["wall_s"] = time.perf_counter() - t0
+    print("pl4 " + json.dumps(res), flush=True)
+    k, c = res["gpipe"], res["control"]
+    check(k["out_rel_l2"] <= PL4_OUT_REL_L2,
+          f"PL4 output rel L2 {k['out_rel_l2']} > {PL4_OUT_REL_L2}")
+    check(k["grad_rel_l2"] <= PL4_GRAD_REL_L2,
+          f"PL4 grad rel L2 {k['grad_rel_l2']} > {PL4_GRAD_REL_L2}")
+    check(c["grad_rel_l2"] > PL4_GRAD_REL_L2,
+          f"PL4: the control's gradients (rel L2 {c['grad_rel_l2']}) pass "
+          f"the bound")
+    ticks = PIPE_MICROBATCHES + PL4_STAGES - 1
+    for i, counts in enumerate(k["launches"]):
+        check(k["devices"][i] == device_name(dev),
+              f"PL4 rank {i} runs on {k['devices'][i]!r}")
+        for n, cnt in counts.items():
+            check(cnt == ticks, f"PL4 rank {i}: {n} launched {cnt} times, "
+                  f"not {ticks}")
+    return res
+
+
+def pipeline_phases(dev, card: str, seed: int):
+    """PL1-PL4 on a runtime of their own, after M1-M3; the card's free
+    memory must come back after them. Returns their records."""
+    import ray_tpu_torch
+    from ray_tpu_torch.parallel.dryrun import start_ranks, stop_ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
+                       _num_initial_workers=0)
+    out = {}
+    try:
+        for name, phase in (("PL1", phase_pl1), ("PL2", phase_pl2),
+                            ("PL3", phase_pl3)):
+            t1 = time.perf_counter()
+            out[name] = phase(dev, card, seed, *(
+                (out["PL1"],) if name == "PL2" else ()))
+            print(f"phase {name} wall: {time.perf_counter() - t1:.1f} s",
+                  flush=True)
+        t1 = time.perf_counter()
+        actors = start_ranks(PL4_STAGES, "gloo", group_name="gpipe",
+                             num_gpus=1.0 / PL4_STAGES
+                             if dev.type == "cuda" else 0.0)
+        try:
+            out["PL4"] = phase_pl4(dev, card, seed, actors)
+        finally:
+            stop_ranks(actors)
+        print(f"phase PL4 wall: {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    finally:
+        ray_tpu_torch.shutdown()
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + 60
+    while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
+            and time.monotonic() < deadline:
+        time.sleep(0.5)
+    free1 = torch.cuda.mem_get_info()[0]
+    print(f"phases PL1-PL4 wall: {time.perf_counter() - t0:.1f} s; card "
+          f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f} GB "
+          f"after", flush=True)
+    check(free1 >= free0 - (1 << 30),
+          "PL1-PL4's card memory did not come back")
+    return out
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4271,6 +4834,7 @@ def main(argv=None) -> int:
     kernels.extend(flash)
     sharded = sharding_phases(dev, card, args.seed)
     moe_ring = moe_ring_phases(dev, card, args.seed)
+    pipes = pipeline_phases(dev, card, args.seed)
     for rec in flash:
         rec["sharded_launches"] = [r["launches"][rec["name"]]
                                    for r in sharded["P1"]["ranks"]]
@@ -4278,6 +4842,11 @@ def main(argv=None) -> int:
                                for r in moe_ring["M1"]["ranks"]]
         rec["ring_launches"] = [r["launches"][rec["name"]]
                                 for r in moe_ring["M2"]["ranks"]]
+        rec["pipeline_launches"] = {
+            name: [c[rec["name"]] for c in pipes[name]["launches_last_step"]]
+            for name in ("PL1", "PL2")}
+        rec["gpipe_launches"] = [c[rec["name"]] for c in
+                                 pipes["PL4"]["gpipe"]["launches"]]
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

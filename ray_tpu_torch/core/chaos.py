@@ -646,10 +646,7 @@ class ChaosMonkey:
         if rel is not None:
             # a kill -9 takes the retransmit thread with it too
             rel.stop()
-        try:
-            old._wake_send.send(b"")
-        except Exception:
-            pass
+        old.wake()
         if old._thread is not None:
             old._thread.join(timeout=10)
         head.controller = Controller(head.session_dir, old.config)

@@ -163,6 +163,13 @@ class Controller:
         self._wake_recv.bind(f"inproc://ctl-wake-{id(self)}")
         self._wake_send = self.ctx.socket(zmq.PUSH)
         self._wake_send.connect(f"inproc://ctl-wake-{id(self)}")
+        # the wake socket is written from every thread that marshals work
+        # onto the loop (health loop, retransmits, API callers) and closed
+        # by the loop at exit: a zmq socket is not thread-safe, so every
+        # send and the close hold this lock (a port-only repair: a close
+        # racing a health-loop send crashed the process in zmq)
+        self._wake_lock = threading.Lock()
+        self._wake_closed = False
         self._send_q: Deque[Tuple[bytes, bytes, bytes]] = collections.deque()
         self._call_q: Deque = collections.deque()  # marshaled loop calls
         self._send_lock = threading.Lock()
@@ -336,13 +343,23 @@ class Controller:
             self._reliable.stop()
         with self._send_lock:
             pass
-        try:
-            self._wake_send.send(b"")
-        except Exception:
-            pass
+        self.wake()
         if self._thread:
             self._thread.join(timeout=5)
+        if self._health_thread:
+            self._health_thread.join(timeout=5)
         self.store.close()
+
+    def wake(self) -> None:
+        """Wake the loop thread (from any thread); a no-op once the loop
+        has closed its wake socket."""
+        with self._wake_lock:
+            if self._wake_closed:
+                return
+            try:
+                self._wake_send.send(b"", zmq.NOBLOCK)
+            except zmq.ZMQError:
+                pass
 
     def _run(self) -> None:
         poller = zmq.Poller()
@@ -377,10 +394,12 @@ class Controller:
             # latency bound on the controller's OWN flight-recorder
             # events reaching the aggregation buffer
             self.recorder.maybe_flush()
+        with self._wake_lock:
+            self._wake_closed = True
+            self._wake_send.close(0)
         try:
             self.sock.close(0)
             self._wake_recv.close(0)
-            self._wake_send.close(0)
         except Exception:
             pass
 
@@ -404,12 +423,12 @@ class Controller:
 
         with self._send_lock:
             self._call_q.append(run)
-        try:
-            self._wake_send.send(b"", zmq.NOBLOCK)
-        except zmq.ZMQError:
-            pass
-        if not done.wait(timeout):
-            raise TimeoutError("controller loop busy")
+        self.wake()
+        deadline = time.monotonic() + timeout
+        while not done.wait(0.05):
+            if time.monotonic() > deadline or (
+                    self._shutdown.is_set() and not self._thread.is_alive()):
+                raise TimeoutError("controller loop busy")
         if box[1] is not None:
             raise box[1]
         return box[0]
@@ -459,10 +478,7 @@ class Controller:
             blob = P.dumps(payload)
             with self._send_lock:
                 self._send_q.append((identity, mtype, blob))
-            try:
-                self._wake_send.send(b"", zmq.NOBLOCK)
-            except zmq.ZMQError:
-                pass
+            self.wake()
 
     def _flush_outbox(self) -> None:
         if not self._outbox:

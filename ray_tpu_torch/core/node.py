@@ -360,7 +360,8 @@ class NodeManager:
                 except OSError:
                     pass
         try:
-            self.sock.close(0)
+            with self._send_lock:
+                self.sock.close(0)
             self.direct_sock.close(0)
             for s in self._peer_socks.values():
                 s.close(0)
@@ -405,7 +406,12 @@ class NodeManager:
         self._send_now(mtype, payload)
 
     def _send_now(self, mtype: bytes, payload) -> None:
+        # the heartbeat, retransmit and loop threads all send; stop()
+        # closes the socket under the same lock (a zmq socket is not
+        # thread-safe: a close racing a send can free it under the send)
         with self._send_lock:
+            if self._stopped.is_set():
+                return
             self.sock.send_multipart([mtype, P.dumps(payload)])
 
     # ------------------------------------------------------------ messages

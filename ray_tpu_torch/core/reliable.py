@@ -64,6 +64,11 @@ RELIABLE_TYPES = frozenset({
     b"ASG",   # TASK_ASSIGN    controller -> node
     b"DON",   # TASK_DONE      worker -> controller
     b"CAC",   # CREATE_ACTOR   driver -> controller
+    b"KVO",   # KV_OP          any -> controller: a request written into
+              # the controller link while it reconnects (a restarted
+              # controller) is lost, and its caller would wait the whole
+              # RPC timeout; a retransmit reaches the new controller (a
+              # port-only addition; each op is idempotent)
     b"PUT",   # PUT_OBJECT     owner/node -> controller
     b"RES",   # TASK_RESULT    worker -> owner / controller -> owner
     b"SIT",   # STREAM_ITEM    worker -> owner (direct): a lost item

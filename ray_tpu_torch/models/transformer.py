@@ -35,6 +35,11 @@ LM-head loss. Rematerialization is a named policy
 (:func:`remat_policy_fn`): ``"none"``, ``"full"`` (recompute each block
 in the backward) or ``"dots"`` (selective checkpointing that saves the
 matmul outputs and the flash op's output, and recomputes the rest).
+
+Pipelines: :func:`stage_slice_params` cuts the one-device tree into
+stage chunks, :func:`stage_forward` and :func:`stage_loss` run one chunk,
+and :func:`merge_stage_params` joins the chunks back
+(``parallel/mpmd_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import dataclasses
 import functools
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -587,6 +593,113 @@ def lm_loss(config: TransformerConfig, params: Dict, batch: Dict,
     return loss, aux
 
 
+# ------------------------------------------------------ pipeline stages
+# The MPMD pipeline (parallel/mpmd_pipeline.py) splits the model into
+# chunks: chunk 0 owns the embedding and the first layers, middle chunks
+# own layer ranges, the last chunk owns its layers, the final norm and
+# the LM head (its loss is stage_loss). Per-layer weights are stacked on
+# the leading ``layers`` axis, so a chunk's parameters are ``leaf[lo:hi]``
+# of the one-device tree, bit for bit.
+
+def stage_layer_ranges(n_layers: int, n_stages: int):
+    """Near-even contiguous ``[lo, hi)`` layer ranges, earlier stages
+    taking the remainder (they also carry the embedding)."""
+    if not 1 <= n_stages <= n_layers:
+        raise ValueError(
+            f"n_stages must be in [1, {n_layers}], got {n_stages}")
+    base, rem = divmod(n_layers, n_stages)
+    ranges, lo = [], 0
+    for s in range(n_stages):
+        hi = lo + base + (1 if s < rem else 0)
+        ranges.append((lo, hi))
+        lo = hi
+    return ranges
+
+
+def stage_slice_params(config: TransformerConfig, params: Dict,
+                       stage: int, n_stages: int) -> Dict:
+    """One stage's slice of a parameter tree (tensors or numpy arrays):
+    its range of the stacked layer leaves (views), plus the embedding
+    (stage 0) and the final norm and LM head (the last stage)."""
+    if config.n_experts:
+        raise NotImplementedError(
+            "pipeline stage splitting does not support MoE configs "
+            "(the aux loss would need cross-stage wiring)")
+    lo, hi = stage_layer_ranges(config.n_layers, n_stages)[stage]
+    out: Dict = {"layers": {k: v[lo:hi]
+                            for k, v in params["layers"].items()}}
+    if stage == 0:
+        out["embed"] = params["embed"]
+    if stage == n_stages - 1:
+        out["final_norm"] = params["final_norm"]
+        out["lm_head"] = params["lm_head"]
+    return out
+
+
+def merge_stage_params(config: TransformerConfig,
+                       chunk_params: Dict[int, Dict]) -> Dict:
+    """Inverse of :func:`stage_slice_params`: the one-device tree from
+    the slices of chunks ``0..K-1`` (keyed by chunk). Works on any
+    param-shaped tree of tensors or numpy arrays, Adam moments
+    included."""
+    if not chunk_params:
+        raise ValueError("missing chunks: got an empty chunk set")
+    K = max(chunk_params) + 1
+    missing = [c for c in range(K) if c not in chunk_params]
+    if missing or "final_norm" not in chunk_params[K - 1]:
+        raise ValueError(
+            f"missing chunks: have {sorted(chunk_params)}, need a "
+            f"contiguous 0..K-1 set ending in the final-norm/LM-head "
+            f"chunk")
+    first = chunk_params[0]["layers"]
+
+    def cat(xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat(xs, 0)
+        return np.concatenate(xs, 0)
+
+    return {"layers": {k: cat([chunk_params[c]["layers"][k]
+                               for c in range(K)]) for k in first},
+            "embed": chunk_params[0]["embed"],
+            "final_norm": chunk_params[K - 1]["final_norm"],
+            "lm_head": chunk_params[K - 1]["lm_head"]}
+
+
+def stage_forward(config: TransformerConfig, stage: int, n_stages: int,
+                  stage_params: Dict, inp: torch.Tensor) -> torch.Tensor:
+    """One stage's forward: stage 0 embeds (b, s) token ids; later stages
+    take the upstream (b, s, e) activation. The last stage applies the
+    final norm, so its output feeds :func:`stage_loss`. The output is in
+    the compute dtype, what crosses to the next stage."""
+    c = config
+    if stage == 0:
+        x = F.embedding(inp.long(), stage_params["embed"]).to(c.dtype)
+    else:
+        x = inp.to(c.dtype)
+    x, _ = run_layers(c, stage_params["layers"], x)
+    if stage == n_stages - 1:
+        x = _final_norm(c, stage_params, x)
+    return x
+
+
+def stage_loss(config: TransformerConfig, stage_params: Dict,
+               h: torch.Tensor, input_ids: torch.Tensor,
+               loss_mask: Optional[torch.Tensor] = None):
+    """The last stage's LM loss from final-normed hidden states ``h``:
+    :func:`lm_loss`'s fused LM-head loss (``ce_chunk_size > 0``) or its
+    materialized logits. Returns ``(loss, n)``."""
+    c = config
+    labels = input_ids[:, 1:]
+    mask = loss_mask[:, 1:] if loss_mask is not None else None
+    head = stage_params["lm_head"]
+    if c.ce_chunk_size:
+        return fused_lm_head_loss(
+            h.to(c.dtype)[:, :-1], head["w"], labels,
+            head_bias=head.get("b"), mask=mask, chunk_size=c.ce_chunk_size)
+    logits = _lm_head(c, stage_params, h)
+    return cross_entropy_loss(logits[:, :-1], labels, mask=mask)
+
+
 # ------------------------------------------------------- sharded forward
 # Under a mesh every rank holds its shards of the params (as
 # parallel.sharding.shard_params places them) and its rows of the batch.
@@ -631,14 +744,14 @@ def model_layout(config: TransformerConfig, mesh, rules=None,
     ``FSDP_RULES``) and say how: "embed" may map only to batch axes (its
     shards are gathered), "heads" and "mlp" to one axis together, "kv"
     and "vocab" to that axis or None, "sequence" and "expert" to one axis
-    each outside those; ``pp`` must be 1 (pipelines are ROADMAP Queue 1
-    item 9); heads, kv heads, d_ff, vocab and experts must divide."""
+    each outside those; heads, kv heads, d_ff, vocab and experts must
+    divide. A ``pp`` axis that no rule names replicates the step over it,
+    as the JAX package's GSPMD step does (every pp rank computes the same
+    step); the pipelines over ``pp`` are ``ops.pipeline.pipeline_apply``
+    and ``parallel.ParallelPlan(pp=...)``."""
     from ray_tpu_torch.parallel.collective import FP32
     rules = FSDP_RULES if rules is None else rules
-    sizes = axis_sizes(mesh)          # raises TypeError for a JAX Mesh
-    if sizes["pp"] > 1:
-        raise NotImplementedError(
-            "pipeline parallelism is ROADMAP Queue 1 item 9, not ported yet")
+    axis_sizes(mesh)                  # raises TypeError for a JAX Mesh
     if spec_axes(rules.get("layers")):
         raise NotImplementedError("the port keeps the layers axis whole")
     batch = set(spec_axes(rules.get("batch")))

@@ -6,8 +6,10 @@ quantization`).
 Device meshes with named axes (dp/fsdp/tp/sp/ep/pp) over the ranks of a
 process group, the JAX package's logical-axis rule tables as explicit
 per-rank shards, and eager and autograd-aware collectives over nccl,
-gloo or the runtime's KV store. The MPMD pipeline, parallel plans and
-elastic training (ROADMAP Queue 1 item 9) are not ported yet.
+gloo or the runtime's KV store. ``mpmd_pipeline`` (the MPMD pipeline of
+stage actors) and ``ParallelPlan`` (one grid lowered to the SPMD step or
+the pipeline) resolve lazily; elastic training (``ElasticTrainer``) is
+ROADMAP Queue 1 item 9 and raises.
 """
 
 from ray_tpu_torch.parallel.mesh import (
@@ -47,9 +49,19 @@ __all__ = [
 
 
 def __getattr__(name):
-    if name in ("mpmd_pipeline", "ParallelPlan", "ElasticTrainer"):
+    # mpmd_pipeline / plan import lazily: they pull in the runtime and
+    # model layers, which plain sharding users should not pay for at
+    # import time
+    if name == "mpmd_pipeline":
+        import importlib
+        return importlib.import_module(
+            "ray_tpu_torch.parallel.mpmd_pipeline")
+    if name == "ParallelPlan":
+        from ray_tpu_torch.parallel.plan import ParallelPlan
+        return ParallelPlan
+    if name == "ElasticTrainer":
         raise NotImplementedError(
-            f"ray_tpu_torch.parallel.{name}: the MPMD pipeline, parallel "
-            f"plans and elastic training are ROADMAP Queue 1 item 9, not "
-            f"ported yet")
+            "ray_tpu_torch.parallel.ElasticTrainer: elastic training "
+            "(parallel/elastic.py, re-lowering plans as the world changes) "
+            "is ROADMAP Queue 1 item 9, not ported yet")
     raise AttributeError(name)

@@ -13,12 +13,12 @@ runtime's generic actor call. The same helpers start the card's ranks
 :func:`dryrun_multichip` builds the mesh :func:`factor_mesh` gives, runs
 one step of ``make_train_step`` at ``gptj-tiny`` over it on every rank
 (at n >= 8 the mesh has ``sp = 2``: the ring) and checks the loss and
-the step count. At n >= 8 it then runs the JAX dry run's ep part
+the step count. At n >= 8 it then runs the JAX dry run's other parts
 (``_dryrun_ep_pp``): one step of ``moe-tiny`` with its experts sharded on
-``dp 2 x ep 2 x tp 2``. Its pp part (the GPipe ``pipeline_apply``) is
-ROADMAP Queue 1 item 9: there :func:`dryrun_multichip` raises
-:class:`DryRunIncomplete`, which carries the losses of the parts that
-ran.
+``dp 2 x ep 2 x tp 2``, and a 4-stage GPipe ``pipeline_apply`` of
+``tanh(h @ w)`` stages over ``MeshSpec(pp=4, dp=2)``, forward and the
+gradient of ``sum(out ** 2)``. It returns the body's losses as a
+:class:`DryRun`, whose ``parts`` keep every part's per-rank results.
 """
 
 from __future__ import annotations
@@ -31,13 +31,29 @@ from ray_tpu_torch.parallel.mesh import MeshSpec
 RANK_TIMEOUT_S = 600.0
 
 
-class DryRunIncomplete(NotImplementedError):
-    """The dry run reached a part the port does not have yet; ``results``
-    holds each finished part's per-rank losses."""
+class DryRun(list):
+    """The body's per-rank losses; ``parts`` maps each part that ran
+    ("body", "ep", "pp") to its per-rank results."""
 
-    def __init__(self, message: str, results: dict):
-        super().__init__(message)
-        self.results = results
+    def __init__(self, parts: dict):
+        super().__init__(parts["body"])
+        self.parts = parts
+
+
+#: the pp part's shapes (``_dryrun_ep_pp``): 4 stages of 16 x 16, a
+#: batch of 8 rows in 4 microbatches
+PP_STAGES, PP_WIDTH, PP_ROWS, PP_MICROBATCHES = 4, 16, 8, 4
+
+
+def pp_part_inputs(seed: int = 3):
+    """The pp part's stage weights ``[4, 16, 16]`` (0.3 x N(0, 1)) and
+    input ``[8, 16]``, numpy f32 from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    w = (0.3 * rng.standard_normal((PP_STAGES, PP_WIDTH, PP_WIDTH))
+         ).astype(np.float32)
+    x = rng.standard_normal((PP_ROWS, PP_WIDTH)).astype(np.float32)
+    return w, x
 
 
 def factor_mesh(n: int) -> MeshSpec:
@@ -134,12 +150,35 @@ def _dryrun_ep(rank) -> float:
     return _one_step(MeshSpec(dp=-1, ep=2, tp=2), "moe-tiny", 4, 2)
 
 
-def dryrun_multichip(n_devices: int) -> List[float]:
+def _dryrun_pp(rank):
+    """One rank of the dry run's pp part: the GPipe pipeline over
+    ``MeshSpec(pp=4, dp=2)`` (every rank at n = 8), ``tanh(h @ w)``
+    stages, forward and the gradient of ``sum(out ** 2)`` with respect
+    to this rank's stage weight. Returns ``(loss, [1, 16, 16] grad)``."""
+    import torch
+
+    from ray_tpu_torch.ops.pipeline import pipeline_apply
+    from ray_tpu_torch.parallel.mesh import axis_group, build_mesh
+    w, x = pp_part_inputs()
+    mesh = build_mesh(MeshSpec(pp=PP_STAGES, dp=-1), device_type="cpu")
+    s = axis_group(mesh, "pp").rank
+    mine = {"w": torch.tensor(w[s:s + 1]).requires_grad_()}
+    out = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]), mine,
+                         torch.tensor(x), mesh, PP_MICROBATCHES)
+    loss = (out ** 2).sum()
+    loss.backward()
+    g = mine["w"].grad
+    if not (torch.isfinite(loss) and torch.isfinite(g).all()):
+        raise RuntimeError(f"dry run pp part: loss {float(loss)}")
+    return float(loss), g.numpy()
+
+
+def dryrun_multichip(n_devices: int) -> DryRun:
     """Validate the full sharded train step on ``n_devices`` gloo ranks on
-    the CPU; returns each rank's loss. Starts a runtime on the CPU
-    platform when none is running (and shuts it down after). At
-    ``n_devices >= 8`` the ep part follows the body, then
-    :class:`DryRunIncomplete` names the pp part."""
+    the CPU; returns each rank's loss (a :class:`DryRun`). Starts a
+    runtime on the CPU platform when none is running (and shuts it down
+    after). At ``n_devices >= 8`` the ep and pp parts follow the body; a
+    part whose ranks disagree raises."""
     import ray_tpu_torch
     own = not ray_tpu_torch.is_initialized()
     platform = os.environ.get("RAY_TPU_TORCH_PLATFORM")
@@ -149,10 +188,11 @@ def dryrun_multichip(n_devices: int) -> List[float]:
     actors = []
     try:
         actors = start_ranks(n_devices, "gloo", group_name="dryrun")
-        body = run_on_ranks(actors, _dryrun_body, n_devices)
-        if n_devices < 8:
-            return body
-        ep = run_on_ranks(actors, _dryrun_ep)
+        parts = {"body": run_on_ranks(actors, _dryrun_body, n_devices)}
+        if n_devices >= 8:
+            parts["ep"] = run_on_ranks(actors, _dryrun_ep)
+            parts["pp"] = [(loss, g.copy()) for loss, g in
+                           run_on_ranks(actors, _dryrun_pp)]
     finally:
         stop_ranks(actors)
         if own:
@@ -161,7 +201,11 @@ def dryrun_multichip(n_devices: int) -> List[float]:
                 os.environ.pop("RAY_TPU_TORCH_PLATFORM", None)
             else:
                 os.environ["RAY_TPU_TORCH_PLATFORM"] = platform
-    raise DryRunIncomplete(
-        "the JAX dry run's pp part (the GPipe pipeline_apply over pp) is "
-        "ROADMAP Queue 1 item 9, not ported yet; the body and the ep part "
-        "passed", {"body": body, "ep": ep})
+    for name in ("body", "ep"):
+        if name in parts and len(set(parts[name])) != 1:
+            raise RuntimeError(f"dry run {name}: ranks disagree on the "
+                               f"loss: {parts[name]}")
+    if "pp" in parts and len({loss for loss, _ in parts["pp"]}) != 1:
+        raise RuntimeError(f"dry run pp part: ranks disagree on the loss: "
+                           f"{[loss for loss, _ in parts['pp']]}")
+    return DryRun(parts)

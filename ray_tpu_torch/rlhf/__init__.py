@@ -4,8 +4,8 @@ the flash kernels, multi-learner streams, in-flight int8 weight sync).
 
 - :mod:`ray_tpu_torch.rlhf.config` — ``RLHFConfig`` names the Podracer
   placement (``anakin`` colocated / ``sebulba`` disaggregated,
-  arXiv:2104.06272) and lowers it to slice groups (``learner_plan``
-  waits for ``parallel/plan.py``, ROADMAP Queue 1 item 9).
+  arXiv:2104.06272) and lowers it to slice groups and the learners'
+  ``ParallelPlan`` (``learner_plan``).
 - :mod:`ray_tpu_torch.rlhf.rollout` — the serving engine as the PPO
   rollout backend: shared-system-prompt requests ride the radix-trie
   prefix cache, completions stream back as trajectory blocks carrying

@@ -17,7 +17,7 @@ Lowering is a one-line choice: :meth:`RLHFConfig.lower` returns an
 set the placement implies (one shared slice packed, separate rollout +
 train slices spread), and whose ``reserve(slice_manager)`` acquires it
 from any object with the slice manager's methods. ``learner_plan()``
-raises until the port has ``parallel/plan.py`` (ROADMAP Queue 1 item 9).
+gives the learner fleet's ``ParallelPlan`` (dp across learners).
 """
 
 from __future__ import annotations
@@ -100,12 +100,12 @@ class RLHFConfig:
             else "SLICE_SPREAD"
 
     def learner_plan(self):
-        """The learner fleet's ``ParallelPlan`` in the JAX package. Not
-        ported yet: it needs ``parallel/plan.py`` (ROADMAP Queue 1 item
-        9); nothing in the loop calls it."""
-        raise NotImplementedError(
-            "RLHFConfig.learner_plan needs the port's parallel/plan.py "
-            "(ROADMAP Queue 1 item 9)")
+        """The learner fleet's ``ParallelPlan``: dp across learners,
+        carrying this placement's slice strategy down to the gang
+        scheduler."""
+        from ray_tpu_torch.parallel.plan import ParallelPlan
+        return ParallelPlan(dp=max(1, self.num_learners),
+                            slice_strategy=self.slice_strategy)
 
     def lower(self) -> "RLHFPlacement":
         """Clusterless lowering: which slices the placement wants and

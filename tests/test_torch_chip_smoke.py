@@ -514,3 +514,59 @@ def test_moe_ring_phases_on_the_cpu(monkeypatch):
         assert m3[name]["control"]["grad_rel_l2"] > \
             chip_smoke.M3_GRAD_REL_L2_BOUND
     assert len(failed) == 16 and all("launched" in f for f in failed), failed
+
+
+def test_pipeline_phases_on_the_cpu(monkeypatch):
+    """PL1-PL4 at gptj-tiny width (bf16, the phases' depths) on the CPU:
+    the MPMD pipeline through ParallelPlan on two stage actors (v=1, then
+    v=2 with PL2's first loss equal to PL1's) with losses falling and no
+    gradient reaching the driver; PL3's gradients against one device
+    within P2's bounds and the seed-1 control outside, the pipeline's
+    checkpoint reloaded into it and into one device; PL4's GPipe over four
+    gloo ranks against the sequential layers, its control outside. The
+    flash wrappers launch nothing on the CPU, so the launch checks (two
+    stages in PL1 and PL2, four ranks in PL4, four kernels each) are the
+    only ones that fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    from ray_tpu_torch.models import get_config
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(chip_smoke, "pipe_model", lambda n: dataclasses.replace(
+        get_config("gptj-tiny"), n_layers=n, dtype=torch.bfloat16,
+        remat=None, remat_policy="dots", ce_chunk_size=32))
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        out = chip_smoke.pipeline_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    pl1, pl2, pl3, pl4 = (out[k] for k in ("PL1", "PL2", "PL3", "PL4"))
+    for rec in (pl1, pl2):
+        assert rec["losses"][-1] < rec["losses"][0]
+        assert rec["stage_gpus"] == 0.5
+        assert rec["driver_bytes_per_step"] < 1e6
+        assert all(c == dict.fromkeys(c, 0)
+                   for c in rec["launches_last_step"])
+        act = 1 * 128 * 64 * 2        # a microbatch's activation, bf16
+        last = rec["stages_last_step"]
+        assert last[0]["sent_bytes"] >= act * chip_smoke.PIPE_MICROBATCHES
+    assert pl1["bubble_analytic"] == pytest.approx(0.2)
+    assert pl2["bubble_analytic"] == pytest.approx(1 / 9)
+    assert pl2["first_loss_rel_to_pl1"] <= chip_smoke.PL2_FIRST_LOSS_REL
+    assert pl3["pipeline"]["grad_rel_l2"] <= chip_smoke.P2_GRAD_REL_L2_BOUND
+    assert pl3["control"]["grad_rel_l2_at_least"] > \
+        chip_smoke.P2_GRAD_REL_L2_BOUND
+    assert set(pl3["reload"]["rel"]) == {"pp2_v1", "pp1"}
+    assert all(r <= chip_smoke.PL3_RELOAD_LOSS_REL
+               for r in pl3["reload"]["rel"].values())
+    assert pl4["gpipe"]["out_rel_l2"] <= chip_smoke.PL4_OUT_REL_L2
+    assert pl4["gpipe"]["grad_rel_l2"] <= chip_smoke.PL4_GRAD_REL_L2
+    assert pl4["control"]["grad_rel_l2"] > chip_smoke.PL4_GRAD_REL_L2
+    ticks = chip_smoke.PIPE_MICROBATCHES + chip_smoke.PL4_STAGES - 1
+    assert all(e["calls"] == 2 * ticks - 1 for e in pl4["gpipe"]["exchanges"])
+    assert len(failed) == 32 and all("launched" in f for f in failed), failed

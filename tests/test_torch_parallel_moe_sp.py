@@ -28,8 +28,10 @@ mesh on four CPU devices. Tolerance 1e-5 (rtol and atol):
   sp 2) within JAX's bound of the fp32 run (|loss - fp32 loss| < 1e-2 at
   step 20, ``tests/models/test_sharded_update.py``), still learning;
 - the dry run at n = 8: the JAX dry run's body (gptj-tiny on fsdp 2 x
-  tp 2 x sp 2) and its ep part (moe-tiny on dp 2 x ep 2 x tp 2) on 8
-  gloo ranks, then the pp part raises naming ROADMAP item 9.
+  tp 2 x sp 2), its ep part (moe-tiny on dp 2 x ep 2 x tp 2) and its pp
+  part (the 4-stage GPipe over pp 4 x dp 2) on 8 gloo ranks, the pp
+  part's loss and stage gradients equal to JAX's (its own bound, rtol
+  1e-4, atol 1e-5) from the same numpy weights.
 
 The JAX bodies ``test_moe_train_step_on_ep_mesh`` (marked ``slow`` in
 ``tests/models/test_moe_pipeline.py``) and the ring bodies of
@@ -313,14 +315,35 @@ def test_int8_transport_on_an_sp_mesh_stays_within_jax_bound(
         assert got == outs[0][0]
 
 
-def test_dryrun_at_eight_ranks_runs_body_and_ep_then_pp_raises(ranks):
-    from ray_tpu_torch.parallel.dryrun import dryrun_multichip, factor_mesh
+def test_dryrun_at_eight_ranks_runs_body_ep_and_pp_like_jax(
+        ranks, cpu_mesh_devices):
+    from ray_tpu.ops.pipeline import pipeline_apply
+    from ray_tpu_torch.parallel.dryrun import (dryrun_multichip, factor_mesh,
+                                               pp_part_inputs)
     assert factor_mesh(8).axis_sizes() == dict(
         pp=1, dp=1, fsdp=2, ep=1, sp=2, tp=2)
-    with pytest.raises(NotImplementedError, match="item 9") as err:
-        dryrun_multichip(DRYRUN_RANKS)
-    done = err.value.results
-    assert sorted(done) == ["body", "ep"]
-    for losses in done.values():
+    out = dryrun_multichip(DRYRUN_RANKS)
+    assert sorted(out.parts) == ["body", "ep", "pp"]
+    assert list(out) == out.parts["body"]
+    for name in ("body", "ep"):
+        losses = out.parts[name]
         assert len(losses) == DRYRUN_RANKS and len(set(losses)) == 1
         assert losses[0] > 0
+    # the JAX dry run's pp part from the same weights and input
+    w, x = pp_part_inputs()
+    mesh = jbuild_mesh(JMeshSpec(pp=4, dp=2), cpu_mesh_devices)
+
+    def loss(p):
+        return jnp.sum(pipeline_apply(lambda q, h: jnp.tanh(h @ q["w"]), p,
+                                      jnp.asarray(x), mesh, 4) ** 2)
+    want_loss, want = jax.value_and_grad(loss)({"w": jnp.asarray(w)})
+    pp = out.parts["pp"]
+    assert len(pp) == DRYRUN_RANKS
+    for loss_r, _ in pp:
+        assert loss_r == pytest.approx(float(want_loss), rel=1e-5)
+    # rank r is stage r // 2 (pp outermost), both dp replicas alike
+    got = np.concatenate([pp[2 * s][1] for s in range(4)])
+    for r in range(DRYRUN_RANKS):
+        np.testing.assert_array_equal(pp[r][1], pp[r - r % 2][1])
+    np.testing.assert_allclose(got, np.asarray(want["w"]), rtol=1e-4,
+                               atol=1e-5)

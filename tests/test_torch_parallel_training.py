@@ -19,8 +19,9 @@ same mesh on four CPU devices. Tolerance 1e-5 (rtol and atol) for f32:
   of the reductions it makes;
 - the sharded init is a slice of the one-device init, ``"dots"`` remat
   matches ``"none"`` through the collectives, ``apply`` and the eval
-  step match one device, the dry-run twin passes at n = 4, and what is
-  not ported (``pp > 1``) or not the port's (a JAX ``Mesh``) raises.
+  step match one device, the dry-run twin passes at n = 4, a ``pp`` axis
+  replicates the step as JAX's does, and what is not the port's (a JAX
+  ``Mesh``) raises.
 """
 
 import copy
@@ -295,27 +296,28 @@ def test_sharded_init_apply_remat_and_eval_match_one_device(ranks):
         assert out["eval"] == pytest.approx(loss, rel=1e-5)
 
 
-def _refused_on_rank(rank):
-    from ray_tpu_torch.models import get_config, make_train_step
-    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
-    mesh = build_mesh(MeshSpec(pp=2, tp=2), device_type="cpu")
-    try:
-        make_train_step(get_config("gptj-tiny"), mesh, device="cpu")
-    except NotImplementedError as e:
-        return str(e)
-    return None
+def test_pp_mesh_replicates_the_step_like_jax(ranks, cpu_mesh_devices):
+    """A ``pp`` axis that no rule names: JAX's GSPMD step replicates the
+    step over it (the same loss as without it), and so does the port's
+    (the pipelines over pp are ``pipeline_apply`` and ``ParallelPlan``)."""
+    cfg = get_config("gptj-tiny")
+    batches = _batches(jax_get_config("gptj-tiny").vocab_size, 3)
+    start, want, params = _jax_run(jax_get_config("gptj-tiny"),
+                                   dict(pp=2, tp=2), batches)
+    _, flat, _ = _jax_run(jax_get_config("gptj-tiny"), dict(dp=2, tp=2),
+                          batches)
+    np.testing.assert_allclose(want, flat, **TOL)
+    for got, gparams in _run(ranks, _port_run, cfg, dict(pp=2, tp=2),
+                             "FSDP_RULES", start, batches, {}):
+        np.testing.assert_allclose(got, want, **TOL)
+        _assert_params(gparams, params)
 
 
 def test_what_is_not_ported_raises(ranks, cpu_mesh_devices):
-    """A ``pp`` axis over 1 and the dry run's pp part at 8 ranks (ROADMAP
-    Queue 1 item 9; the sequence and expert axes run since item 8, and
-    ``tests/test_torch_parallel_moe_sp.py`` holds the dry run's body and
-    ep part), and what is not the port's (a JAX ``Mesh``, the
-    communication knobs without a mesh)."""
-    from ray_tpu_torch.parallel.dryrun import dryrun_multichip
-    assert all("item 9" in msg for msg in _run(ranks, _refused_on_rank))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dryrun_multichip(8)
+    """What is not the port's: a JAX ``Mesh``, the communication knobs
+    without a mesh. (The ``pp`` axis runs as JAX's does, above, and the
+    dry run's pp part at 8 ranks is in
+    ``tests/test_torch_parallel_moe_sp.py``.)"""
     cfg = get_config("gptj-tiny")
     jmesh = jbuild_mesh(JMeshSpec(dp=8), cpu_mesh_devices)
     with pytest.raises(TypeError, match="JAX Mesh"):

@@ -1,19 +1,15 @@
 """The JAX package's ``tests/rlhf/test_config.py`` bodies on the port's
-``RLHFConfig`` (loaded by ``tests/test_torch_runtime_loader.py``)."""
+``RLHFConfig`` (loaded by ``tests/test_torch_runtime_loader.py``), and
+twins that hold ``learner_plan()`` to the JAX package's plan field for
+field."""
 
-import pytest
+import dataclasses
 
+from ray_tpu.rlhf.config import RLHFConfig as JaxRLHFConfig
 from test_torch_runtime_loader import FIXTURES, load_core_tests
-
-_PLAN = ("asserts RLHFConfig.learner_plan(), a ParallelPlan of "
-         "parallel/plan.py, which is not ported (ROADMAP Queue 1 item 9); "
-         "its twin below holds the rest of the body and that "
-         "learner_plan raises")
 
 #: bodies left out, each with its reason
 LEAVE_OUT = {
-    "test_anakin_lowers_to_one_packed_shared_slice": _PLAN,
-    "test_sebulba_lowers_to_spread_rollout_and_train_slices": _PLAN,
     "test_placement_reserve_release_against_live_slice_manager":
         "drives a live SliceManager of autoscaler/slices.py, which is not "
         "ported (ROADMAP Queue 1 item 9); "
@@ -25,6 +21,15 @@ globals().update(FIXTURES)
 globals().update(load_core_tests("rlhf/test_config.py", LEAVE_OUT))
 
 
+def _same_plan(kw):
+    got = RLHFConfig(**kw).learner_plan()
+    want = JaxRLHFConfig(**kw).learner_plan()
+    assert type(got).__name__ == type(want).__name__ == "ParallelPlan"
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.lowering == want.lowering == "spmd"
+    assert got.describe() == want.describe()
+
+
 def test_anakin_lowers_to_one_packed_shared_slice_but_no_plan():
     cfg = RLHFConfig(placement="anakin", num_learners=2, num_engines=3)
     assert cfg.slice_strategy == "SLICE_PACK"
@@ -33,8 +38,7 @@ def test_anakin_lowers_to_one_packed_shared_slice_but_no_plan():
     assert p.groups == [{"role": "shared", "engines": 3,
                          "learners": 2}]
     assert p.slice_strategy == "SLICE_PACK"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cfg.learner_plan()
+    _same_plan(dict(placement="anakin", num_learners=2, num_engines=3))
 
 
 def test_sebulba_lowers_to_spread_rollout_and_train_slices_but_no_plan():
@@ -48,6 +52,5 @@ def test_sebulba_lowers_to_spread_rollout_and_train_slices_but_no_plan():
                                 "learners": 0}
     assert roles["train"] == {"role": "train", "engines": 0,
                               "learners": 4}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        cfg.learner_plan()
+    _same_plan(dict(placement="sebulba", num_learners=4, num_engines=2))
     assert cfg.model_config() == {"dtype": "float32"}

@@ -1,5 +1,7 @@
 """The JAX package's ``tests/core/test_fault_tolerance.py`` bodies on the
-port's runtime (loaded by ``tests/test_torch_runtime_loader.py``)."""
+port's runtime (loaded by ``tests/test_torch_runtime_loader.py``). The two
+MPMD pipeline kill bodies (slow-marked, as in the JAX package) build
+their model with a torch dtype where the JAX body names ``jnp.float32``."""
 
 from test_torch_runtime_loader import FIXTURES, load_core_tests
 
@@ -7,11 +9,12 @@ from test_torch_runtime_loader import FIXTURES, load_core_tests
 LEAVE_OUT = {
     "test_rollout_stream_midepoch_kill_exactly_once":
         "reads rllib (ROADMAP Queue 1 item 10)",
-    "test_mpmd_pipeline_midstage_kill_fails_typed_no_hang":
-        "builds a JAX model on the MPMD pipeline (item 9); slow-marked",
-    "test_mpmd_pipeline_train_midstage_kill_fails_typed_no_hang":
-        "builds a JAX model on the MPMD pipeline (item 9); slow-marked",
 }
 
+#: the model configs of the MPMD bodies: a torch dtype for JAX's
+EDITS = (("import jax.numpy as jnp", "import torch"),
+         ("dtype=jnp.float32", "dtype=torch.float32"))
+
 globals().update(FIXTURES)
-globals().update(load_core_tests("test_fault_tolerance.py", LEAVE_OUT))
+globals().update(load_core_tests("test_fault_tolerance.py", LEAVE_OUT,
+                                 edits=EDITS))

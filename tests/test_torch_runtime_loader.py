@@ -84,16 +84,23 @@ def port_source(filename: str) -> str:
     return re.sub(r"\bRAY_TPU_(?!TORCH_)", "RAY_TPU_TORCH_", src)
 
 
-def load_core_tests(filename: str, leave_out=None, replace=None) -> dict:
+def load_core_tests(filename: str, leave_out=None, replace=None,
+                    edits=()) -> dict:
     """Compile ``tests/core/<filename>`` (or ``tests/serve/...`` for
     ``"serve/<file>"``) against the port and return the names a test
     file takes into its namespace: everything the module defines or
     imports, less the tests in ``leave_out`` (name -> why). ``replace``
     (name -> value) swaps a module-level helper that builds a JAX-side
     object for the port's counterpart, in the namespace the loaded
-    bodies run in."""
+    bodies run in. ``edits`` are ``(old, new)`` source replacements made
+    after the rename, where a body names a JAX dtype (each ``old`` must
+    occur)."""
     path = jax_test_path(filename)
-    tree = ast.parse(port_source(filename), filename=str(path))
+    src = port_source(filename)
+    for old, new in edits:
+        assert old in src, f"{filename} has no {old!r}"
+        src = src.replace(old, new)
+    tree = ast.parse(src, filename=str(path))
     tree = ast.fix_missing_locations(_TimeoutDefaults().visit(tree))
     prefix = "" if path.parent == JAX_CORE else path.parent.name + "_"
     name = "ray_tpu_torch_port_" + prefix + path.stem
