@@ -257,15 +257,16 @@ M3. Gradients against one device at 2 layers on M1's and M2's meshes,
     split over ep as well, the sp one leaves out the sum over sp)
     outside them. The card's free memory comes back after M1-M3.
 PL1. Pipelines, on a runtime of their own: ``ParallelPlan(pp=2,
-    n_microbatches=4).build`` at GPT-J-6B width and 8 layers (two stage
-    actors of 4 layers sharing the card, ``num_gpus=0.5`` each; their
+    n_microbatches=4).build`` at GPT-J-6B width and 4 layers (two stage
+    actors of 2 layers sharing the card, ``num_gpus=0.5`` each; their
     activations and gradients cross the object store), global batch 4 x
     2048, one warm-up and 3 timed steps: step wall, tokens/s, MFU over one
     card, the measured bubble beside the analytic 0.2, each stage's busy,
-    idle, forward, backward and optimizer seconds, the hops' bytes and
-    seconds, each stage's peak memory. Losses finite and falling, each
-    flash kernel launched 16 times a stage a step, and no gradient
-    reaching the driver (the bytes it takes a step).
+    idle, forward, backward and optimizer seconds in the first and the
+    last step, the hops' bytes and seconds, each stage's peak memory.
+    Losses finite and falling, each flash kernel launched 8 times a stage
+    a step, and no gradient reaching the driver (the bytes it takes a
+    step).
 PL2. PL1 interleaved (``virtual=2``), 2 timed steps: the same checks,
     the analytic bubble 1/9, the first loss equal to PL1's.
 PL3. At 2 layers, ``ParallelPlan(pp=2)``'s pipeline: its first step,
@@ -283,6 +284,35 @@ PL4. ``pipeline_apply`` over MeshSpec(pp=4) on four rank actors
     each flash kernel launched 7 times a rank (garbage ticks included);
     the exchanges' host-staged bytes and seconds. The card's free memory
     comes back after PL1-PL4.
+PL5. The nested ``mpmd3d`` pipeline, each of PL5, PL6 and EL1 on a
+    runtime of its own with the card's free memory back after it:
+    ``MPMDPipeline(n_stages=2, dp=2, n_microbatches=4, train=False)`` at
+    2 layers, four rank actors (``num_gpus=0.25``; each stage's pair in
+    a gloo group), a seeded 8 x 2048 batch (one row a rank a
+    microbatch): the loss and the stages' reduced gradients against the
+    one-device step on the same weights (P2's bounds), a control that
+    seeds each rank with n_i / N without its share n_loc / n_mb outside
+    them with its gradient norm about twice the reference's; each rank's
+    f32 reduction bytes and seconds; each flash kernel launched 4 times a
+    rank.
+PL6. ``ParallelPlan(pp=2, dp=2, n_microbatches=4, grad_transport="int8",
+    shard_weight_update=True)`` at 4 layers, one warm-up and 2 timed
+    steps: PL1's record and checks (8 launches a kernel a rank a step),
+    each rank's int8 reduction seconds and wire bytes under a third of
+    its f32 gradient's, its Adam bytes about half the plain layout's,
+    the params of a stage's two ranks bit-identical (sha256) after the
+    last step.
+EL1. ``ElasticTrainer(ParallelPlan(pp=2, dp=2, n_microbatches=4),
+    snapshot_interval=8)`` at 2 layers with a ``SliceManager`` over an
+    in-memory ``FakeSliceProvider`` sending its drain notice, beside the
+    one-device ``ParallelPlan()`` from the same weights: 2 steps, a
+    maintenance notice (the slice drains and is released), step 3
+    folding live to pp=2 x dp=1 (0 steps lost), step 4, a stage actor
+    killed while step 5 runs (recovered on the same grid from the fold's
+    snapshot, steps 3-4 replayed: 3 lost), step 6. Every loss within
+    P2's loss bound of the one-device plan's; the two recoveries'
+    triggers, plans, steps lost and seconds; SLICE_DRAIN, SLICE_DOWN
+    and the four ELASTIC_* events; each program's flash launches.
 
 Before them the script's total wall is printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
@@ -291,9 +321,11 @@ verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
 and RL2's ``rlhf_launches``; each flash kernel's carries RL1's and each RL2
 learner's ``rlhf_learner_launches``, each P1 rank's
 ``sharded_launches``, each M1 rank's ``moe_launches``, each M2 rank's
-``ring_launches``, each PL1 and PL2 stage's ``pipeline_launches`` and
-each PL4 rank's ``gpipe_launches``); the last line is ``{"ok": true,
-"device": {...}}``.
+``ring_launches``, each PL1 and PL2 stage's ``pipeline_launches``,
+each PL4 rank's ``gpipe_launches``, each PL5 and PL6 rank's
+``mpmd3d_launches`` and each rank of each program EL1 built
+``elastic_launches``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -4267,7 +4299,7 @@ def moe_ring_phases(dev, card: str, seed: int):
 # PL4 drives the GPipe pipeline_apply over MeshSpec(pp=4) on four rank
 # actors sharing the card over gloo: each tick's exchange crosses a host
 # buffer (collective._GLOO_CUDA_OPS).
-PIPE_LAYERS = 8                    # 4 a stage: about 1.01 B params each
+PIPE_LAYERS = 4                    # 2 a stage: about 0.61 B params each
 PIPE_BATCH = 4                     # 4 x 2048: microbatches of 1 x 2048
 PIPE_MICROBATCHES = 4
 PL1_TIMED_STEPS = 3
@@ -4297,10 +4329,10 @@ def pipe_model(n_layers: int):
                                remat_policy="dots", ce_chunk_size=512)
 
 
-def pipe_batch(cfg, seed: int):
+def pipe_batch(cfg, seed: int, rows: int = PIPE_BATCH):
     rng = np.random.default_rng(seed + 9)
     return {"input_ids": rng.integers(0, cfg.vocab_size,
-                                      (PIPE_BATCH, cfg.max_seq_len))}
+                                      (rows, cfg.max_seq_len))}
 
 
 def stage_probe(stage, what: str):
@@ -4329,13 +4361,16 @@ def driver_bytes() -> float:
     return float(sum(runtime_metrics().materialized_bytes._values.values()))
 
 
-def pipe_run(name: str, card: str, cfg, plan, seed: int, steps: int):
-    """``plan.build(cfg)`` and ``steps`` steps on PIPE_BATCH x 2048 (the
+def pipe_run(name: str, card: str, cfg, plan, seed: int, steps: int,
+             rows: int = PIPE_BATCH, probe=None):
+    """``plan.build(cfg)`` and ``steps`` steps on ``rows`` x 2048 (the
     first a warm-up): the step wall, tokens/s and MFU over one card, the
-    measured bubble beside the analytic one, each stage's busy, idle,
-    forward, backward and optimizer seconds, the hops' bytes and seconds,
-    each stage's launches in the last step and its peak memory (at init
-    and over the steps), and the bytes the driver took while stepping."""
+    measured bubble beside the analytic one, each stage's (each rank's,
+    on a stage mesh) busy, idle, forward, backward and optimizer seconds,
+    the hops' bytes and seconds and the stage reduction's, its launches
+    in the last step and its peak memory (at init and over the steps),
+    and the bytes the driver took while stepping; ``probe(prog)`` adds
+    its entries before the program shuts down."""
     from ray_tpu_torch.parallel.mpmd_pipeline import analytic_bubble
     t0 = time.perf_counter()
     prog = plan.build(cfg, learning_rate=1e-4, seed=seed)
@@ -4343,7 +4378,7 @@ def pipe_run(name: str, card: str, cfg, plan, seed: int, steps: int):
     try:
         init = on_stages(prog.pipeline, "read")
         on_stages(prog.pipeline, "reset")
-        batch = pipe_batch(cfg, seed)
+        batch = pipe_batch(cfg, seed, rows)
         res, walls, bytes0 = [], [], driver_bytes()
         for i in range(steps):
             if i == steps - 1:
@@ -4353,18 +4388,19 @@ def pipe_run(name: str, card: str, cfg, plan, seed: int, steps: int):
             walls.append(time.perf_counter() - t1)
         took = driver_bytes() - bytes0
         after = on_stages(prog.pipeline, "read")
+        extra = probe(prog) if probe is not None else {}
     finally:
         prog.shutdown()
     S = cfg.max_seq_len
     timed = walls[1:]
     step_s = float(np.mean(timed))
-    tok_s = PIPE_BATCH * S / step_s
+    tok_s = rows * S / step_s
     flops_tok = cfg.flops_per_token(S)
     stats = [r.detail.stage_stats for r in res]
     rec = {"phase": name, "card": card,
            "config": f"gptj-6b n_layers={cfg.n_layers}",
            "plan": plan.describe(), "stage_gpus": prog.pipeline.stage_gpus,
-           "params": cfg.num_params, "batch": [PIPE_BATCH, S],
+           "params": cfg.num_params, "batch": [rows, S],
            "microbatches": plan.n_microbatches, "build_s": build_s,
            "losses": [r.loss for r in res],
            "grad_norms": [r.grad_norm for r in res], "walls_s": walls,
@@ -4373,15 +4409,17 @@ def pipe_run(name: str, card: str, cfg, plan, seed: int, steps: int):
            "bubble": [r.bubble_fraction for r in res],
            "bubble_analytic": analytic_bubble(plan.pp, plan.n_microbatches,
                                               plan.virtual),
-           "stages_last_step": [{k: st[k] for k in (
-               "busy_s", "idle_s", "fwd_s", "bwd_s", "opt_s", "ops",
-               "sent_bytes", "sent_s", "recv_bytes", "to_device_s")}
-               for st in stats[-1]],
+           **{f"stages_{which}_step": [{k: st[k] for k in (
+               "stage", "rank", "busy_s", "idle_s", "fwd_s", "bwd_s",
+               "opt_s", "ops", "sent_bytes", "sent_s", "recv_bytes",
+               "to_device_s", "reduce_s", "reduce_bytes")}
+               for st in stats[j]] for which, j in (("first", 0),
+                                                    ("last", -1))},
            "launches_last_step": [a["launches"] for a in after],
            "peak_gb_init": [a["peak_gb"] for a in init],
            "peak_gb_steps": [a["peak_gb"] for a in after],
            "devices": [a["device"] for a in after],
-           "driver_bytes_per_step": took / steps}
+           "driver_bytes_per_step": took / steps, **extra}
     print(f"{name.lower()} " + json.dumps(rec), flush=True)
     return rec
 
@@ -4791,6 +4829,424 @@ def pipeline_phases(dev, card: str, seed: int):
     return out
 
 
+# Stage meshes and elastic training. PL5 and PL6 drive the mpmd3d
+# lowering: a dp x fsdp mesh inside each pipeline stage, here dp=2, so
+# four rank actors (two a stage, num_gpus=0.25 each) share the card, each
+# stage's two ranks in a gloo group of their own (NCCL refuses two ranks
+# on one device): each rank takes one row of every 2 x 2048 microbatch,
+# and a stage's gradient reduction crosses host memory through gloo.
+# EL1 drives ElasticTrainer over ParallelPlan(pp=2, dp=2), a SliceManager
+# feeding it a drain notice, and a stage actor killed mid-step.
+MESH_ROWS = 8                      # 8 x 2048 in 4 microbatches: 1 a rank
+MESH_MICROBATCHES = 4
+MESH_DP = 2
+PL5_LAYERS = 2                     # one a stage
+PL6_LAYERS = 4                     # two a stage
+PL6_TIMED_STEPS = 2
+EL1_LAYERS = 2
+EL1_STEPS = 6
+EL1_SNAPSHOT_INTERVAL = 8
+# PL5's control seeds each rank's backward with the microbatch's n_i / N,
+# without the rank's share n_loc / n_mb of its tokens (1/2 here): the
+# stage's summed gradients are twice the step's.
+PL5_CONTROL_RATIO = 2.0
+PL5_CONTROL_RATIO_TOL = 0.1
+# EL1's losses against the one-device plan's at the same step: P2's loss
+# bound (the ranks' microbatches round their bf16 products apart from the
+# one-device batch's).
+EL1_LOSS_REL = P2_LOSS_REL_BOUND
+
+
+def mesh_control_grad_norm(pipe, batch) -> float:
+    """PL5's control: the serial chunk walk over the stage meshes with
+    every rank's backward seeded with its microbatch's n_i / N, the share
+    n_loc / n_mb of the microbatch's tokens left out (the rank applies
+    it, so the driver feeds n_i / N * n_mb / n_loc: N with no mask); the
+    L2 norm of the reduced gradients it leaves in the stages (one
+    squared norm a stage reaches the driver)."""
+    import ray_tpu_torch
+    ids_mb, _, ns = pipe._split(batch)
+    total = sum(ns)
+    K, S, N = pipe.n_chunks, pipe.n_stages, pipe.n_ranks
+    get = lambda r: ray_tpu_torch.get(r, timeout=ACTOR_TIMEOUT_S)  # noqa
+    get([a.reset_step.remote() for a in pipe.stages])
+    for i in range(pipe.n_microbatches):
+        ids = [pipe.rows(ids_mb[i], r) for r in range(N)]
+        acts = get([a.forward_one.remote(0, i, ids[r])
+                    for r, a in enumerate(pipe.ranks[0])])
+        for ch in range(1, K):
+            acts = get([a.forward_one.remote(ch, i, acts[r], ids[r])
+                        if ch == K - 1 else
+                        a.forward_one.remote(ch, i, acts[r])
+                        for r, a in enumerate(pipe.ranks[ch % S])])
+        gs = [np.float32(ns[i] / total * N)] * N
+        for ch in range(K - 1, -1, -1):
+            gs = get([a.backward_one.remote(ch, i, gs[r])
+                      for r, a in enumerate(pipe.ranks[ch % S])])
+    sq = get([a.grad_sq_norm.remote() for a in pipe.stages])
+    return math.sqrt(sum(sq[s * N] for s in range(S)))
+
+
+def phase_pl5(dev, card: str, seed: int):
+    """PL5: ``MPMDPipeline(n_stages=2, dp=2, n_microbatches=4,
+    train=False)`` at GPT-J-6B width and PL5_LAYERS layers, four ranks
+    sharing the card: the step's loss and the stages' reduced gradients
+    against the one-device step on the same weights and batch (P2's
+    bounds), the control outside with its gradient norm near twice the
+    reference's; each rank's f32 reduction bytes and seconds; each flash
+    kernel launched 1 layer x 4 microbatches = 4 times a rank."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models import init_params, lm_loss
+    from ray_tpu_torch.parallel.mpmd_pipeline import MPMDPipeline
+    cfg = pipe_model(PL5_LAYERS)
+    batch = pipe_batch(cfg, seed, MESH_ROWS)
+    t0 = time.perf_counter()
+    pipe = MPMDPipeline(cfg, n_stages=2, n_microbatches=MESH_MICROBATCHES,
+                        seed=seed, dp=MESH_DP, learning_rate=1e-4)
+    build_s = time.perf_counter() - t0
+    try:
+        on_stages(pipe, "reset")
+        step = pipe.step(batch)
+        launches = on_stages(pipe, "read")
+        grads = pipe.grads()
+        stats = ray_tpu_torch.get([a.step_stats.remote()
+                                   for a in pipe.stages],
+                                  timeout=ACTOR_TIMEOUT_S)
+        ctl_norm = mesh_control_grad_norm(pipe, batch)
+        gpus = pipe.stage_gpus
+    finally:
+        pipe.shutdown()
+    params = init_params(cfg, seed, dev)
+    names = [n for n, _ in _named(params)]
+    leaves = [t.requires_grad_() for _, t in _named(params)]
+    loss, _ = lm_loss(cfg, params, {"input_ids": torch.tensor(
+        batch["input_ids"], device=dev)})
+    ref = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    del params, leaves
+    k = merged_grad_errors(cfg, grads, ref, step.loss, loss.item(), dev)
+    ref_norm = math.sqrt(sum((g.float() ** 2).sum().item()
+                             for g in ref.values()))
+    del ref, grads
+    gc.collect()
+    c = {"grad_norm": ctl_norm, "grad_norm_one_device": ref_norm,
+         "ratio": ctl_norm / ref_norm,
+         "grad_rel_l2_at_least": abs(ctl_norm - ref_norm) / ref_norm}
+    res = {"card": card, "config": f"gptj-6b n_layers={PL5_LAYERS}",
+           "mesh": {"pp": 2, "dp": MESH_DP}, "num_gpus_a_rank": gpus,
+           "batch": [MESH_ROWS, cfg.max_seq_len],
+           "microbatches": MESH_MICROBATCHES, "build_s": build_s,
+           "step_wall_s": step.wall_s,
+           "bounds": [P2_LOSS_REL_BOUND, P2_GRAD_REL_L2_BOUND,
+                      P2_LEAF_REL_L2_BOUND],
+           "pipeline": k, "control": c,
+           "reduction": [{key: st[key] for key in (
+               "stage", "rank", "reduce_s", "reduce_bytes")}
+               for st in stats],
+           "launches": [a["launches"] for a in launches],
+           "devices": [a["device"] for a in launches],
+           "wall_s": time.perf_counter() - t0}
+    print("pl5 " + json.dumps(res), flush=True)
+    check(k["loss_rel"] <= P2_LOSS_REL_BOUND,
+          f"PL5 loss rel {k['loss_rel']} > {P2_LOSS_REL_BOUND}")
+    check(k["grad_rel_l2"] <= P2_GRAD_REL_L2_BOUND,
+          f"PL5 grad rel L2 {k['grad_rel_l2']} > {P2_GRAD_REL_L2_BOUND}")
+    check(k["worst_leaf_rel_l2"] <= P2_LEAF_REL_L2_BOUND,
+          f"PL5 leaf {k['worst_leaf']} grad rel L2 "
+          f"{k['worst_leaf_rel_l2']} > {P2_LEAF_REL_L2_BOUND}")
+    check(c["grad_rel_l2_at_least"] > P2_GRAD_REL_L2_BOUND,
+          f"PL5: the control's gradients (rel L2 at least "
+          f"{c['grad_rel_l2_at_least']}) may pass the bounds")
+    check(abs(c["ratio"] - PL5_CONTROL_RATIO) <= PL5_CONTROL_RATIO_TOL,
+          f"PL5: the control's gradient norm is {c['ratio']} x the "
+          f"reference's, not about {PL5_CONTROL_RATIO}")
+    for j, counts in enumerate(res["launches"]):
+        check(res["devices"][j] == device_name(dev),
+              f"PL5 rank {j} runs on {res['devices'][j]!r}")
+        for n, cnt in counts.items():
+            check(cnt == MESH_MICROBATCHES, f"PL5 rank {j}: {n} launched "
+                  f"{cnt} times, not {MESH_MICROBATCHES}")
+    return res
+
+
+def mesh_rank_state(stage):
+    """In a stage-mesh rank: sha256 of each param leaf's bytes, the Adam
+    moments' bytes it holds and what the plain layout would hold."""
+    import hashlib
+    params = stage.params
+    sha = {}
+    for name, t in _named({str(c): p for c, p in params.items()}):
+        sha[name] = hashlib.sha256(t.detach().cpu().contiguous().view(
+            torch.uint8).numpy().tobytes()).hexdigest()
+    numel = sum(t.numel() for _, t in _named(
+        {str(c): p for c, p in params.items()}))
+    return {"stage": stage.stage, "rank": stage.rank, "sha": sha,
+            "grad_f32_bytes": 4 * numel, "adam_bytes": stage.adam_bytes(),
+            "adam_bytes_plain": 8 * numel}
+
+
+def mesh_replicas(prog):
+    import ray_tpu_torch
+    ranks = ray_tpu_torch.get([a.__ray_call__.remote(mesh_rank_state)
+                               for a in prog.pipeline.stages],
+                              timeout=ACTOR_TIMEOUT_S)
+    return {"replicas": [{k: v for k, v in r.items() if k != "sha"}
+                         for r in ranks],
+            "replicas_bit_identical": [
+                len({json.dumps(r["sha"], sort_keys=True) for r in ranks
+                     if r["stage"] == s}) == 1
+                for s in range(prog.pipeline.n_stages)]}
+
+
+def phase_pl6(dev, card: str, seed: int):
+    """PL6: ``ParallelPlan(pp=2, dp=2, n_microbatches=4,
+    grad_transport="int8", shard_weight_update=True)`` at PL6_LAYERS
+    layers, one warm-up and PL6_TIMED_STEPS timed steps: PL1's record and
+    checks (each flash kernel 2 layers x 4 microbatches = 8 times a rank
+    a step, losses falling, under 1 MB a step to the driver), each
+    stage's int8 reduction under a third of its f32 gradient's bytes,
+    each rank's Adam bytes about half the plain layout's, the params of
+    a stage's two ranks bit-identical after the last step."""
+    from ray_tpu_torch.parallel.plan import ParallelPlan
+    plan = ParallelPlan(pp=2, dp=MESH_DP, n_microbatches=MESH_MICROBATCHES,
+                        grad_transport="int8", shard_weight_update=True)
+    rec = pipe_run("PL6", card, pipe_model(PL6_LAYERS), plan, seed,
+                   1 + PL6_TIMED_STEPS, rows=MESH_ROWS, probe=mesh_replicas)
+    check_pipe_run("PL6", dev, rec, PL6_LAYERS // 2)
+    check(all(rec["replicas_bit_identical"]),
+          f"PL6: a stage's ranks hold different params "
+          f"{rec['replicas_bit_identical']}")
+    for st, r in zip(rec["stages_last_step"], rec["replicas"]):
+        check(0 < st["reduce_bytes"] < r["grad_f32_bytes"] / 3,
+              f"PL6 stage {st['stage']} rank {st['rank']}: the int8 "
+              f"reduction's {st['reduce_bytes']} B are not under a third "
+              f"of the f32 gradient's {r['grad_f32_bytes']} B")
+        check(r["adam_bytes"] <= 0.51 * r["adam_bytes_plain"],
+              f"PL6 stage {r['stage']} rank {r['rank']}: {r['adam_bytes']} "
+              f"B of Adam moments, not about half the plain layout's "
+              f"{r['adam_bytes_plain']} B")
+    return rec
+
+
+class SliceHostController:
+    """What EL1's slice manager sees of a controller: the in-memory fake
+    provider's hosts are synthetic (no node manager joins the runtime),
+    so the drain's scheduler and placement-group hooks act on nothing,
+    the demand snapshot is empty, and the slice events go to the
+    driver's flight recorder beside the elastic trainer's."""
+
+    def __init__(self, recorder):
+        self.recorder = recorder
+        self.scheduler = self
+        self.draining = {}
+        self.ready_queues, self.tasks, self.leases = {}, {}, {}
+        self.actors, self.nodes, self.pending_pgs = {}, {}, []
+
+    def set_draining(self, node_id, flag: bool) -> None:
+        self.draining[node_id.binary()] = flag
+
+    def call_on_loop(self, fn, timeout=None):
+        return fn()
+
+    def _reschedule_pgs_on_nodes(self, node_bs) -> int:
+        return 0
+
+    def _maybe_schedule(self, force: bool = False) -> None:
+        pass
+
+
+def kill_mid_step(victim):
+    """The driver's next pipeline step kills ``victim`` at its first
+    streamed item (``streaming.wait_any``), so the kill lands mid-step."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core import streaming
+    orig = streaming.wait_any
+
+    def wait_any(*args, **kw):
+        out = orig(*args, **kw)
+        if streaming.wait_any is wait_any:
+            streaming.wait_any = orig
+            ray_tpu_torch.kill(victim)
+        return out
+    streaming.wait_any = wait_any
+
+
+def program_launches(prog):
+    """Each rank's flash launches (None for a dead rank)."""
+    import ray_tpu_torch
+    out = []
+    for a in prog.pipeline.stages:
+        try:
+            out.append(ray_tpu_torch.get(
+                a.__ray_call__.remote(stage_probe, "read"),
+                timeout=60)["launches"])
+        except Exception:
+            out.append(None)
+    return out
+
+
+def phase_el1(dev, card: str, seed: int):
+    """EL1: ``ElasticTrainer(ParallelPlan(pp=2, dp=2, n_microbatches=4),
+    snapshot_interval=8)`` at EL1_LAYERS layers with a ``SliceManager``
+    over an in-memory ``FakeSliceProvider`` (one slice) feeding it drain
+    notices, beside the one-device ``ParallelPlan()`` from the same
+    weights: 2 steps; a maintenance notice drains and releases the
+    slice, and step 3 folds live to pp=2 x dp=1 (0 steps lost); step 4;
+    a stage actor killed while step 5 runs: the trainer recovers on the
+    same grid from the fold's snapshot and replays steps 3-4 (3 steps
+    lost); step 6. Every loss within EL1_LOSS_REL of the one-device
+    plan's at its step; the two recoveries' triggers, plans, steps lost
+    and seconds; SLICE_DRAIN, SLICE_DOWN and the four ELASTIC_* events;
+    each program's flash launches (8 a rank in the first, 16 in the
+    last, which replays 3-4 and runs 5-6)."""
+    from ray_tpu_torch.autoscaler import (FakeSliceProvider, SliceManager,
+                                          SliceTypeConfig)
+    from ray_tpu_torch.core.global_state import try_global_worker
+    from ray_tpu_torch.parallel.elastic import ElasticTrainer
+    from ray_tpu_torch.parallel.plan import ParallelPlan
+    from ray_tpu_torch.util.state import list_task_events
+    cfg = pipe_model(EL1_LAYERS)
+    batch = pipe_batch(cfg, seed, MESH_ROWS)
+    recorder = try_global_worker().recorder
+    provider = FakeSliceProvider(provider_config={"max_slices": 1})
+    mgr = SliceManager(SliceHostController(recorder), provider,
+                       [SliceTypeConfig("gpu-host", "1x1",
+                                        {"CPU": 8, "GPU": 1})],
+                       idle_timeout_s=3600.0, drain_deadline_s=0.0)
+    sid = mgr.acquire_slice("gpu-host")
+    hosts = set(provider.internal_ids(sid))
+
+    def pump():
+        mgr.update({"demand": [], "slice_demand": [], "busy_nodes": hosts,
+                    "alive_nodes": hosts})
+    pump()
+    res = {"card": card, "config": f"gptj-6b n_layers={EL1_LAYERS}",
+           "plan": "pp=2 dp=2 M=4", "batch": [MESH_ROWS, cfg.max_seq_len],
+           "snapshot_interval": EL1_SNAPSHOT_INTERVAL,
+           "slice_up": mgr.slices[sid].state == "UP"}
+    t0 = time.perf_counter()
+    trainer = ElasticTrainer(
+        ParallelPlan(pp=2, dp=MESH_DP, n_microbatches=MESH_MICROBATCHES),
+        cfg, learning_rate=1e-4, seed=seed,
+        snapshot_interval=EL1_SNAPSHOT_INTERVAL, slice_manager=mgr)
+    res["build_s"] = time.perf_counter() - t0
+    launches, watched = [], []
+
+    def watch(prog):
+        """Read a program's launches just before it shuts down."""
+        if any(prog is w for w in watched):
+            return
+        watched.append(prog)
+        inner = prog.shutdown
+
+        def shutdown():
+            launches.append(program_launches(prog))
+            inner()
+        prog.shutdown = shutdown
+    ref = ParallelPlan().build(cfg, learning_rate=1e-4, seed=seed,
+                               device=dev)
+    steps = []
+    try:
+        watch(trainer.program)
+        for k in range(EL1_STEPS):
+            if k == 2:
+                provider.inject_maintenance(sid)
+                pump()
+            if k == 4:
+                kill_mid_step(trainer.program.pipeline.stages[-1])
+            t1 = time.perf_counter()
+            got = trainer.step(batch)
+            wall = time.perf_counter() - t1
+            want = ref.step(batch).loss
+            steps.append({"step": k + 1, "loss": got.loss,
+                          "loss_one_device": want,
+                          "rel": abs(got.loss - want) / abs(want),
+                          "wall_s": wall, "plan": trainer.plan.describe()})
+            watch(trainer.program)
+        recoveries = [r.asdict() for r in trainer.recoveries]
+        recorder.flush()
+        events = sorted({e["ev"] for e in list_task_events(limit=100_000)})
+    finally:
+        trainer.shutdown()
+        mgr.shutdown()
+        provider.shutdown()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    res.update(steps=steps, recoveries=recoveries, events=events,
+               slice_state=mgr.slices[sid].state, launches=launches,
+               wall_s=time.perf_counter() - t0)
+    print("el1 " + json.dumps(res), flush=True)
+    check(res["slice_up"], "EL1: the fake slice never came up")
+    for st in steps:
+        check(math.isfinite(st["loss"]) and st["rel"] <= EL1_LOSS_REL,
+              f"EL1 step {st['step']}: loss {st['loss']} against the "
+              f"one-device {st['loss_one_device']} (rel {st['rel']})")
+    want_plans = [("notice", "mpmd3d[pp=2 M=4 dp=2 fp32]",
+                   "mpmd[pp=2 M=4 fp32]", 0),
+                  ("failure", "mpmd[pp=2 M=4 fp32]", "mpmd[pp=2 M=4 fp32]",
+                   3)]
+    got_plans = [(r["trigger"], r["from_plan"], r["to_plan"],
+                  r["steps_lost"]) for r in recoveries]
+    check(got_plans == want_plans,
+          f"EL1 recoveries {got_plans}, not {want_plans}")
+    for name in ("SLICE_DRAIN", "SLICE_DOWN", "ELASTIC_NOTICE",
+                 "ELASTIC_SNAPSHOT", "ELASTIC_RELOWER", "ELASTIC_RESUME"):
+        check(name in events, f"EL1: no {name} event in {events}")
+    check(res["slice_state"] == "RELEASED",
+          f"EL1: the drained slice is {res['slice_state']}")
+    check(len(launches) == 3, f"EL1 built {len(launches)} programs, not 3")
+    want = {0: 2 * MESH_MICROBATCHES, 2: 4 * MESH_MICROBATCHES}
+    for p, counts in enumerate(launches):
+        for j, c in enumerate(counts):
+            if p == 1 and c is None:
+                continue                       # the killed rank
+            for n, cnt in (c or {}).items():
+                check(cnt == want[p] if p in want else cnt > 0,
+                      f"EL1 program {p} rank {j}: {n} launched {cnt} times"
+                      f" (want {want.get(p, 'some')})")
+    return res
+
+
+def on_own_runtime(name: str, dev, phase, *args):
+    """``phase(dev, *args)`` on a runtime of its own; the card's free
+    memory must come back after it."""
+    import ray_tpu_torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
+                       _num_initial_workers=0)
+    try:
+        out = phase(dev, *args)
+    finally:
+        ray_tpu_torch.shutdown()
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + 60
+    while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
+            and time.monotonic() < deadline:
+        time.sleep(0.5)
+    free1 = torch.cuda.mem_get_info()[0]
+    print(f"phase {name} wall: {time.perf_counter() - t0:.1f} s; card "
+          f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f} GB "
+          f"after", flush=True)
+    check(free1 >= free0 - (1 << 30),
+          f"{name}'s card memory did not come back")
+    return out
+
+
+def mesh_elastic_phases(dev, card: str, seed: int):
+    """PL5, PL6 and EL1 after PL4, each on a runtime of its own. Returns
+    their records."""
+    t0 = time.perf_counter()
+    out = {name: on_own_runtime(name, dev, phase, card, seed)
+           for name, phase in (("PL5", phase_pl5), ("PL6", phase_pl6),
+                               ("EL1", phase_el1))}
+    print(f"phases PL5-EL1 wall: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4835,6 +5291,7 @@ def main(argv=None) -> int:
     sharded = sharding_phases(dev, card, args.seed)
     moe_ring = moe_ring_phases(dev, card, args.seed)
     pipes = pipeline_phases(dev, card, args.seed)
+    mesh = mesh_elastic_phases(dev, card, args.seed)
     for rec in flash:
         rec["sharded_launches"] = [r["launches"][rec["name"]]
                                    for r in sharded["P1"]["ranks"]]
@@ -4847,6 +5304,13 @@ def main(argv=None) -> int:
             for name in ("PL1", "PL2")}
         rec["gpipe_launches"] = [c[rec["name"]] for c in
                                  pipes["PL4"]["gpipe"]["launches"]]
+        rec["mpmd3d_launches"] = {
+            "PL5": [c[rec["name"]] for c in mesh["PL5"]["launches"]],
+            "PL6": [c[rec["name"]]
+                    for c in mesh["PL6"]["launches_last_step"]]}
+        rec["elastic_launches"] = [
+            [c[rec["name"]] if c is not None else None for c in prog]
+            for prog in mesh["EL1"]["launches"]]
 
     print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -67,6 +67,12 @@ def serve(sock_path: str, parent_pid: int = 0) -> None:
     # worker pays: interpreter is already up here, so this is the only
     # boot cost left) BEFORE accepting spawns. Must not start threads.
     import ray_tpu_torch.core.worker  # noqa: F401
+    # ... and torch with torch._dynamo, which the first call of any torch
+    # custom op (the flash kernels' wrappers) imports: about 3 s of CPU a
+    # worker otherwise. Neither starts a thread or touches CUDA (a child
+    # initializes CUDA itself, after the fork).
+    import torch  # noqa: F401
+    import torch._dynamo  # noqa: F401
 
     # Fork-server GC hygiene: freeze the warmed heap into the permanent
     # generation. Without this every child's first gen-2 collection

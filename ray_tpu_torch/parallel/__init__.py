@@ -7,9 +7,10 @@ Device meshes with named axes (dp/fsdp/tp/sp/ep/pp) over the ranks of a
 process group, the JAX package's logical-axis rule tables as explicit
 per-rank shards, and eager and autograd-aware collectives over nccl,
 gloo or the runtime's KV store. ``mpmd_pipeline`` (the MPMD pipeline of
-stage actors) and ``ParallelPlan`` (one grid lowered to the SPMD step or
-the pipeline) resolve lazily; elastic training (``ElasticTrainer``) is
-ROADMAP Queue 1 item 9 and raises.
+stage actors, with a dp x fsdp mesh of rank actors inside each stage),
+``ParallelPlan`` (one grid lowered to the SPMD step, the pipeline or the
+nested ``mpmd3d`` pipeline) and ``ElasticTrainer`` (drain, re-lower,
+resume) resolve lazily.
 """
 
 from ray_tpu_torch.parallel.mesh import (
@@ -49,9 +50,9 @@ __all__ = [
 
 
 def __getattr__(name):
-    # mpmd_pipeline / plan import lazily: they pull in the runtime and
-    # model layers, which plain sharding users should not pay for at
-    # import time
+    # mpmd_pipeline / plan / elastic import lazily: they pull in the
+    # runtime and model layers, which plain sharding users should not pay
+    # for at import time
     if name == "mpmd_pipeline":
         import importlib
         return importlib.import_module(
@@ -60,8 +61,6 @@ def __getattr__(name):
         from ray_tpu_torch.parallel.plan import ParallelPlan
         return ParallelPlan
     if name == "ElasticTrainer":
-        raise NotImplementedError(
-            "ray_tpu_torch.parallel.ElasticTrainer: elastic training "
-            "(parallel/elastic.py, re-lowering plans as the world changes) "
-            "is ROADMAP Queue 1 item 9, not ported yet")
+        from ray_tpu_torch.parallel.elastic import ElasticTrainer
+        return ElasticTrainer
     raise AttributeError(name)

@@ -1,6 +1,6 @@
 """MPMD pipeline parallelism: actor-hosted stages, streamed activations,
-interleaved virtual stages, a per-stage optimizer step. The port of
-``ray_tpu/parallel/mpmd_pipeline.py`` with one device a stage.
+interleaved virtual stages, a per-stage optimizer step, and a dp x fsdp
+mesh inside each stage. The port of ``ray_tpu/parallel/mpmd_pipeline.py``.
 
 ``ops/pipeline.py`` runs every stage in one SPMD program (GPipe). This
 module is the MPMD alternative the task/actor runtime makes possible
@@ -28,6 +28,23 @@ arXiv:2104.06272):
   mailbox. With ``n_virtual > 1`` the warm-up and cool-down bubble
   shrinks: analytic ``(S-1)/(v*M+S-1)`` against GPipe's
   ``(S-1)/(M+S-1)``.
+- a **stage mesh** (the JAX ``mpmd3d`` lowering, ``dp * fsdp > 1`` or
+  ``stage_mesh=True``): where JAX drives a stage's dp x fsdp devices as
+  one ``shard_map`` program, the port runs ``N = dp * fsdp`` rank actors
+  a stage, one a mesh coordinate, joined in a collective group of their
+  own (one a stage; stages share none). Params are replicated in the
+  stage (JAX's ``P()``); each microbatch is split by rows over the ranks
+  in ``P(("dp", "fsdp"))`` order, and rank ``r`` of chunk ``c`` sends to
+  rank ``r`` of chunk ``c + 1``. The last chunk's loss is
+  ``psum(loss * n) / psum(n)`` over the group and a rank seeds its
+  backward with ``seed * n_loc / n_mb``. Each rank accumulates its
+  gradients in f32 with no reduction in the backward; they are reduced
+  once a step by ``collective.psum_tree`` over the group (f32, or the
+  two-leg int8 ``quantized_psum`` with ``grad_transport="int8"``), and
+  the squared norm is taken of the reduced gradients, one value a stage.
+  ``shard_weight_update`` keeps the Adam moments as flat 1/N chunks on
+  each rank (the flat layout of ``models.training``) and gathers the
+  updated params back, so they stay replicated.
 
 Activations and their gradients cross stages in the compute dtype
 (``config.dtype``), as the JAX ``stage_forward`` returns them; on the
@@ -37,20 +54,18 @@ compute thread).
 
 Every forward, backward, optimizer and idle interval is a
 ``STAGE_TICK`` flight-recorder event labelled with its phase and chunk,
-and :meth:`PipelineStage.step_stats` returns the measured busy/idle split
-and the hops' bytes and seconds.
+and :meth:`PipelineStage.step_stats` returns the measured busy/idle split,
+the hops' bytes and seconds and the stage reduction's bytes and seconds.
 
 Checkpoints: :meth:`PipelineStage.stage_checkpoint` returns the stage's
-params and Adam moments keyed by global chunk id (numpy);
+params and Adam moments keyed by global chunk id (numpy, param-shaped:
+flat moments are gathered first; a stage's part comes from its rank 0);
 :func:`merge_stage_checkpoints` reassembles the canonical one-device
 train state of ``models.training.make_train_step``, ``{"params",
 "opt_state": {"count", "mu", "nu"}, "step"}``, and
 :func:`split_train_state` slices it for any ``(n_stages, n_virtual)``: a
-checkpoint saved at v=2 reloads at v=1, and into the one-device step.
-
-A dp x fsdp mesh inside each stage (the JAX ``mpmd3d`` lowering:
-``dp``, ``fsdp``, ``stage_mesh``, int8 gradient transport and the
-sharded update on a stage) is ROADMAP Queue 1 item 9 and raises.
+checkpoint saved at v=2 or dp=2 reloads at v=1 or dp=1, and into the
+one-device step.
 """
 
 from __future__ import annotations
@@ -67,13 +82,18 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._bridge import to_numpy
-from ray_tpu_torch.models.training import (ClipAdamW, _paths, tree_leaves,
-                                           tree_map)
+from ray_tpu_torch.models.training import (ClipAdamW, _flat_chunk, _get,
+                                           _paths, tree_leaves, tree_map)
 from ray_tpu_torch.models.transformer import (init_leaves,
                                               merge_stage_params, set_leaf,
                                               stage_forward,
                                               stage_layer_ranges, stage_loss,
                                               stage_slice_params)
+from ray_tpu_torch.parallel import collective
+from ray_tpu_torch.parallel.mesh import AxisGroup
+from ray_tpu_torch.parallel.quantization import (DEFAULT_BLOCK_SIZE,
+                                                 tree_wire_bytes)
+from ray_tpu_torch.parallel.sharding import flat_pad_len
 
 __all__ = [
     "one_f_one_b_order",
@@ -226,22 +246,18 @@ def _recorder():
         return None
 
 
-def _check_stage_grid(dp: int, fsdp: int, grad_transport: str,
-                      shard_weight_update: bool,
-                      stage_mesh: Optional[bool]) -> None:
-    """The one-device stage is ported; a mesh inside a stage is not."""
+def _in_worker() -> bool:
+    """Whether this process is a runtime worker (an actor's process)."""
+    from ray_tpu_torch.core.global_state import try_global_worker
+    return getattr(try_global_worker(), "kind", None) == "worker"
+
+
+def _check_stage_grid(dp: int, fsdp: int, grad_transport: str) -> None:
     if dp < 1 or fsdp < 1:
         raise ValueError(f"dp/fsdp must be >= 1, got {dp}/{fsdp}")
     if grad_transport not in ("fp32", "int8"):
         raise ValueError(f"grad_transport must be 'fp32' or 'int8', "
                          f"got {grad_transport!r}")
-    if dp * fsdp > 1 or stage_mesh or grad_transport != "fp32" \
-            or shard_weight_update:
-        raise NotImplementedError(
-            "a dp x fsdp mesh inside each pipeline stage (the mpmd3d "
-            "lowering: dp, fsdp, stage_mesh, int8 gradient transport and "
-            "the sharded update on a stage) is ROADMAP Queue 1 item 9, "
-            "not ported yet; the port's stages hold one device each")
 
 
 def _to_tensors(tree, device):
@@ -313,7 +329,8 @@ def split_train_state(config, state: Dict, n_stages: int,
 
 
 class PipelineStage:
-    """One pipeline stage: in-process, or hosted in its own actor.
+    """One pipeline stage, or one rank of a stage's mesh: in-process, or
+    hosted in its own actor.
 
     Holds the stage's ``n_virtual`` parameter chunks (f32 masters) on its
     device, the autograd graphs of the forwards whose backwards have not
@@ -323,6 +340,14 @@ class PipelineStage:
     :meth:`put_activation`, :meth:`put_grad`, :meth:`put_targets`), and
     one streaming :meth:`run` call a step yields the stage's per-op
     outputs in its deterministic interleaved-1F1B order.
+
+    On a stage mesh (``dp * fsdp > 1``, or ``stage_mesh=True``) the
+    object is rank ``rank`` of the stage's ``dp * fsdp`` ranks, which
+    joined the collective group ``group_name`` (looked up at first use;
+    at one rank no group is needed): it takes its rows of each
+    microbatch, and its loss, gradient reduction, flat update and
+    checkpoint gather run over that group, in the same order on every
+    rank.
 
     Run as an actor with ``max_concurrency >= 2``: ``run`` blocks on the
     mailboxes while the feed calls execute on other threads; received
@@ -345,12 +370,15 @@ class PipelineStage:
                  fsdp: int = 1,
                  grad_transport: str = "fp32",
                  shard_weight_update: bool = False,
-                 stage_mesh: Optional[bool] = None):
+                 quant_block_size: Optional[int] = None,
+                 quant_stochastic: bool = False,
+                 stage_mesh: Optional[bool] = None,
+                 rank: int = 0,
+                 group_name: Optional[str] = None):
         from ray_tpu_torch.core.config import get_config
         from ray_tpu_torch.serve.llm_engine import _server_device
 
-        _check_stage_grid(dp, fsdp, grad_transport, shard_weight_update,
-                          stage_mesh)
+        _check_stage_grid(dp, fsdp, grad_transport)
         if remat_policy is not None:
             config = dataclasses.replace(config, remat=None,
                                          remat_policy=remat_policy)
@@ -360,6 +388,31 @@ class PipelineStage:
         self.n_virtual = n_virtual
         self.n_chunks = n_stages * n_virtual
         self.chunks = stage_virtual_chunks(stage, n_stages, n_virtual)
+        #: the stage's own data-parallel grid: each microbatch is split
+        #: by rows over its dp x fsdp ranks (3D = pp x dp x fsdp)
+        self.dp = int(dp)
+        self.fsdp = int(fsdp)
+        self.n_model = self.dp * self.fsdp
+        self.grad_transport = grad_transport
+        self.shard_weight_update = bool(shard_weight_update)
+        self.quant_block_size = int(quant_block_size or DEFAULT_BLOCK_SIZE)
+        self.quant_stochastic = bool(quant_stochastic)
+        #: the mesh path: automatic when the stage grid is nontrivial;
+        #: ``stage_mesh=True`` runs it on one rank (the clusterless tests)
+        self.use_mesh = (self.n_model > 1 if stage_mesh is None
+                         else bool(stage_mesh))
+        n_ranks = self.n_model if self.use_mesh else 1
+        if not 0 <= rank < n_ranks:
+            raise ValueError(f"rank {rank} of a stage of {n_ranks} ranks")
+        if n_ranks > 1 and group_name is None:
+            raise ValueError(
+                f"stage {stage}'s dp={self.dp} x fsdp={self.fsdp} mesh "
+                f"needs its ranks' collective group (group_name)")
+        self.rank = rank
+        self.group_name = group_name
+        self._axis: Optional[AxisGroup] = None
+        #: flat 1/N optimizer chunks only make sense on a stage mesh
+        self._opt_flat = self.use_mesh and self.shard_weight_update
         #: seconds a mailbox take may starve before the stage fails
         #: typed (a dead neighbour must surface as an error, never a
         #: hang) — config.pipeline_mailbox_deadline_s unless overridden
@@ -368,6 +421,11 @@ class PipelineStage:
             else get_config().pipeline_mailbox_deadline_s)
         self.device = _server_device(device)
         self.cuda = self.device.type == "cuda"
+        if not self.cuda and _in_worker():
+            # one torch thread a rank process on the CPU, as
+            # parallel.dryrun's ranks: stages sharing a host must not
+            # oversubscribe it
+            torch.set_num_threads(1)
         self.params = self._init_chunks(seed)
         for p in tree_leaves(self.params):
             p.requires_grad_(True)
@@ -378,16 +436,22 @@ class PipelineStage:
             self.optimizer = ClipAdamW(learning_rate,
                                        weight_decay=weight_decay,
                                        clip_norm=clip_norm)
-            self.opt_state = self.optimizer.init(self.params)
+            self.opt_state = self.optimizer.init(
+                tree_map(self._flat_slice, self.params) if self._opt_flat
+                else self.params)
         self._step_count = 0
         self._cond = threading.Condition()
         self._acts: Dict[Tuple[int, int], Any] = {}
         self._grads_in: Dict[Tuple[int, int], Any] = {}
         self._targets: Dict[int, Any] = {}
         self._abort = False
-        #: (chunk, microbatch) -> (output, received input) of a forward
-        #: whose backward has not run: the graph JAX keeps as a vjp
+        #: (chunk, microbatch) -> (output, received input[, local and
+        #: stage token counts]) of a forward whose backward has not run:
+        #: the graph JAX keeps as a vjp
         self._saved: Dict[Tuple[int, int], Any] = {}
+        #: the step's gradients reduced over the stage mesh (cached until
+        #: the next backward or step)
+        self._red: Optional[List[torch.Tensor]] = None
         self._stats = self._fresh_stats()
         # live mailbox-depth gauge (fleet metrics plane): how many
         # microbatches are parked waiting for this stage
@@ -398,6 +462,41 @@ class PipelineStage:
         except Exception:
             pass
         self._mbx_tags = {"stage": str(stage)}
+
+    # ------------------------------------------------ the stage mesh
+    def _group(self) -> AxisGroup:
+        """The stage's ranks (a group of one off the mesh or at N=1)."""
+        if self._axis is None:
+            n = self.n_model if self.use_mesh else 1
+            if n == 1:
+                self._axis = AxisGroup(("dp", "fsdp"), None, 1, 0)
+            else:
+                g = collective.get_group(self.group_name)
+                if (g.world_size, g.rank) != (n, self.rank):
+                    raise ValueError(
+                        f"group {self.group_name!r} holds rank {g.rank} of "
+                        f"{g.world_size}; stage {self.stage} wants rank "
+                        f"{self.rank} of {n}")
+                self._axis = g.axis
+        return self._axis
+
+    def _flat_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of ``x`` flattened and padded to whole quant
+        blocks over the stage's ranks (``models.training``'s flat layout;
+        JAX's ``flatten_tree`` sharded over ``("dp", "fsdp")``)."""
+        ranks = AxisGroup(("dp", "fsdp"), None, self.n_model, self.rank)
+        return _flat_chunk(x.detach(), ranks, self.quant_block_size).clone()
+
+    def _unflat(self, tree, like) -> Dict:
+        """Flat chunks gathered over the stage's ranks back into the
+        shapes of ``like`` (a collective: every rank calls it)."""
+        out: Dict = {}
+        for path in _paths(like):
+            full = collective._all_gather(_get(tree, path),
+                                          self._group()).reshape(-1)
+            ref = _get(like, path)
+            set_leaf(out, path, full[:ref.numel()].view(ref.shape))
+        return out
 
     def _init_chunks(self, seed: int) -> Dict[int, Dict]:
         """``stage_slice_params(init_params(seed), chunk)`` for each of
@@ -436,7 +535,7 @@ class PipelineStage:
         return {"busy_s": 0.0, "idle_s": 0.0, "fwd_s": 0.0,
                 "bwd_s": 0.0, "opt_s": 0.0, "ops": 0, "span_s": 0.0,
                 "sent_bytes": 0, "sent_s": 0.0, "recv_bytes": 0,
-                "to_device_s": 0.0}
+                "to_device_s": 0.0, "reduce_s": 0.0, "reduce_bytes": 0}
 
     def _sync(self) -> None:
         if self.cuda:
@@ -533,7 +632,9 @@ class PipelineStage:
         """One forward op: returns the yieldable output (the activation,
         detached, in the compute dtype, or ``{"loss", "n_tokens"}`` on
         the last chunk) and keeps the graph the matching backward
-        needs."""
+        needs. On a stage mesh the last chunk's loss and token count are
+        the stage's: ``psum(loss * n) / max(psum(n), 1)`` and
+        ``psum(n)`` over its ranks."""
         c, K = self.config, self.n_chunks
         p = self.params[ch]
         if ch == 0:
@@ -549,23 +650,39 @@ class PipelineStage:
                               device=self.device) if mask is None \
                 else self._on_device(mask, torch.float32)
             loss, n = stage_loss(c, p, h, ids, mask)
-            self._saved[(ch, i)] = (loss, xin)
-            return {"loss": loss.item(), "n_tokens": float(n)}
+            if not self.use_mesh:
+                self._saved[(ch, i)] = (loss, xin)
+                return {"loss": loss.item(), "n_tokens": float(n)}
+            n = torch.as_tensor(n, dtype=torch.float32, device=self.device)
+            tot = collective._all_reduce(torch.stack(
+                [loss.detach().float() * n, n]), self._group())
+            self._saved[(ch, i)] = (loss, xin, n, tot[1])
+            return {"loss": (tot[0] / tot[1].clamp(min=1.0)).item(),
+                    "n_tokens": tot[1].item()}
         self._saved[(ch, i)] = (h, xin)
         self._sync()
         return h.detach()
 
     def _bwd_op(self, ch: int, i: int, g):
         """One backward op: accumulates this chunk's parameter gradients
-        (f32, in the params' ``.grad``) and returns the upstream input
-        gradient in the compute dtype (None on chunk 0). The last chunk's
-        ``g`` is its loss seed, ``n_i / N``."""
-        out, xin = self._saved.pop((ch, i))
+        (f32, in the params' ``.grad``, with no reduction over the stage
+        mesh) and returns the upstream input gradient in the compute
+        dtype (None on chunk 0). The last chunk's ``g`` is its loss seed,
+        ``n_i / N``; a mesh rank scales it by ``n_loc / n_mb``, its share
+        of the microbatch's tokens, so the ranks' summed gradients are
+        the microbatch's."""
+        saved = self._saved.pop((ch, i))
+        out, xin = saved[0], saved[1]
         if ch == self.n_chunks - 1:
-            g = torch.tensor(float(g), dtype=out.dtype, device=self.device)
+            g = torch.tensor(float(g), dtype=torch.float32)
+            if self.use_mesh:
+                n_loc, n_mb = (t.to("cpu") for t in saved[2:])
+                g = g * n_loc / n_mb.clamp(min=1.0)
+            g = g.to(device=self.device, dtype=out.dtype)
         else:
             g = self._on_device(g, out.dtype)
         torch.autograd.backward(out, g)
+        self._red = None
         self._sync()
         return xin.grad.detach() if xin is not None else None
 
@@ -638,6 +755,7 @@ class PipelineStage:
     def _zero_grads(self) -> None:
         for p in tree_leaves(self.params):
             p.grad = None
+        self._red = None
 
     def _require_grads(self) -> None:
         missing = [c for c in self.chunks
@@ -648,33 +766,94 @@ class PipelineStage:
                 f"stage {self.stage}: no accumulated grads for chunks "
                 f"{missing} (run a step first)")
 
+    def _reduced_grads(self) -> List[torch.Tensor]:
+        """The step's accumulated gradients (in ``tree_leaves`` order),
+        reduced over the stage mesh: THE stage's communication, one
+        ``psum_tree`` pass over the whole gradient a step (a plain f32
+        all-reduce, or the two-leg int8 reduction with real int8
+        payloads, its stochastic rounding seeded from the step and the
+        rank). Cached until the next backward or step; off the mesh the
+        gradients themselves."""
+        if not self.use_mesh:
+            return self._chunk_grads()
+        if self._red is None:
+            self._sync()
+            t0 = time.perf_counter()
+            group = self._group()
+            grads = {c: tree_map(lambda p: p.grad, self.params[c])
+                     for c in self.chunks}
+            red = collective.psum_tree(
+                grads, group, transport=self.grad_transport,
+                block_size=self.quant_block_size,
+                stochastic_rounding=self.quant_stochastic,
+                seed=(0xE8 << 32) + self._step_count)
+            self._red = tree_leaves(red)
+            self._sync()
+            dur = time.perf_counter() - t0
+            st = self._stats
+            st["reduce_s"] += dur
+            st["busy_s"] += dur
+            st["reduce_bytes"] += self._reduce_wire_bytes()
+        return self._red
+
+    def _reduce_wire_bytes(self) -> int:
+        """Bytes of this rank's payload in one stage reduction: ``4 * n``
+        a leaf for f32; for int8 the scatter leg's int8 values and f32
+        block scales of each leaf padded to whole blocks over the ranks
+        (``quantization.tree_wire_bytes``). 0 off the mesh or at one
+        rank."""
+        n = self.n_model if self.use_mesh else 1
+        if n == 1:
+            return 0
+        sizes = [p.numel() for p in tree_leaves(self.params)]
+        if self.grad_transport == "fp32":
+            return tree_wire_bytes(sizes, transport="fp32")
+        block = self.quant_block_size
+        return tree_wire_bytes([flat_pad_len(k, n, block) for k in sizes],
+                               block, "int8")
+
     def grad_sq_norm(self) -> float:
         """Squared L2 norm of this stage's accumulated f32 gradients —
         the stage's share of the global clip norm (one f32 scalar, the
         only gradient-derived value that reaches the driver in train
-        mode)."""
+        mode). On a mesh it is taken of the reduced gradients, so every
+        rank of the stage returns the same value (and every rank must
+        call it: the reduction is a collective)."""
         self._require_grads()
+        grads = self._reduced_grads()
         with torch.no_grad():
-            sq = torch.stack([g.float().square().sum()
-                              for g in self._chunk_grads()]).sum()
+            sq = torch.stack([g.float().square().sum() for g in grads]).sum()
         return float(sq)
 
     def apply_opt(self, global_sq_norm: float) -> Dict[str, float]:
         """The stage's optimizer step: ``ClipAdamW.update`` on its
-        params with the gradients scaled by the clip of the global norm
-        ``sqrt(global_sq_norm)`` (the sum of every stage's
-        :meth:`grad_sq_norm`). Gradients, params and optimizer state
-        never leave the stage; returns scalar metrics."""
+        params with the (reduced) gradients scaled by the clip of the
+        global norm ``sqrt(global_sq_norm)`` (the sum of one
+        :meth:`grad_sq_norm` a stage). With the flat update each rank
+        updates its 1/N flat chunk of the params and moments, and the
+        params are gathered back over the stage's ranks. Gradients,
+        params and optimizer state never leave the stage; returns scalar
+        metrics."""
         if self.optimizer is None:
             raise RuntimeError("stage built with train=False has no "
                                "optimizer (pass train=True)")
         self._require_grads()
+        grads = self._reduced_grads()
         t0 = time.perf_counter()
         norm = torch.tensor(global_sq_norm, dtype=torch.float32,
                             device=self.device).sqrt()
-        self.optimizer.update(self._chunk_grads(), self.opt_state,
-                              tree_leaves(self.params), norm,
-                              _paths(self.params))
+        leaves, paths = tree_leaves(self.params), _paths(self.params)
+        if self._opt_flat:
+            chunks = [self._flat_slice(p) for p in leaves]
+            self.optimizer.update([self._flat_slice(g) for g in grads],
+                                  self.opt_state, chunks, norm, paths)
+            with torch.no_grad():
+                for p, c in zip(leaves, chunks):
+                    full = collective._all_gather(c, self._group())
+                    p.copy_(full.reshape(-1)[:p.numel()].view(p.shape))
+        else:
+            self.optimizer.update(grads, self.opt_state, leaves, norm,
+                                  paths)
         self._zero_grads()
         self._step_count += 1
         self._sync()
@@ -692,24 +871,47 @@ class PipelineStage:
 
     # ----------------------------------------------------- checkpoint
     def _opt_numpy(self):
+        """The moments param-shaped in numpy (the flat chunks gathered
+        first: a collective every rank joins); None off rank 0."""
         if self.opt_state is None:
             return None
+        mu, nu = self.opt_state["mu"], self.opt_state["nu"]
+        if self._opt_flat:
+            mu, nu = self._unflat(mu, self.params), \
+                self._unflat(nu, self.params)
+        if self.rank:
+            return None
         return {"count": int(self.opt_state["count"]),
-                "mu": to_numpy(self.opt_state["mu"]),
-                "nu": to_numpy(self.opt_state["nu"])}
+                "mu": to_numpy(mu), "nu": to_numpy(nu)}
 
-    def stage_checkpoint(self) -> Dict[str, Any]:
+    def adam_bytes(self) -> int:
+        """Bytes of the Adam moments this rank holds."""
+        if self.opt_state is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for n in ("mu", "nu")
+                   for t in tree_leaves(self.opt_state[n]))
+
+    def stage_checkpoint(self) -> Optional[Dict[str, Any]]:
         """Host (numpy) copy of the stage's train state, keyed by global
         chunk id — :func:`merge_stage_checkpoints` reassembles the
-        canonical one-device layout from all stages' parts."""
+        canonical one-device layout from all stages' parts. Param-shaped
+        and whole: on a mesh every rank must call it (the flat moments
+        are gathered), and the part comes from rank 0 (the params are
+        replicated); the other ranks return None."""
+        opt = self._opt_numpy()
+        if self.rank:
+            return None
         return {"stage": self.stage, "n_stages": self.n_stages,
                 "n_virtual": self.n_virtual,
                 "chunks": {c: to_numpy(p) for c, p in self.params.items()},
-                "opt_state": self._opt_numpy(), "step": self._step_count}
+                "opt_state": opt, "step": self._step_count}
 
     def load_state(self, part: Dict[str, Any]) -> None:
         """Load one part from :func:`split_train_state` (params keyed
-        by this stage's chunk ids, opt state in the stage layout)."""
+        by this stage's chunk ids, opt state in the stage layout; the
+        moments whole, or, with the flat update, re-sliced into this
+        rank's flat chunk)."""
         want = set(self.chunks)
         got = {int(c) for c in part["params"]}
         if want != got:
@@ -721,16 +923,22 @@ class PipelineStage:
         self.params = {c: params[c] for c in self.chunks}
         for p in tree_leaves(self.params):
             p.requires_grad_(True)
+        self._red = None
         opt = part.get("opt_state")
         if opt is not None:
             if self.optimizer is None:
                 raise RuntimeError("cannot load optimizer state into a "
                                    "train=False stage")
+
+            def moment(tree):
+                t = _to_tensors(tree, self.device)
+                return tree_map(self._flat_slice, t) if self._opt_flat \
+                    else t
             self.opt_state = {
                 "count": torch.tensor(int(opt["count"]), dtype=torch.int32,
                                       device=self.device),
-                **{n: {c: _to_tensors(opt[n][c], self.device)
-                       for c in self.chunks} for n in ("mu", "nu")}}
+                **{n: {c: moment(opt[n][c]) for c in self.chunks}
+                   for n in ("mu", "nu")}}
         self._step_count = int(part.get("step", 0))
 
     def stream_checkpoint(self):
@@ -739,7 +947,13 @@ class PipelineStage:
         count. Each block is its own stream item (exactly-once over the
         reliable layer), so the driver can forward a chunk's ref to its
         new owner while later chunks are still being copied, and the
-        bytes move worker to worker (:meth:`load_state_blocks`)."""
+        bytes move worker to worker (:meth:`load_state_blocks`). The
+        blocks are whole (param-shaped), so any rank of a stage of any
+        dp x fsdp loads them; on a mesh only rank 0 yields them, and the
+        other ranks join the flat moments' gather."""
+        if self.rank:
+            self._opt_numpy()
+            return
         for c in self.chunks:
             yield {"block": "params", "stage": self.stage, "chunk": c,
                    "params": to_numpy(self.params[c])}
@@ -807,14 +1021,24 @@ class PipelineStage:
             st["span_s"] = time.perf_counter() - self._t_reset
         st["device"] = str(self.device)
         st["stage"] = self.stage
+        st["rank"] = self.rank
         st["chunks"] = list(self.chunks)
         return st
 
     def get_grads(self):
         """Host (numpy) copy of the accumulated parameter gradients,
         keyed by global chunk id (fwd+bwd mode; in train mode the
-        gradients are consumed in the stage by :meth:`apply_opt`)."""
+        gradients are consumed in the stage by :meth:`apply_opt`). On a
+        mesh the stage's REDUCED gradients (one reduction, cached; every
+        rank must call it), from rank 0 only (the others return {})."""
         out = {}
+        if self.use_mesh:
+            if any(p.grad is None for p in tree_leaves(self.params)):
+                return out
+            it = iter(self._reduced_grads())
+            red = {c: tree_map(lambda _: next(it), self.params[c])
+                   for c in self.chunks}
+            return {} if self.rank else to_numpy(red)
         for c in self.chunks:
             leaves = tree_leaves(self.params[c])
             if all(p.grad is not None for p in leaves):
@@ -832,7 +1056,8 @@ class PipelineStepResult:
     n_tokens: float
     #: per-microbatch (loss, n) pairs in microbatch order
     microbatch_losses: List[Tuple[float, float]]
-    #: per-stage step_stats dicts
+    #: step_stats dicts, one a stage (one a rank, in (stage, rank)
+    #: order, on a stage mesh)
     stage_stats: List[Dict[str, float]]
     wall_s: float
     #: global gradient norm (train mode; None for fwd+bwd steps)
@@ -842,8 +1067,8 @@ class PipelineStepResult:
 
     @property
     def bubble_fraction(self) -> float:
-        """Measured bubble: the mean over stages of the fraction of
-        the step's wall clock each stage spent NOT computing."""
+        """Measured bubble: the mean over stages (ranks) of the fraction
+        of the step's wall clock each spent NOT computing."""
         if not self.wall_s:
             return 0.0
         fr = [1.0 - min(s["busy_s"] / self.wall_s, 1.0)
@@ -852,10 +1077,10 @@ class PipelineStepResult:
 
 
 def stage_gpus(n_stages: int) -> float:
-    """The ``num_gpus`` each stage actor asks for: a card each where the
-    runtime counts at least ``n_stages`` GPUs, ``1/n_stages`` of one
-    where it counts fewer (the stages share the card), none where it
-    counts none (stages on the CPU platform)."""
+    """The ``num_gpus`` each of ``n_stages`` stage (or rank) actors asks
+    for: a card each where the runtime counts at least ``n_stages`` GPUs,
+    ``1/n_stages`` of one where it counts fewer (they share the card),
+    none where it counts none (actors on the CPU platform)."""
     import ray_tpu_torch
     have = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
     if have >= n_stages:
@@ -899,22 +1124,31 @@ class MPMDPipeline:
     per actor and drives the interleaved schedule — analytic bubble
     ``(S-1)/(v*M+S-1)``.
 
+    ``dp * fsdp > 1`` (or ``stage_mesh=True``) gives every stage a mesh
+    of ``dp * fsdp`` rank actors (``self.ranks[s]``; ``self.stages``
+    lists all ``S * N`` in (stage, rank) order), joined in one collective
+    group a stage (gloo where ranks share a card, NCCL where each has
+    its own): each rank takes its rows of every microbatch, rank ``r``
+    of a chunk feeds rank ``r`` of the next, and the stage reduces its
+    gradients once a step over its group (``grad_transport``,
+    ``quant_block_size``, ``quant_stochastic``), with the flat 1/N
+    update under ``shard_weight_update``.
+
     ``train=True`` makes ``step`` a full train step: after the streams
     drain, the driver sums the stages' squared gradient norms (one
-    scalar a stage), then every stage applies its optimizer step at
-    once — gradients, parameters and optimizer state never transit the
-    driver. ``save_checkpoint()`` / ``load_checkpoint()`` move the
-    canonical one-device state layout in and out (any ``n_virtual``).
+    scalar a stage, however many ranks it has), then every rank applies
+    its optimizer step at once — gradients, parameters and optimizer
+    state never transit the driver. ``save_checkpoint()`` /
+    ``load_checkpoint()`` move the canonical one-device state layout in
+    and out (any ``n_virtual`` and stage mesh).
 
     ``serial=True`` drives the same actors chunk by chunk with unary
     calls and full barriers — the no-overlap baseline.
 
-    Stage actors run where :func:`actor_device` puts them (the card
-    unless ``device="cpu"``) and ask for ``num_gpus`` as it says
-    (``self.stage_gpus``). ``dp``,
-    ``fsdp``, ``stage_mesh``, ``grad_transport="int8"`` and
-    ``shard_weight_update`` on a stage (the ``mpmd3d`` lowering) are
-    ROADMAP Queue 1 item 9 and raise.
+    Actors run where :func:`actor_device` puts them (the card unless
+    ``device="cpu"``) and ask for ``num_gpus`` as it says for ``S * N``
+    actors (``self.stage_gpus``); with a ``placement_group`` actor ``j``
+    of ``self.stages`` takes its bundle ``j``.
     """
 
     def __init__(self, config, n_stages: int = 2,
@@ -932,8 +1166,12 @@ class MPMDPipeline:
                  fsdp: int = 1,
                  grad_transport: str = "fp32",
                  shard_weight_update: bool = False,
+                 quant_block_size: Optional[int] = None,
+                 quant_stochastic: bool = False,
                  stage_mesh: Optional[bool] = None,
                  placement_group=None):
+        import uuid
+
         import ray_tpu_torch
         from ray_tpu_torch.core.config import get_config
 
@@ -947,8 +1185,7 @@ class MPMDPipeline:
                 f"n_stages*n_virtual = {n_stages * n_virtual} virtual "
                 f"stages need at least that many layers, model has "
                 f"{config.n_layers}")
-        _check_stage_grid(dp, fsdp, grad_transport, shard_weight_update,
-                          stage_mesh)
+        _check_stage_grid(dp, fsdp, grad_transport)
         self.config = config
         self.n_stages = n_stages
         self.n_microbatches = n_microbatches
@@ -956,35 +1193,75 @@ class MPMDPipeline:
         self.n_chunks = n_stages * n_virtual
         self.serial = serial
         self.train = train
+        self.dp = dp
+        self.fsdp = fsdp
+        self.n_model = dp * fsdp
+        self._stage_mesh = (self.n_model > 1 if stage_mesh is None
+                            else bool(stage_mesh))
+        #: rank actors a stage: its mesh's, or one
+        self.n_ranks = self.n_model if self._stage_mesh else 1
         self.placement_group = placement_group
         self.step_timeout_s = step_timeout_s
         # resolve the mailbox deadline on the DRIVER (its config sees
         # _system_config overrides) and ship the value to every stage
         deadline = (mailbox_deadline_s if mailbox_deadline_s is not None
                     else get_config().pipeline_mailbox_deadline_s)
-        where, self.stage_gpus = actor_device(device, n_stages)
+        N = self.n_ranks
+        where, self.stage_gpus = actor_device(device, n_stages * N)
         opts: Dict[str, Any] = {"max_concurrency": 4, "max_restarts": 0,
                                 "num_gpus": self.stage_gpus}
-        self.stages = []
+        token = uuid.uuid4().hex[:8]
+        names = [f"pp{s}-{token}" if N > 1 else None
+                 for s in range(n_stages)]
+        self.ranks: List[List[Any]] = []
+        self.stages: List[Any] = []
         for s in range(n_stages):
-            stage_opts = dict(opts)
-            if placement_group is not None:
-                # one stage actor a bundle of the gang
-                from ray_tpu_torch.util.scheduling_strategies import (
-                    PlacementGroupSchedulingStrategy)
-                stage_opts["scheduling_strategy"] = \
-                    PlacementGroupSchedulingStrategy(
-                        placement_group,
-                        placement_group_bundle_index=s)
-            cls = ray_tpu_torch.remote(**stage_opts)(PipelineStage)
-            self.stages.append(cls.remote(
-                config, s, n_stages, seed=seed, device=where,
-                n_virtual=n_virtual, train=train,
-                learning_rate=learning_rate,
-                weight_decay=weight_decay, clip_norm=clip_norm,
-                mailbox_deadline_s=deadline))
-        ray_tpu_torch.get([a.ping.remote() for a in self.stages],
-                          timeout=300)
+            row = []
+            for r in range(N):
+                rank_opts = dict(opts)
+                if placement_group is not None:
+                    # one actor a bundle of the gang
+                    from ray_tpu_torch.util.scheduling_strategies import (
+                        PlacementGroupSchedulingStrategy)
+                    rank_opts["scheduling_strategy"] = \
+                        PlacementGroupSchedulingStrategy(
+                            placement_group,
+                            placement_group_bundle_index=s * N + r)
+                cls = ray_tpu_torch.remote(**rank_opts)(PipelineStage)
+                row.append(cls.remote(
+                    config, s, n_stages, seed=seed, device=where,
+                    n_virtual=n_virtual, train=train,
+                    learning_rate=learning_rate,
+                    weight_decay=weight_decay, clip_norm=clip_norm,
+                    mailbox_deadline_s=deadline, dp=dp, fsdp=fsdp,
+                    grad_transport=grad_transport,
+                    shard_weight_update=shard_weight_update,
+                    quant_block_size=quant_block_size,
+                    quant_stochastic=quant_stochastic,
+                    stage_mesh=stage_mesh, rank=r, group_name=names[s]))
+                self.stages.append(row[-1])
+            self.ranks.append(row)
+        try:
+            ray_tpu_torch.get([a.ping.remote() for a in self.stages],
+                              timeout=300)
+            if N > 1:
+                self._join_stage_groups(names, where)
+        except BaseException:
+            self.shutdown()
+            raise
+
+    def _join_stage_groups(self, names, where: str) -> None:
+        """One collective group a stage over its ranks (a process group
+        of its own in each rank's process: stages share none)."""
+        import ray_tpu_torch
+        from ray_tpu_torch.parallel.collective import _actor_join
+        N = self.n_ranks
+        backend = "nccl" if where == "cuda" and self.stage_gpus == 1.0 \
+            else "gloo"
+        ray_tpu_torch.get(
+            [a.__ray_call__.remote(_actor_join, N, r, backend, names[s])
+             for s, row in enumerate(self.ranks)
+             for r, a in enumerate(row)], timeout=300)
 
     # ---------------------------------------------------------- steps
     def _split(self, batch: Dict[str, Any]):
@@ -995,6 +1272,11 @@ class MPMDPipeline:
         if ids.shape[0] % m:
             raise ValueError(f"batch {ids.shape[0]} not divisible by "
                              f"{m} microbatches")
+        if self._stage_mesh and (ids.shape[0] // m) % self.n_model:
+            raise ValueError(
+                f"microbatch rows ({ids.shape[0] // m}) not divisible "
+                f"by the stage mesh dp*fsdp = {self.dp}*{self.fsdp} "
+                f"= {self.n_model}")
         ids_mb = np.split(ids, m)
         mask_mb = np.split(mask, m) if mask is not None else [None] * m
         # per-microbatch label-token counts — known to the driver
@@ -1004,6 +1286,13 @@ class MPMDPipeline:
               else float(i.shape[0] * (i.shape[1] - 1))
               for i, mk in zip(ids_mb, mask_mb)]
         return ids_mb, mask_mb, ns
+
+    def rows(self, x, r: int):
+        """Rank ``r``'s rows of a microbatch (``P(("dp", "fsdp"))``)."""
+        if x is None or self.n_ranks == 1:
+            return x
+        n = x.shape[0] // self.n_ranks
+        return x[r * n:(r + 1) * n]
 
     def step(self, batch: Dict[str, Any]) -> PipelineStepResult:
         res = (self._step_serial if self.serial
@@ -1032,7 +1321,7 @@ class MPMDPipeline:
                     from ray_tpu_torch.parallel.mesh import chip_spec
                     achieved = tokens_per_s * \
                         self.config.flops_per_token(ids.shape[1])
-                    peak = chip_spec().bf16_flops * self.n_stages
+                    peak = chip_spec().bf16_flops * len(self.stages)
                     m.train_mfu.set(100.0 * achieved / peak)
                 except Exception:
                     pass
@@ -1049,8 +1338,9 @@ class MPMDPipeline:
 
     def _opt_tail(self) -> Tuple[Optional[float], Optional[int]]:
         """Train-mode tail after the backwards drain: sum the stages'
-        squared gradient norms (scalars), fan the global value back out,
-        and run every stage's optimizer step at once. No gradient or
+        squared gradient norms (one scalar a stage: its ranks reduce
+        their gradients and agree on it), fan the global value back
+        out, and run every rank's optimizer step at once. No gradient or
         parameter bytes through the driver."""
         import ray_tpu_torch
 
@@ -1059,7 +1349,8 @@ class MPMDPipeline:
         sq = ray_tpu_torch.get(
             [a.grad_sq_norm.remote() for a in self.stages],
             timeout=self.step_timeout_s)
-        gsq = float(sum(sq))
+        gsq = float(sum(sq[s * self.n_ranks]
+                        for s in range(self.n_stages)))
         mets = ray_tpu_torch.get([a.apply_opt.remote(gsq)
                                   for a in self.stages],
                                  timeout=self.step_timeout_s)
@@ -1070,27 +1361,28 @@ class MPMDPipeline:
         from ray_tpu_torch.core import streaming
 
         S, M, v = self.n_stages, self.n_microbatches, self.n_virtual
-        K = self.n_chunks
+        K, N = self.n_chunks, self.n_ranks
         ids_mb, mask_mb, ns = self._split(batch)
         total_n = sum(ns)
         t0 = time.perf_counter()
         hold = []  # keep routed refs alive until the step completes
-        last = self.stages[-1]  # chunk K-1 lives on the last actor
-        # batched prefeed: stage 0's token microbatches in one call,
-        # the last stage's targets + loss cotangents (scalar n_i / N,
-        # known up front) in another — 2 actor calls instead of 3M
-        hold.append(self.stages[0].feed.remote(
-            acts={(0, i): ids_mb[i] for i in range(M)}))
-        hold.append(last.feed.remote(
-            targets={i: (ids_mb[i], mask_mb[i]) for i in range(M)},
-            grads={(K - 1, i): np.float32(ns[i] / total_n)
-                   for i in range(M)}))
+        # batched prefeed: stage 0's token microbatches in one call a
+        # rank, the last stage's targets + loss cotangents (scalar
+        # n_i / N, known up front) in another
+        for r in range(N):
+            hold.append(self.ranks[0][r].feed.remote(
+                acts={(0, i): self.rows(ids_mb[i], r) for i in range(M)}))
+            hold.append(self.ranks[-1][r].feed.remote(
+                targets={i: (self.rows(ids_mb[i], r),
+                             self.rows(mask_mb[i], r)) for i in range(M)},
+                grads={(K - 1, i): np.float32(ns[i] / total_n)
+                       for i in range(M)}))
         gens = [a.run.options(num_returns="streaming").remote(M)
                 for a in self.stages]
         orders = [one_f_one_b_order(s, S, M, v) for s in range(S)]
-        cursors = [0] * S
+        cursors = [0] * len(gens)
         loss_refs: Dict[int, Any] = {}
-        by_gen = {id(g): s for s, g in enumerate(gens)}
+        by_gen = {id(g): j for j, g in enumerate(gens)}
         active = list(gens)
         deadline = time.monotonic() + self.step_timeout_s
         try:
@@ -1102,24 +1394,26 @@ class MPMDPipeline:
                         f"pipeline step stalled: no stage produced an "
                         f"item within {self.step_timeout_s}s")
                 for g in ready:
-                    s = by_gen[id(g)]
+                    j = by_gen[id(g)]
+                    s, r = divmod(j, N)
                     try:
                         ref = g.next_ref(timeout=1.0)
                     except StopIteration:
                         active.remove(g)
                         continue
-                    op, i, ch = orders[s][cursors[s]]
-                    cursors[s] += 1
+                    op, i, ch = orders[s][cursors[j]]
+                    cursors[j] += 1
                     if op == "F" and ch < K - 1:
                         hold.append(
-                            self.stages[(ch + 1) % S]
+                            self.ranks[(ch + 1) % S][r]
                             .put_activation.remote(ch + 1, i, ref))
-                    elif op == "F":
-                        # tiny loss dicts: batch the gets after drain
+                    elif op == "F" and r == 0:
+                        # tiny loss dicts (the stage's: the same on each
+                        # rank): batch the gets after drain
                         loss_refs[i] = ref
                     elif op == "B" and ch > 0:
                         hold.append(
-                            self.stages[(ch - 1) % S]
+                            self.ranks[(ch - 1) % S][r]
                             .put_grad.remote(ch - 1, i, ref))
                     hold.append(ref)
             items = ray_tpu_torch.get([loss_refs[i] for i in range(M)],
@@ -1152,24 +1446,24 @@ class MPMDPipeline:
         t0 = time.perf_counter()
         ray_tpu_torch.get([a.reset_step.remote() for a in self.stages],
                           timeout=60)
+        get = lambda refs: ray_tpu_torch.get(  # noqa: E731
+            refs, timeout=self.step_timeout_s)
         losses = []
         for i in range(M):
-            act = ray_tpu_torch.get(
-                self.stages[0].forward_one.remote(0, i, ids_mb[i]),
-                timeout=self.step_timeout_s)
+            ids = [self.rows(ids_mb[i], r) for r in range(self.n_ranks)]
+            masks = [self.rows(mask_mb[i], r) for r in range(self.n_ranks)]
+            acts = get([a.forward_one.remote(0, i, ids[r])
+                        for r, a in enumerate(self.ranks[0])])
             for ch in range(1, K):
-                actor = self.stages[ch % S]
-                out = actor.forward_one.remote(
-                    ch, i, act, ids_mb[i], mask_mb[i]) \
-                    if ch == K - 1 else \
-                    actor.forward_one.remote(ch, i, act)
-                act = ray_tpu_torch.get(out, timeout=self.step_timeout_s)
-            losses.append((act["loss"], act["n_tokens"]))
-            g: Any = np.float32(ns[i] / total_n)
+                acts = get([
+                    a.forward_one.remote(ch, i, acts[r], ids[r], masks[r])
+                    if ch == K - 1 else a.forward_one.remote(ch, i, acts[r])
+                    for r, a in enumerate(self.ranks[ch % S])])
+            losses.append((acts[0]["loss"], acts[0]["n_tokens"]))
+            gs: List[Any] = [np.float32(ns[i] / total_n)] * self.n_ranks
             for ch in range(K - 1, -1, -1):
-                g = ray_tpu_torch.get(
-                    self.stages[ch % S].backward_one.remote(ch, i, g),
-                    timeout=self.step_timeout_s)
+                gs = get([a.backward_one.remote(ch, i, gs[r])
+                          for r, a in enumerate(self.ranks[ch % S])])
         grad_norm, opt_step = self._opt_tail()
         wall = time.perf_counter() - t0
         stats = ray_tpu_torch.get(
@@ -1184,49 +1478,55 @@ class MPMDPipeline:
     def save_checkpoint(self) -> Dict[str, Any]:
         """Gather per-stage parts and merge them into the canonical
         one-device ``{"params", "opt_state", "step"}`` layout
-        (checkpointing is an explicit call, not per-step traffic). The
-        parts' arrays view the object store's memory, which is reused
-        once their refs are gone: the merge copies them while the refs
-        live."""
+        (checkpointing is an explicit call, not per-step traffic). Every
+        rank is called (a stage mesh gathers its flat moments); each
+        stage's part is its rank 0's. The parts' arrays view the object
+        store's memory, which is reused once their refs are gone: the
+        merge copies them while the refs live."""
         import ray_tpu_torch
         refs = [a.stage_checkpoint.remote() for a in self.stages]
-        out = merge_stage_checkpoints(self.config, ray_tpu_torch.get(
-            refs, timeout=self.step_timeout_s))
-        del refs
+        parts = ray_tpu_torch.get(refs, timeout=self.step_timeout_s)
+        out = merge_stage_checkpoints(
+            self.config, parts[::self.n_ranks])
+        del refs, parts
         return out
 
     def load_checkpoint(self, state: Dict[str, Any]) -> None:
         """Load a canonical train state — saved from ANY
-        ``(n_stages, n_virtual)`` layout, or by the one-device step —
-        into this pipeline, one stage after another. Each part goes
-        into the object store once and its stage reads it from there (an
-        argument passed by value would be copied into the call's message
-        and out of it again)."""
+        ``(n_stages, n_virtual)`` layout and stage mesh, or by the
+        one-device step — into this pipeline, one stage after another.
+        Each part goes into the object store once and every rank of its
+        stage reads it from there (an argument passed by value would be
+        copied into the call's message and out of it again)."""
         import ray_tpu_torch
         parts = split_train_state(self.config, state, self.n_stages,
                                   self.n_virtual)
-        for a, p in zip(self.stages, parts):
-            ray_tpu_torch.get(a.load_state.remote(ray_tpu_torch.put(p)),
+        for row, p in zip(self.ranks, parts):
+            ref = ray_tpu_torch.put(p)
+            ray_tpu_torch.get([a.load_state.remote(ref) for a in row],
                               timeout=self.step_timeout_s)
+            del ref
 
     def stream_checkpoint_refs(self, timeout_s: Optional[float] = None
                                ) -> List[List[Any]]:
         """Per-stage block-ref lists from
-        :meth:`PipelineStage.stream_checkpoint`, gathered over the
-        streaming layer with a bounded overall deadline. The refs can
-        be forwarded straight into another pipeline's
-        ``load_state_blocks`` calls (worker-to-worker byte movement) or
-        fetched and merged via :func:`merge_stage_checkpoints`. A stage
-        actor dying mid-stream surfaces the streaming layer's typed
-        error here — never a hang."""
+        :meth:`PipelineStage.stream_checkpoint` (each stage's rank 0
+        streams; its other ranks join the flat moments' gather), gathered
+        over the streaming layer with a bounded overall deadline. The
+        blocks are whole, so the refs can be forwarded straight into the
+        ``load_state_blocks`` calls of every rank of another pipeline's
+        stage (worker-to-worker byte movement), whatever its stage mesh,
+        or fetched and merged via :func:`merge_stage_checkpoints`. A
+        stage actor dying mid-stream surfaces the streaming layer's
+        typed error here — never a hang."""
         from ray_tpu_torch.core import streaming
 
         timeout_s = timeout_s if timeout_s is not None \
             else self.step_timeout_s
         gens = [a.stream_checkpoint.options(
             num_returns="streaming").remote() for a in self.stages]
-        blocks: List[List[Any]] = [[] for _ in self.stages]
-        by_gen = {id(g): s for s, g in enumerate(gens)}
+        blocks: List[List[Any]] = [[] for _ in self.ranks]
+        by_gen = {id(g): j for j, g in enumerate(gens)}
         active = list(gens)
         deadline = time.monotonic() + timeout_s
         try:
@@ -1244,7 +1544,7 @@ class MPMDPipeline:
                     except StopIteration:
                         active.remove(g)
                         continue
-                    blocks[by_gen[id(g)]].append(ref)
+                    blocks[by_gen[id(g)] // self.n_ranks].append(ref)
         except BaseException:
             for g in gens:
                 try:
@@ -1299,7 +1599,10 @@ class MPMDPipeline:
         drop all stream state — typed error out, no hang, no leaked
         stream refs. The abort acks are awaited (bounded, dead actors
         skipped) so a fire-and-forget abort cannot land inside the
-        NEXT step's freshly-started ``run`` and kill it spuriously."""
+        NEXT step's freshly-started ``run`` and kill it spuriously. A
+        rank blocked in its stage group's collective on a dead peer
+        fails there (the peer's sockets close), or goes down with
+        :meth:`shutdown`."""
         import ray_tpu_torch
         refs = []
         for a in self.stages:
@@ -1320,12 +1623,13 @@ class MPMDPipeline:
 
     def grads(self, timeout: float = 120.0):
         """Per-stage accumulated parameter-gradient trees (host numpy
-        of their own), keyed by global chunk id; with ``n_virtual == 1``
-        each stage's single chunk tree is returned bare."""
+        of their own; a stage mesh's reduced gradients), keyed by global
+        chunk id; with ``n_virtual == 1`` each stage's single chunk tree
+        is returned bare."""
         import ray_tpu_torch
         refs = [a.get_grads.remote() for a in self.stages]
-        parts = [tree_map(np.copy, p)
-                 for p in ray_tpu_torch.get(refs, timeout=timeout)]
+        parts = [tree_map(np.copy, p) for p in ray_tpu_torch.get(
+            refs, timeout=timeout)[::self.n_ranks]]
         del refs
         if self.n_virtual == 1:
             return [p[s] for s, p in enumerate(parts)]

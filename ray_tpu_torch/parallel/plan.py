@@ -19,20 +19,29 @@ A declarative grid
 - ``pp >= 2, dp == fsdp == 1`` -> **MPMD**: the interleaved pipeline
   (``parallel.mpmd_pipeline.MPMDPipeline(train=True)``: stage actors,
   streamed activations, a per-stage optimizer step);
-- ``pp >= 2, dp * fsdp >= 2`` -> ``mpmd3d``, a dp x fsdp mesh inside
-  every stage: ROADMAP Queue 1 item 9, and ``build`` raises.
+- ``pp >= 2, dp * fsdp >= 2`` -> **mpmd3d**, both nested (the
+  Megatron-LM 3D recipe, arXiv:1909.08053, with EQuARX int8 collectives,
+  arXiv:2506.17615): the same pipeline with a dp x fsdp mesh inside
+  every stage, ``dp * fsdp`` rank actors a stage in a collective group
+  of their own, the stage's gradient reduction carrying real int8 bytes
+  when ``grad_transport="int8"`` and the flat 1/N update under
+  ``shard_weight_update``.
+
+``grad_transport``, ``shard_weight_update`` and ``quant_*`` are passed
+to every lowering, as in the JAX package (a pipeline without a stage
+mesh has no stage reduction for them to change).
 
 ``slice_strategy`` ("SLICE_SPREAD"/"SLICE_PACK") reserves a gang
-placement group, one bundle a pipeline stage on the hosts of one slice
-(``util/placement_group.py``), and places each stage actor on its
-bundle; when no slice has the capacity (or no runtime is up) within
-``placement_timeout_s`` the plan falls back to the local devices, so the
-same script runs anywhere.
+placement group, one bundle a pipeline stage actor (``pp * dp * fsdp``
+of them) on the hosts of one slice (``util/placement_group.py``), and
+places each actor on its bundle; when no slice has the capacity (or no
+runtime is up) within ``placement_timeout_s`` the plan falls back to the
+local devices, so the same script runs anywhere.
 
 Checkpoints are **lowering-independent**: every program saves and loads
 the one-device train state of ``make_train_step``, ``{"params",
 "opt_state": {"count", "mu", "nu"}, "step"}`` with numpy leaves, so a
-state saved under ``(pp=2, v=2)`` reloads under ``pp=1`` and under
+state saved under ``(pp=2, v=2, dp=2)`` reloads under ``pp=1`` and under
 ``(pp=2, v=1)``, and back.
 
 Entry points run on the card: ``device=None`` is CUDA and raises without
@@ -87,9 +96,9 @@ class ParallelPlan:
     each stage running a ``dp`` × ``fsdp`` data-parallel program on its
     own devices. ``n_microbatches`` is the 1F1B microbatch count
     (ignored by the SPMD lowering). ``grad_transport`` /
-    ``shard_weight_update`` / ``quant_*`` pick the gradient byte path
-    of the SPMD step. ``slice_strategy`` asks for a gang placement group
-    over one slice's hosts."""
+    ``shard_weight_update`` / ``quant_*`` pick the gradient byte path,
+    honoured by every lowering. ``slice_strategy`` asks for a gang
+    placement group over one slice's hosts."""
     pp: int = 1
     virtual: int = 1
     dp: int = 1
@@ -192,17 +201,14 @@ class ParallelPlan:
         """Lower the plan against ``config`` into a live
         :class:`TrainProgram`. The one-device SPMD step runs in this
         process on ``device``; the sharded SPMD step and the MPMD
-        pipeline start actors (they need a running runtime) where
+        pipelines (with or without stage meshes) start actors (they need
+        a running runtime) where
         :func:`~ray_tpu_torch.parallel.mpmd_pipeline.actor_device` puts
         them for ``device``, the pipeline's gang-placed on a slice
         placement group when ``slice_strategy`` is set and capacity
-        exists."""
+        exists. ``stage_mesh=True`` runs a pipeline's stage-mesh path at
+        ``dp * fsdp == 1`` too."""
         self.validate_config(config)
-        if self.lowering == "mpmd3d" or (self.pp > 1 and stage_mesh):
-            raise NotImplementedError(
-                f"plan {self.describe()}: a dp x fsdp mesh inside each "
-                f"pipeline stage (the mpmd3d lowering) is ROADMAP Queue 1 "
-                f"item 9, not ported yet")
         if self.pp == 1:
             return _SPMDProgram(
                 self, config, learning_rate=learning_rate,
@@ -213,7 +219,8 @@ class ParallelPlan:
             self, config, learning_rate=learning_rate,
             weight_decay=weight_decay, clip_norm=clip_norm, seed=seed,
             device=device, step_timeout_s=step_timeout_s,
-            placement_timeout_s=placement_timeout_s)
+            placement_timeout_s=placement_timeout_s,
+            stage_mesh=stage_mesh)
 
 
 # ------------------------------------------------------------ programs
@@ -437,35 +444,47 @@ def _rank_load(rank, state) -> None:
 
 
 class _PipelineProgram(TrainProgram):
-    """pp>=2: the MPMD pipeline, on a slice-gang placement group when
+    """pp>=2: the MPMD pipeline, with dp x fsdp stage meshes (nested 3D)
+    where the plan has them, on a slice-gang placement group when
     ``slice_strategy`` is set and a slice admits it."""
 
     def __init__(self, plan: ParallelPlan, config, *, learning_rate,
                  weight_decay, clip_norm, seed, device,
-                 step_timeout_s, placement_timeout_s):
+                 step_timeout_s, placement_timeout_s, stage_mesh=None):
         from ray_tpu_torch.parallel.mpmd_pipeline import MPMDPipeline
 
         self.plan = plan
         self.config = config
         self.pg = None
+        n_ranks = plan.stage_world if (
+            plan.stage_world > 1 if stage_mesh is None else stage_mesh) \
+            else 1
         if plan.slice_strategy is not None:
-            self.pg = self._reserve_gang(placement_timeout_s)
-        self.pipeline = MPMDPipeline(
-            config, n_stages=plan.pp,
-            n_microbatches=plan.n_microbatches, seed=seed,
-            n_virtual=plan.virtual, train=True,
-            learning_rate=learning_rate, weight_decay=weight_decay,
-            clip_norm=clip_norm, step_timeout_s=step_timeout_s,
-            device=device, grad_transport=plan.grad_transport,
-            shard_weight_update=plan.shard_weight_update,
-            placement_group=self.pg)
+            self.pg = self._reserve_gang(plan.pp * n_ranks,
+                                         placement_timeout_s)
+        try:
+            self.pipeline = MPMDPipeline(
+                config, n_stages=plan.pp,
+                n_microbatches=plan.n_microbatches, seed=seed,
+                n_virtual=plan.virtual, train=True,
+                learning_rate=learning_rate, weight_decay=weight_decay,
+                clip_norm=clip_norm, step_timeout_s=step_timeout_s,
+                device=device, dp=plan.dp, fsdp=plan.fsdp,
+                grad_transport=plan.grad_transport,
+                shard_weight_update=plan.shard_weight_update,
+                quant_block_size=plan.quant_block_size,
+                quant_stochastic=plan.quant_stochastic,
+                stage_mesh=stage_mesh, placement_group=self.pg)
+        except BaseException:
+            self._remove_gang()
+            raise
 
-    def _reserve_gang(self, timeout_s):
-        """One bundle (one CPU) per pipeline stage on a single slice's
-        hosts — the gang → mesh hand-off. Falls back to local devices
-        (None)
-        when no runtime is up or no slice admits the gang in time, so
-        the plan stays runnable anywhere."""
+    def _reserve_gang(self, n_bundles: int, timeout_s):
+        """One bundle (one CPU) per pipeline stage actor (``pp * dp *
+        fsdp`` of them on a stage mesh) on a single slice's hosts — the
+        gang → mesh hand-off. Falls back to local devices (None) when no
+        runtime is up or no slice admits the gang in time, so the plan
+        stays runnable anywhere."""
         try:
             import ray_tpu_torch
             from ray_tpu_torch.util.placement_group import (
@@ -476,8 +495,7 @@ class _PipelineProgram(TrainProgram):
                     "falling back to local devices",
                     self.plan.describe(), self.plan.slice_strategy)
                 return None
-            pg = placement_group([{"CPU": 1}
-                                  for _ in range(self.plan.pp)],
+            pg = placement_group([{"CPU": 1} for _ in range(n_bundles)],
                                  strategy=self.plan.slice_strategy)
             if pg.ready(timeout=timeout_s):
                 logger.info("plan %s: gang placed on slice %s",
@@ -487,7 +505,7 @@ class _PipelineProgram(TrainProgram):
             logger.warning(
                 "plan %s: no slice admitted the %d-bundle %s gang "
                 "within %.0fs — falling back to local devices",
-                self.plan.describe(), self.plan.pp,
+                self.plan.describe(), n_bundles,
                 self.plan.slice_strategy, timeout_s)
             return None
         except Exception:
@@ -511,6 +529,9 @@ class _PipelineProgram(TrainProgram):
 
     def shutdown(self) -> None:
         self.pipeline.shutdown()
+        self._remove_gang()
+
+    def _remove_gang(self) -> None:
         if self.pg is not None:
             try:
                 from ray_tpu_torch.util.placement_group import (

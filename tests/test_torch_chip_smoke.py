@@ -570,3 +570,57 @@ def test_pipeline_phases_on_the_cpu(monkeypatch):
     ticks = chip_smoke.PIPE_MICROBATCHES + chip_smoke.PL4_STAGES - 1
     assert all(e["calls"] == 2 * ticks - 1 for e in pl4["gpipe"]["exchanges"])
     assert len(failed) == 32 and all("launched" in f for f in failed), failed
+
+
+def test_mesh_and_elastic_phases_on_the_cpu(monkeypatch):
+    """PL5, PL6 and EL1 at gptj-tiny width (bf16, the phases' depths) on
+    the CPU, each on a runtime of its own: PL5's stage-mesh gradients
+    (pp 2 x dp 2, four rank actors) against one device within P2's
+    bounds, its control outside at twice the reference's norm, an f32
+    reduction a rank; PL6 with int8 transport and the flat update: losses
+    falling, a stage's ranks bit-identical, the int8 reduction under a
+    third of the f32 gradient's bytes, half the Adam bytes, under 1 MB a
+    step to the driver; EL1's notice fold and killed-actor recovery
+    against the one-device plan step for step, with the slice and elastic
+    events. The flash wrappers launch nothing on the CPU, so the launch
+    checks are the only ones that fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    from ray_tpu_torch.models import get_config
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(chip_smoke, "pipe_model", lambda n: dataclasses.replace(
+        get_config("gptj-tiny"), n_layers=n, dtype=torch.bfloat16,
+        remat=None, remat_policy="dots", ce_chunk_size=32))
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        out = chip_smoke.mesh_elastic_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    pl5, pl6, el1 = (out[k] for k in ("PL5", "PL6", "EL1"))
+    assert pl5["num_gpus_a_rank"] == 0.25
+    assert pl5["pipeline"]["grad_rel_l2"] <= chip_smoke.P2_GRAD_REL_L2_BOUND
+    assert abs(pl5["control"]["ratio"] - 2) <= chip_smoke.PL5_CONTROL_RATIO_TOL
+    assert [(r["stage"], r["rank"]) for r in pl5["reduction"]] == \
+        [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert all(r["reduce_bytes"] > 0 for r in pl5["reduction"])
+    assert pl6["losses"][-1] < pl6["losses"][0]
+    assert pl6["replicas_bit_identical"] == [True, True]
+    assert pl6["driver_bytes_per_step"] < 1e6
+    for st, r in zip(pl6["stages_last_step"], pl6["replicas"]):
+        assert 0 < st["reduce_bytes"] < r["grad_f32_bytes"] / 3
+        assert r["adam_bytes"] <= 0.51 * r["adam_bytes_plain"]
+    assert [(r["trigger"], r["steps_lost"]) for r in el1["recoveries"]] == \
+        [("notice", 0), ("failure", 3)]
+    assert all(st["rel"] <= chip_smoke.EL1_LOSS_REL for st in el1["steps"])
+    assert el1["slice_state"] == "RELEASED"
+    assert {"SLICE_DRAIN", "SLICE_DOWN", "ELASTIC_RESUME"} <= set(el1["events"])
+    # 4 kernels: PL5's and PL6's four ranks, EL1's first program's four,
+    # the second's surviving rank, the last program's two
+    assert len(failed) == 4 * (4 + 4 + 4 + 1 + 2) \
+        and all("launched" in f for f in failed), failed

@@ -17,7 +17,9 @@ stage functions against the JAX package's, on the CPU in f32.
   equal;
 - the typed mailbox timeout, ``abort``, the STAGE_TICK spans; one
   ``MPMDPipeline(train=True)`` step on two CPU stage actors equal to the
-  in-process step, with no gradient reaching the driver.
+  in-process step, with no gradient reaching the driver; the stage-mesh
+  options build (``tests/test_torch_mpmd3d.py`` holds them against
+  JAX).
 """
 
 import dataclasses
@@ -483,12 +485,22 @@ def test_mpmd_pipeline_train_step_on_two_cpu_actors_equals_in_process():
 
 
 def test_stage_mesh_paths_raise_naming_item_9():
+    """The stage mesh is ported (``tests/test_torch_mpmd3d.py`` holds it
+    against JAX): no mesh option raises ``NotImplementedError`` any
+    more. A rank of a dp x fsdp mesh needs its stage's collective group;
+    ``stage_mesh=True`` runs the mesh path on one rank, with the int8
+    transport and the flat update; a bad transport still raises."""
     _, tcfg = _cfgs()
-    for kw in ({"dp": 2}, {"fsdp": 2}, {"stage_mesh": True},
-               {"grad_transport": "int8"}, {"shard_weight_update": True}):
-        with pytest.raises(NotImplementedError, match="item 9"):
+    for kw in ({"dp": 2}, {"fsdp": 2}):
+        with pytest.raises(ValueError, match="group_name"):
             tmp.PipelineStage(tcfg, 0, 2, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tmp.MPMDPipeline(tcfg, n_stages=2, **kw)
+        st = tmp.PipelineStage(tcfg, 0, 2, device="cpu", rank=1,
+                               group_name="pp0", **kw)
+        assert st.use_mesh and st.n_model == 2 and st.rank == 1
+    for kw in ({}, {"grad_transport": "int8"},
+               {"shard_weight_update": True}):
+        st = tmp.PipelineStage(tcfg, 0, 2, device="cpu", stage_mesh=True,
+                               train=True, **kw)
+        assert st.use_mesh and st._group().size == 1
     with pytest.raises(ValueError, match="grad_transport"):
         tmp.PipelineStage(tcfg, 0, 2, device="cpu", grad_transport="bf16")

@@ -14,8 +14,11 @@ JAX package's, on the CPU in f32.
   to the local devices;
 - the rank and stage actors refuse to start without a card unless told
   ``device="cpu"`` (or on workers of the CPU platform);
-- ``mpmd3d``, ``ElasticTrainer`` raise naming ROADMAP item 9; the lazy
-  ``parallel.mpmd_pipeline`` and ``parallel.ParallelPlan`` resolve.
+- ``mpmd3d`` builds (a mesh of rank actors a stage), the lowering
+  selection equals JAX's, and the lazy ``parallel.mpmd_pipeline``,
+  ``parallel.ParallelPlan`` and ``parallel.ElasticTrainer`` resolve
+  (``tests/test_torch_mpmd3d.py`` holds the stage mesh against JAX's
+  nested stages, ``tests/test_torch_elastic.py`` the trainer).
 """
 
 import dataclasses
@@ -36,8 +39,9 @@ from test_torch_runtime_loader import FIXTURES, load_core_tests
 
 os.environ.setdefault("RAY_TPU_TORCH_PLATFORM", "cpu")
 
-_MESH3D = ("runs the mpmd3d lowering (a dp x fsdp mesh inside each "
-           "pipeline stage), ROADMAP Queue 1 item 9")
+_MESH3D = ("drives JAX's dp=2 stages in one process over two devices "
+           "(device_indices); the port's stage mesh is one process a rank, "
+           "and tests/test_torch_mpmd3d.py runs the same cases on it")
 
 #: bodies left out, each with its reason
 LEAVE_OUT = {
@@ -186,18 +190,26 @@ def test_plan_actors_need_the_card_unless_told_cpu(runtime, monkeypatch):
     assert actor_device(None, 2) == ("cpu", 0.0)
 
 
-def test_mpmd3d_and_elastic_raise_naming_item_9():
+def test_mpmd3d_builds_and_elastic_resolves_like_jax(runtime):
     import ray_tpu_torch.parallel as par
+    from ray_tpu_torch.parallel.elastic import ElasticTrainer
     assert par.ParallelPlan is ParallelPlan
     assert par.mpmd_pipeline.MPMDPipeline.__name__ == "MPMDPipeline"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        par.ElasticTrainer
-    for plan in (ParallelPlan(pp=2, dp=2), ParallelPlan(pp=2, fsdp=2)):
-        assert plan.lowering == "mpmd3d"
-        with pytest.raises(NotImplementedError, match="item 9"):
-            plan.build(TCFG)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ParallelPlan(pp=2).build(TCFG, stage_mesh=True)
+    assert par.ElasticTrainer is ElasticTrainer
+    for kw in (dict(pp=2, dp=2), dict(pp=2, fsdp=2),
+               dict(pp=4, dp=2, fsdp=2), dict(pp=2, virtual=2, dp=2),
+               dict(pp=2), dict(dp=2), dict()):
+        assert ParallelPlan(**kw).lowering == JaxPlan(**kw).lowering
+        assert ParallelPlan(**kw).describe() == JaxPlan(**kw).describe()
+    prog = ParallelPlan(pp=2, dp=2, n_microbatches=2,
+                        grad_transport="int8").build(TCFG)
+    try:
+        assert prog.lowering == "mpmd3d"
+        pipe = prog.pipeline
+        assert (pipe.n_stages, pipe.n_ranks, len(pipe.stages)) == (2, 2, 4)
+        assert [len(row) for row in pipe.ranks] == [2, 2]
+    finally:
+        prog.shutdown()
     with pytest.raises(ValueError, match="mesh"):
         ParallelPlan(grad_transport="int8").build(TCFG, device="cpu")
     assert dataclasses.asdict(ParallelPlan(pp=2, virtual=2)) == \

@@ -1,24 +1,16 @@
 """The JAX package's ``tests/rlhf/test_config.py`` bodies on the port's
-``RLHFConfig`` (loaded by ``tests/test_torch_runtime_loader.py``), and
-twins that hold ``learner_plan()`` to the JAX package's plan field for
-field."""
+``RLHFConfig`` (loaded by ``tests/test_torch_runtime_loader.py``; the
+placement's reserve and release run against the port's live
+``SliceManager``), and twins that hold ``learner_plan()`` to the JAX
+package's plan field for field."""
 
 import dataclasses
 
 from ray_tpu.rlhf.config import RLHFConfig as JaxRLHFConfig
 from test_torch_runtime_loader import FIXTURES, load_core_tests
 
-#: bodies left out, each with its reason
-LEAVE_OUT = {
-    "test_placement_reserve_release_against_live_slice_manager":
-        "drives a live SliceManager of autoscaler/slices.py, which is not "
-        "ported (ROADMAP Queue 1 item 9); "
-        "test_reserve_is_all_or_nothing_with_rollback holds reserve and "
-        "release against a stub manager",
-}
-
 globals().update(FIXTURES)
-globals().update(load_core_tests("rlhf/test_config.py", LEAVE_OUT))
+globals().update(load_core_tests("rlhf/test_config.py"))
 
 
 def _same_plan(kw):

@@ -6,7 +6,10 @@ Each ``tests/test_torch_runtime_<name>.py`` file loads
 ``tests/test_torch_serve_<name>.py`` loads ``tests/serve/test_<name>.py``
 (named ``"serve/test_<name>.py"``), and each
 ``tests/test_torch_rlhf_<name>.py`` that loads bodies
-``tests/rlhf/test_<name>.py`` (``"rlhf/test_<name>.py"``): the source is
+``tests/rlhf/test_<name>.py`` (``"rlhf/test_<name>.py"``), as
+``tests/test_torch_autoscaler_slices.py`` and ``tests/test_torch_elastic.py``
+load ``"autoscaler/test_slices.py"`` and ``"parallel/test_elastic.py"``:
+the source is
 read, ``ray_tpu`` is rewritten to ``ray_tpu_torch`` on word boundaries
 and ``RAY_TPU_<NAME>`` environment variables to ``RAY_TPU_TORCH_<NAME>``,
 every ``ray_tpu_torch.get``/``ray_tpu_torch.wait`` call without a timeout
@@ -193,7 +196,8 @@ FIXTURES = {"ray_start_regular": ray_start_regular,
 @pytest.mark.parametrize("filename", sorted(
     p.name for p in JAX_CORE.glob("test_*.py")) + sorted(
     f"serve/{p.name}" for p in JAX_SERVE.glob("test_*.py")) + sorted(
-    f"rlhf/{p.name}" for p in JAX_RLHF.glob("test_*.py")))
+    f"rlhf/{p.name}" for p in JAX_RLHF.glob("test_*.py")) + [
+    "autoscaler/test_slices.py", "parallel/test_elastic.py"])
 def test_rewrite_leaves_no_jax_package_import(filename):
     """After the rewrite no import names the JAX package."""
     tree = ast.parse(port_source(filename))
