@@ -133,14 +133,14 @@ S2. The disaggregated pair, on a runtime of its own:
    ``serve.shutdown()`` kills the replicas and the runtime is shut down;
    the card's free memory comes back before the RLHF phases.
 RL1. RLHF, anakin: ``RLHFTrainer`` with one local PPO learner and one
-   rollout engine at GPT-J-6B width cut to 8 of 28 layers (f32 masters,
-   gradients and Adam take 32.4 GB; the engine's bf16 weights, a staged
-   copy and the pool about 9 GB more), bf16 compute, random weights from
+   rollout engine at GPT-J-6B width cut to 2 of 28 layers (f32 masters,
+   gradients and Adam take 13.1 GB; the engine's bf16 weights, a staged
+   copy and the pool about 4 GB more), bf16 compute, random weights from
    the seed; a seeded 256-token system prompt and 32-token suffixes, 64
    new tokens, 16 rollouts a round on 16 decode slots (32-token blocks,
    256-token chunks, a 384-token window), minibatches of 4, one round
-   (a round with its publish takes about 45 s of host time, most of it
-   the numpy int8 pack and unpack of 2.02 B weights).
+   (most of a round's host time is its publish: the numpy int8 pack and
+   unpack of 0.82 B weights).
    Every round: 16 trajectories, prefix hit rate > 0.5, no sync stall,
    staleness <= 1, the engines' version equal to the publishes, wire
    compression > 3.5. Round 1's tokens (all version 0) recomputed from
@@ -153,17 +153,17 @@ RL1. RLHF, anakin: ``RLHFTrainer`` with one local PPO learner and one
    probe prompt is served at version 1, its first token the argmax and
    its log-probability that of direct ``prefill`` logits of
    ``unpack_weights(pack_weights(w))``, farther from version 0's. Paged
-   launches 8 x the engine's prefill chunks and decode steps, each flash
-   kernel 8 x ``compute_gradients`` calls. Round,
+   launches 2 x the engine's prefill chunks and decode steps, each flash
+   kernel 2 x ``compute_gradients`` calls. Round,
    rollout, update and publish walls, wire bytes, pack/unpack host time,
    peak memory.
 RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
    ``{"num_cpus": 1}``, on the card through ``device=None`` in its
-   worker) and 2 engines in the driver at 2 layers; 8 rollouts, one
+   worker) and 2 engines in the driver at 1 layer; 8 rollouts, one
    gradient round of 4 rows a learner, one round. Both learners used on
    disjoint shards, their weights bit-identical after the round (sha256),
    a publish through the store with no sync stall and staleness <= 1,
-   each learner's flash launches 2 x its ``compute_gradients`` calls,
+   each learner's flash launches 1 x its ``compute_gradients`` calls,
    paged launches 2 x the engines' chunks and steps; the gradient round's
    wall split into compute, gradients out through the store, the host
    mean and the mean back. After each of RL1 and RL2 the card's free
@@ -207,14 +207,15 @@ RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
 10. Where the time goes in a train step: one profiler window, device time
     by kind (flash forward, flash backward, matmul, other) and the idle
     share.
-P1. Sharding, on a runtime of its own: four rank actors (``num_gpus=
-    0.25`` each, all on this card) joined into one gloo group through
+P1. Sharding, on a runtime of its own that M1-RLL2 share: four rank
+    actors (``num_gpus=0.25`` each, all on this card) joined into one
+    gloo group through
     ``init_torch_distributed``, each building ``MeshSpec(fsdp=2, tp=2)``
     (``__graft_entry__._factor_mesh(4)``) and ``make_train_step`` at
-    GPT-J-6B width cut to 4 layers under ``FSDP_RULES``, remat
+    GPT-J-6B width cut to 2 layers under ``FSDP_RULES``, remat
     ``"dots"``, lr 1e-4, global batch 2 x 2048 (one row a data rank),
-    one warm-up and 3 timed steps. Losses finite, equal on every rank and
-    falling; each rank launched each flash kernel 4 x steps (at 8 heads,
+    one warm-up and 2 timed steps. Losses finite, equal on every rank and
+    falling; each rank launched each flash kernel 2 x steps (at 8 heads,
     its tp half); each rank's shard shapes are ``FSDP_RULES``'; leaves
     replicated over tp bit-identical across each tp pair. Step wall,
     tokens/s, MFU, each rank's peak memory, and the wall split into
@@ -235,20 +236,21 @@ P3. NCCL at world size 1: a rank actor (``num_gpus=1``) runs
     collective layer on a CUDA tensor; each result equals its input (the
     quantized ones the input's two-leg round trip) on ``cuda:0``. The card's
     free memory comes back after the group.
-M1. Mixture-of-experts over ep, on a runtime of its own with four rank
-    actors as P1's: ``make_train_step`` at GPT-J-6B width with 4 experts
+M1. Mixture-of-experts over ep, on P1-P3's runtime (its ranks forked
+    from the zygote P1's first spawn booted) with four rank actors as
+    P1's: ``make_train_step`` at GPT-J-6B width with 4 experts
     a layer (Switch top-1, capacity factor 1.25, aux weight 0.01; built
     here with ``dataclasses.replace``) at 2 layers on ``MeshSpec(fsdp=2,
-    ep=2)``, global batch 2 x 2048, one warm-up and 3 timed steps. P1's
+    ep=2)``, global batch 2 x 2048, one warm-up and 2 timed steps. P1's
     checks, each flash kernel launched 2 x steps a rank (at 1 row x 16
     heads), the leaves ep does not split bit-identical across each ep
     pair, each layer's dropped share printed and equal within each ep
     pair.
-M2. Ring attention over sp: dense GPT-J-6B width at 4 layers on
+M2. Ring attention over sp: dense GPT-J-6B width at 2 layers on
     ``MeshSpec(fsdp=2, sp=2)``, 1 row x 1024 positions a rank, one
-    warm-up and 3 timed steps. P1's checks, the flash kernels launched 0
+    warm-up and 2 timed steps. P1's checks, the flash kernels launched 0
     times, and the ring's exchanges (host-staged: gloo takes no CUDA
-    send) 3 x 4 a step of 2 x 1 x 1024 x 16 x 256 x 4 B each, with their
+    send) 3 x 2 a step of 2 x 1 x 1024 x 16 x 256 x 4 B each, with their
     seconds.
 M3. Gradients against one device at 2 layers on M1's and M2's meshes,
     the ranks' shards mapped into the driver (CUDA IPC): loss relative
@@ -256,7 +258,7 @@ M3. Gradients against one device at 2 layers on M1's and M2's meshes,
     bounds, each mesh's control (the ep one sums the leaves ep does not
     split over ep as well, the sp one leaves out the sum over sp)
     outside them. The card's free memory comes back after M1-M3.
-PL1. Pipelines, on a runtime of their own: ``ParallelPlan(pp=2,
+PL1. Pipelines, on P1-P3's runtime: ``ParallelPlan(pp=2,
     n_microbatches=4).build`` at GPT-J-6B width and 4 layers (two stage
     actors of 2 layers sharing the card, ``num_gpus=0.5`` each; their
     activations and gradients cross the object store), global batch 4 x
@@ -284,8 +286,9 @@ PL4. ``pipeline_apply`` over MeshSpec(pp=4) on four rank actors
     each flash kernel launched 7 times a rank (garbage ticks included);
     the exchanges' host-staged bytes and seconds. The card's free memory
     comes back after PL1-PL4.
-PL5. The nested ``mpmd3d`` pipeline, each of PL5, PL6 and EL1 on a
-    runtime of its own with the card's free memory back after it:
+PL5. The nested ``mpmd3d`` pipeline, PL5, PL6 and EL1 on P1-P3's
+    runtime (their actors fork from the zygote P1's first spawn booted)
+    with the card's free memory back after each:
     ``MPMDPipeline(n_stages=2, dp=2, n_microbatches=4, train=False)`` at
     2 layers, four rank actors (``num_gpus=0.25``; each stage's pair in
     a gloo group), a seeded 8 x 2048 batch (one row a rank a
@@ -296,8 +299,9 @@ PL5. The nested ``mpmd3d`` pipeline, each of PL5, PL6 and EL1 on a
     f32 reduction bytes and seconds; each flash kernel launched 4 times a
     rank.
 PL6. ``ParallelPlan(pp=2, dp=2, n_microbatches=4, grad_transport="int8",
-    shard_weight_update=True)`` at 4 layers, one warm-up and 2 timed
-    steps: PL1's record and checks (8 launches a kernel a rank a step),
+    shard_weight_update=True)`` at 4 layers (two a stage), one warm-up
+    and one timed step: PL1's record and checks (8 launches a kernel a
+    rank a step),
     each rank's int8 reduction seconds and wire bytes under a third of
     its f32 gradient's, its Adam bytes about half the plain layout's,
     the params of a stage's two ranks bit-identical (sha256) after the
@@ -313,8 +317,32 @@ EL1. ``ElasticTrainer(ParallelPlan(pp=2, dp=2, n_microbatches=4),
     P2's loss bound of the one-device plan's; the two recoveries'
     triggers, plans, steps lost and seconds; SLICE_DRAIN, SLICE_DOWN
     and the four ELASTIC_* events; each program's flash launches.
+RLL1. rllib's PPO on the runtime P1-EL1 share: ``PPOConfig()`` on the gym-free
+    ``RandomEnv(obs_dim=8, n_actions=4)`` with 2 env-runner actors (their
+    policies on the CPU, by design), hiddens (256, 256) (RLlib's
+    ``MODEL_DEFAULTS``), otherwise the JAX package's defaults (train batch
+    4000, minibatch 128, 8 epochs, lr 3e-4, grad clip 0.5), the learner
+    on the card: 2 iterations, then one with ``streaming_rollouts``. Every
+    learner tensor on ``cuda:0``, metrics finite, 256 updates an
+    iteration; the runners hold the learner's weights (sha256) after each
+    iteration; ``save`` before the streamed iteration and ``restore``
+    after it give back the saved weights bit for bit, on the runners too;
+    iteration 2's first update repeated on the CPU from the card's state
+    before it: the loss within 1e-5 relative, the parameters' update
+    within 1e-3 relative L2, the CPU's update on the next minibatch (the
+    control) outside it. Env steps/s, sampling share, learner ms an
+    update (CUDA events), peak memory.
+RLL2. On the same runtime, one iteration each of PG, IMPALA, APPO and
+    multi-agent PPO (two policies over two ``RandomEnv`` agents) at
+    RLL1's env and width, the learners on the card; V-trace on the card
+    against the CPU on APPO's batch within 1e-5; then a ``LearnerGroup``
+    of 2 remote learners (0.5 of the card each) updated once on 512 rows:
+    the replicas bit-identical (sha256), the update within 1e-3 relative
+    L2 of one learner's on the whole batch, one learner's on the first
+    half (the control) outside it.
 
-Before them the script's total wall is printed. The second-to-last line
+Before them the script's ``phase walls`` line (the build's wall, each
+phase's and the total) and its total wall are printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
 verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
 ``serve_launches``, S2's ``disagg_launches``, both replicas', and RL1's
@@ -332,6 +360,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -400,6 +429,50 @@ def card_line() -> str:
 
 
 # --------------------------------------------------------------- timing
+#: each phase's wall in seconds, in run order, and the walls of the
+#: groups that share a runtime (the ``phase walls`` line)
+WALLS: dict = {}
+GROUP_WALLS: dict = {}
+#: GB the runtime's object store holds (live objects) before and after
+#: each phase that :func:`on_own_runtime` runs
+STORE_GB: dict = {}
+
+
+def phase_wall(name: str, t0: float, group: bool = False) -> str:
+    """Records the wall of phase (or group of phases) ``name`` since
+    ``t0`` and returns its printed form."""
+    s = time.perf_counter() - t0
+    (GROUP_WALLS if group else WALLS)[name] = round(s, 1)
+    return f"phase{'s' if group else ''} {name} wall: {s:.1f} s"
+
+def walled(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall recorded as phase ``name``'s."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    WALLS[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+@contextlib.contextmanager
+def runtime():
+    """The runtime the phases inside run on: the running one where a
+    caller shares one across phases (their later programs' actors then
+    fork from the zygote the first program booted), else a fresh one
+    (the card counted as ``GPU``, no initial worker), shut down after
+    them."""
+    import ray_tpu_torch
+    if ray_tpu_torch.is_initialized():
+        yield
+        return
+    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
+                       _num_initial_workers=0)
+    try:
+        yield
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+
 def graph_ms(fn, iters: int, replays: int = 5) -> float:
     """Milliseconds per call of ``fn(i)``: ``iters`` calls captured in one
     CUDA graph (so host overhead does not pad the device time), timed with
@@ -1642,7 +1715,7 @@ def _slab_on_card(slab, device: str):
 
 
 class _Holder:
-    """Holds a worker: three of them start the zygote."""
+    """Holds a worker (the first one's spawn starts the zygote)."""
 
     def pid(self):
         return os.getpid()
@@ -1664,11 +1737,11 @@ def listening(name: str) -> bool:
 
 
 def start_zygote(timeout_s: float = 60.0):
-    """The node forks workers from its zygote once demand passes its
-    initial pool by two spawns. With no initial or prestarted worker,
-    three holder actors are spawns 1-3 (cold: the third starts the
-    zygote); wait until it listens, so every later spawn is a fork, and
-    until every cold worker is held.
+    """The node starts its zygote at the first spawn past its initial
+    pool, and spawns that find it booting wait for it. With no initial
+    or prestarted worker, three holder actors are spawns 1-3: wait until
+    the zygote listens, so every later spawn is a fork, and until every
+    cold worker (one a spawn that gave up waiting would boot) is held.
     Returns the holders (alive until the caller kills them, so that no
     cold worker turns idle) and the seconds this took."""
     import ray_tpu_torch
@@ -2061,14 +2134,14 @@ def runtime_phases(dev, card: str, seed: int, server, checksum):
     cfg = get_config("gptj-6b")
     t0 = time.perf_counter()
     phase_store(dev, card, cfg, seed)
-    print(f"phase R1 wall: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(phase_wall("R1", t0), flush=True)
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     actor = None
     try:
         t0 = time.perf_counter()
         phase_runtime(dev, card, cfg, seed)
-        print(f"phase R2 wall: {time.perf_counter() - t0:.1f} s",
+        print(phase_wall("R2", t0),
               flush=True)
         t0 = time.perf_counter()
         actor, r3 = phase_actor_server(dev, card, cfg, seed, server,
@@ -2082,7 +2155,7 @@ def runtime_phases(dev, card: str, seed: int, server, checksum):
             and time.monotonic() < deadline:
         time.sleep(0.5)
     free1 = torch.cuda.mem_get_info()[0]
-    print(f"phase R3 wall: {time.perf_counter() - t0:.1f} s; card memory "
+    print(phase_wall("R3", t0) + f"; card memory "
           f"free {free0 / 1e9:.2f} GB before R2, {free1 / 1e9:.2f} GB after "
           f"the actor's kill and shutdown", flush=True)
     check(free1 >= free0 - (1 << 30),
@@ -2332,7 +2405,7 @@ def serve_phases(dev, card: str, seed: int, server, actor_server,
                 and time.monotonic() < deadline:
             time.sleep(0.5)
         free1 = torch.cuda.mem_get_info()[0]
-        print(f"phase {name} wall: {time.perf_counter() - t0:.1f} s; card "
+        print(phase_wall(name, t0) + f"; card "
               f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f}"
               f" GB after serve.shutdown and the runtime's", flush=True)
         check(free1 >= free0 - (1 << 30),
@@ -2344,9 +2417,10 @@ def serve_phases(dev, card: str, seed: int, server, actor_server,
 RL_SYSTEM = 256       # tokens of the system prompt every rollout shares
 RL_SUFFIX = 32        # tokens of each rollout's own suffix
 RL_NEW = 64           # tokens each rollout generates
-RL1_LAYERS = 8        # f32 masters, grads and Adam for 28 layers: 97 GB
-RL2_LAYERS = 2        # each learner's f32 grads cross the store both ways
-RL1_ROUNDS = 1        # each round's publish: ~40 s of numpy pack/unpack
+RL1_LAYERS = 2        # 8 until the 900 s budget; 28 would be 97 GB of state
+RL2_LAYERS = 1        # each learner's f32 grads cross the store both ways
+#                       (2 until the 900 s budget)
+RL1_ROUNDS = 1        # each round ends in a publish: numpy int8 pack/unpack
 RL_MINIBATCH = 4
 RL_PROBE = 96         # tokens of RL1's probe prompt after the publish
 # RL1's version-0 check. The learner's flash path and the engine's paged
@@ -2509,8 +2583,8 @@ def check_round(name: str, rec, want: int, publishes: int, lag: int):
 
 
 def phase_rl1(dev, card: str, seed: int):
-    """RL1: anakin, one local learner, one engine, GPT-J-6B width at 8
-    layers, 16 rollouts a round, ``RL1_ROUNDS`` rounds. Every round: 16
+    """RL1: anakin, one local learner, one engine, GPT-J-6B width at
+    RL1_LAYERS layers, 16 rollouts a round, ``RL1_ROUNDS`` rounds. Every round: 16
     trajectories, prefix hit rate > 0.5, no sync stall, staleness <= 1,
     the engines' version = the publishes, wire compression > 3.5.
     Version 0: every
@@ -2810,7 +2884,7 @@ def rlhf_phases(dev, card: str, seed: int):
                 and time.monotonic() < deadline:
             time.sleep(0.5)
         free1 = torch.cuda.mem_get_info()[0]
-        print(f"phase {name} wall: {time.perf_counter() - t0:.1f} s; card "
+        print(phase_wall(name, t0) + f"; card "
               f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f}"
               f" GB after", flush=True)
         check(free1 >= free0 - (1 << 30),
@@ -2869,6 +2943,7 @@ def phase_build():
         print(f"smem: {name}: " + ", ".join(
             f"D<={d} {lib.flash_bwd_sm90_smem(kernel, d)} B dynamic"
             for d in (64, 128, 256)), flush=True)
+    WALLS["build"] = round(time.perf_counter() - t0, 1)
     print(f"build: {len(SOURCES)} libraries loaded in "
           f"{time.perf_counter() - t0:.2f} s (wall)", flush=True)
 
@@ -2879,7 +2954,7 @@ def serving_phases(dev, card: str, seed: int):
     record, phase 4's numbers and streams, and the weights' checksum
     (phase R3's references)."""
     from ray_tpu_torch.models import get_config, init_params
-    shapes = phase_kernels(dev)
+    shapes = walled("3", phase_kernels, dev)
     cfg = get_config("gptj-6b")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device=dev, dtype=cfg.dtype)
@@ -2890,10 +2965,10 @@ def serving_phases(dev, card: str, seed: int):
           f"{pbytes / 1e9:.2f} GB, made in {time.perf_counter() - t0:.1f} s",
           flush=True)
     checksum = weights_checksum(params)
-    server = phase_server(dev, card, cfg, params, seed)
-    phase_e2e(dev, cfg, params, seed)
-    phase_profile(dev, cfg, params, seed)
-    serving_features(dev, card, cfg, params, seed)
+    server = walled("4", phase_server, dev, card, cfg, params, seed)
+    walled("5", phase_e2e, dev, cfg, params, seed)
+    walled("6", phase_profile, dev, cfg, params, seed)
+    walled("6a-6d", serving_features, dev, card, cfg, params, seed)
     by_name = {r["shape"]: r for r in shapes}
     main_shape = by_name["gptj6b_decode"]    # 28 per step
     verify = by_name["gptj6b_verify"]
@@ -3398,12 +3473,14 @@ def phase_train_profile(bundle, state, batch, step_ms: float):
 
 def training_phases(dev, card: str, seed: int):
     """Phases 7-10. Returns the four flash kernels' records."""
-    flash = phase_flash_kernels(dev)
-    trainer, bundle, state, batch = phase_trainer(dev, card, seed)
-    phase_train_profile(bundle, state, batch, trainer["step_ms"])
+    flash = walled("7", phase_flash_kernels, dev)
+    trainer, bundle, state, batch = walled("8", phase_trainer, dev, card,
+                                           seed)
+    walled("10", phase_train_profile, bundle, state, batch,
+           trainer["step_ms"])
     del bundle, state, batch
     torch.cuda.empty_cache()
-    phase_train_e2e(dev, seed)
+    walled("9", phase_train_e2e, dev, seed)
     timing = flash[0]["timing"]
     records = []
     for name, replaces in FLASH_KERNELS.items():
@@ -3443,8 +3520,8 @@ def training_phases(dev, card: str, seed: int):
 # driven at world size 1 (P3).
 SHARD_MESH = {"fsdp": 2, "tp": 2}   # __graft_entry__._factor_mesh(4)
 SHARD_BATCH = 2                     # global rows: 1 x 2048 a data rank
-P1_LAYERS = 4                       # 8 before the pipeline phases
-P1_TIMED_STEPS = 3
+P1_LAYERS = 2                       # 4 until the 900 s budget
+P1_TIMED_STEPS = 2                  # 3 until the 900 s budget
 P2_LAYERS = 2
 P2_STEPS = 3
 P3_BACKEND = "nccl"
@@ -3972,20 +4049,17 @@ def phase_p3(dev, card: str, seed: int):
 
 
 def sharding_phases(dev, card: str, seed: int):
-    """P1-P3 on a runtime of their own, after the training phases; the
-    card's free memory must come back after them. Returns their
-    records."""
-    import ray_tpu_torch
+    """P1-P3 after the training phases, on a runtime of their own or the
+    one the caller shares; the card's free memory must come back after
+    them. Returns their records."""
     from ray_tpu_torch.parallel.dryrun import start_ranks, stop_ranks
     gc.collect()
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
     n = SHARD_MESH["fsdp"] * SHARD_MESH["tp"]
-    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
-                       _num_initial_workers=0)
     out = {}
-    try:
+    with runtime():
         actors = start_ranks(n, "gloo", group_name="shard",
                              num_gpus=1.0 / n if dev.type == "cuda"
                              else 0.0)
@@ -3995,15 +4069,13 @@ def sharding_phases(dev, card: str, seed: int):
         finally:
             stop_ranks(actors)
         out["P3"] = phase_p3(dev, card, seed)
-    finally:
-        ray_tpu_torch.shutdown()
     torch.cuda.empty_cache()
     deadline = time.monotonic() + 60
     while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
             and time.monotonic() < deadline:
         time.sleep(0.5)
     free1 = torch.cuda.mem_get_info()[0]
-    print(f"phases P1-P3 wall: {time.perf_counter() - t0:.1f} s; card "
+    print(phase_wall("P1-P3", t0) + f"; card "
           f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f} GB "
           f"after", flush=True)
     check(free1 >= free0 - (1 << 30),
@@ -4019,8 +4091,8 @@ def sharding_phases(dev, card: str, seed: int):
 MOE_MESH = {"fsdp": 2, "ep": 2}
 RING_MESH = {"fsdp": 2, "sp": 2}
 M1_LAYERS = 2
-M2_LAYERS = 4
-M_TIMED_STEPS = 3
+M2_LAYERS = 2                       # 4 until the 900 s budget
+M_TIMED_STEPS = 2                   # 3 until the 900 s budget
 M3_LAYERS = 2
 # M3's bounds, P2's and for P2's reasons: the sharded step's bf16
 # products run at other shapes than one device's (a rank's rows, its
@@ -4249,19 +4321,17 @@ def phase_m3(dev, card: str, seed: int, actors):
 
 
 def moe_ring_phases(dev, card: str, seed: int):
-    """M1-M3 on a runtime of their own, after P1-P3; the card's free
-    memory must come back after them. Returns their records."""
-    import ray_tpu_torch
+    """M1-M3 after P1-P3, on their runtime (the caller shares it) or one
+    of their own; the card's free memory must come back after them.
+    Returns their records."""
     from ray_tpu_torch.parallel.dryrun import start_ranks, stop_ranks
     gc.collect()
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
     n = MOE_MESH["fsdp"] * MOE_MESH["ep"]
-    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
-                       _num_initial_workers=0)
     out = {}
-    try:
+    with runtime():
         actors = start_ranks(n, "gloo", group_name="moe-ring",
                              num_gpus=1.0 / n if dev.type == "cuda"
                              else 0.0)
@@ -4270,19 +4340,17 @@ def moe_ring_phases(dev, card: str, seed: int):
                                 ("M3", phase_m3)):
                 t1 = time.perf_counter()
                 out[name] = phase(dev, card, seed, actors)
-                print(f"phase {name} wall: {time.perf_counter() - t1:.1f} s",
+                print(phase_wall(name, t1),
                       flush=True)
         finally:
             stop_ranks(actors)
-    finally:
-        ray_tpu_torch.shutdown()
     torch.cuda.empty_cache()
     deadline = time.monotonic() + 60
     while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
             and time.monotonic() < deadline:
         time.sleep(0.5)
     free1 = torch.cuda.mem_get_info()[0]
-    print(f"phases M1-M3 wall: {time.perf_counter() - t0:.1f} s; card "
+    print(phase_wall("M1-M3", t0, group=True) + f"; card "
           f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f} GB "
           f"after", flush=True)
     check(free1 >= free0 - (1 << 30),
@@ -4784,24 +4852,22 @@ def phase_pl4(dev, card: str, seed: int, actors):
 
 
 def pipeline_phases(dev, card: str, seed: int):
-    """PL1-PL4 on a runtime of their own, after M1-M3; the card's free
-    memory must come back after them. Returns their records."""
-    import ray_tpu_torch
+    """PL1-PL4 after M1-M3, on a runtime of their own or the one the
+    caller shares; the card's free memory must come back after them.
+    Returns their records."""
     from ray_tpu_torch.parallel.dryrun import start_ranks, stop_ranks
     gc.collect()
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
-    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
-                       _num_initial_workers=0)
     out = {}
-    try:
+    with runtime():
         for name, phase in (("PL1", phase_pl1), ("PL2", phase_pl2),
                             ("PL3", phase_pl3)):
             t1 = time.perf_counter()
             out[name] = phase(dev, card, seed, *(
                 (out["PL1"],) if name == "PL2" else ()))
-            print(f"phase {name} wall: {time.perf_counter() - t1:.1f} s",
+            print(phase_wall(name, t1),
                   flush=True)
         t1 = time.perf_counter()
         actors = start_ranks(PL4_STAGES, "gloo", group_name="gpipe",
@@ -4811,17 +4877,15 @@ def pipeline_phases(dev, card: str, seed: int):
             out["PL4"] = phase_pl4(dev, card, seed, actors)
         finally:
             stop_ranks(actors)
-        print(f"phase PL4 wall: {time.perf_counter() - t1:.1f} s",
+        print(phase_wall("PL4", t1),
               flush=True)
-    finally:
-        ray_tpu_torch.shutdown()
     torch.cuda.empty_cache()
     deadline = time.monotonic() + 60
     while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
             and time.monotonic() < deadline:
         time.sleep(0.5)
     free1 = torch.cuda.mem_get_info()[0]
-    print(f"phases PL1-PL4 wall: {time.perf_counter() - t0:.1f} s; card "
+    print(phase_wall("PL1-PL4", t0, group=True) + f"; card "
           f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f} GB "
           f"after", flush=True)
     check(free1 >= free0 - (1 << 30),
@@ -4842,7 +4906,7 @@ MESH_MICROBATCHES = 4
 MESH_DP = 2
 PL5_LAYERS = 2                     # one a stage
 PL6_LAYERS = 4                     # two a stage
-PL6_TIMED_STEPS = 2
+PL6_TIMED_STEPS = 1                # 2 before the 900 s budget
 EL1_LAYERS = 2
 EL1_STEPS = 6
 EL1_SNAPSHOT_INTERVAL = 8
@@ -5001,7 +5065,7 @@ def phase_pl6(dev, card: str, seed: int):
     """PL6: ``ParallelPlan(pp=2, dp=2, n_microbatches=4,
     grad_transport="int8", shard_weight_update=True)`` at PL6_LAYERS
     layers, one warm-up and PL6_TIMED_STEPS timed steps: PL1's record and
-    checks (each flash kernel 2 layers x 4 microbatches = 8 times a rank
+    checks (each flash kernel PL6_LAYERS / 2 x 4 microbatches times a rank
     a step, losses falling, under 1 MB a step to the driver), each
     stage's int8 reduction under a third of its f32 gradient's bytes,
     each rank's Adam bytes about half the plain layout's, the params of
@@ -5207,27 +5271,33 @@ def phase_el1(dev, card: str, seed: int):
     return res
 
 
+def store_gb() -> float:
+    """GB of live objects in the running runtime's native store."""
+    from ray_tpu_torch.core.global_state import global_worker
+    return global_worker().shm._segment().stats()[0] / 1e9
+
+
 def on_own_runtime(name: str, dev, phase, *args):
-    """``phase(dev, *args)`` on a runtime of its own; the card's free
-    memory must come back after it."""
-    import ray_tpu_torch
+    """``phase(dev, *args)`` on a runtime of its own, or on the one a
+    caller shares (:func:`runtime`); the card's free memory must come
+    back after it. The store's live GB before and after go to
+    ``STORE_GB``."""
     gc.collect()
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
-    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
-                       _num_initial_workers=0)
-    try:
+    with runtime():
+        STORE_GB[name] = [round(store_gb(), 3)]
         out = phase(dev, *args)
-    finally:
-        ray_tpu_torch.shutdown()
+        gc.collect()
+        STORE_GB[name].append(round(store_gb(), 3))
     torch.cuda.empty_cache()
     deadline = time.monotonic() + 60
     while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
             and time.monotonic() < deadline:
         time.sleep(0.5)
     free1 = torch.cuda.mem_get_info()[0]
-    print(f"phase {name} wall: {time.perf_counter() - t0:.1f} s; card "
+    print(phase_wall(name, t0) + f"; card "
           f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f} GB "
           f"after", flush=True)
     check(free1 >= free0 - (1 << 30),
@@ -5236,15 +5306,535 @@ def on_own_runtime(name: str, dev, phase, *args):
 
 
 def mesh_elastic_phases(dev, card: str, seed: int):
-    """PL5, PL6 and EL1 after PL4, each on a runtime of its own. Returns
-    their records."""
+    """PL5, PL6 and EL1 after PL4, on one runtime (the caller's, where it
+    shares one): the later phases' actors fork from the zygote the first
+    spawn booted. The card's free memory must come back after each.
+    Returns their records."""
     t0 = time.perf_counter()
-    out = {name: on_own_runtime(name, dev, phase, card, seed)
-           for name, phase in (("PL5", phase_pl5), ("PL6", phase_pl6),
-                               ("EL1", phase_el1))}
-    print(f"phases PL5-EL1 wall: {time.perf_counter() - t0:.1f} s",
+    with runtime():
+        out = {name: on_own_runtime(name, dev, phase, card, seed)
+               for name, phase in (("PL5", phase_pl5), ("PL6", phase_pl6),
+                                   ("EL1", phase_el1))}
+    print(phase_wall("PL5-EL1", t0, group=True),
           flush=True)
     return out
+
+
+# ---------------------------------------------------------- RLL1, RLL2
+# rllib's on-policy learners on the card, on the runtime P1-EL1 share:
+# PPO (RLL1), then PG, IMPALA, APPO, multi-agent PPO and a group of two
+# remote learners (RLL2). The env runners are CPU actors (by design:
+# their policies run on the CPU); the learners' update (the module's
+# forward, the loss, the backward, the global-norm clip and Adam) runs on
+# the card. The networks are MLPs: no kernel of this port runs here.
+RLL_ENV = {"obs_dim": 8, "n_actions": 4}     # RandomEnv, gym-free
+RLL_HIDDENS = (256, 256)  # fcnet_hiddens of MODEL_DEFAULTS, RLlib's
+#                           rllib/models/catalog.py
+RLL_RUNNERS = 2
+# RLL1's settings: the JAX package's AlgorithmConfig defaults
+RLL1 = dict(train_batch_size=4000, minibatch_size=128, num_epochs=8,
+            lr=3e-4, grad_clip=0.5)
+RLL1_SYNC_ITERS = 2       # then one streaming iteration
+# one PPO update on the card against the CPU's from the same state and
+# minibatch (TF32 off): the loss, relative; the parameters' update
+# (after - before, all leaves) in relative L2; the control, the CPU's
+# update on the next minibatch, must fall outside the update bound
+RLL_LOSS_REL = 1e-5
+RLL_UPDATE_REL = 1e-3
+RLL_VTRACE_REL = 1e-5     # V-trace on the card against the CPU
+# RLL2's group of two remote learners (0.5 of the card each) against one
+# learner on the whole batch: the parameters' update, relative L2; the
+# control, one learner on the first half, must fall outside it
+RLL_GROUP_REL = 1e-3
+RLL_GROUP_ROWS = 512
+RLL_MA_BATCH = 1000       # multi-agent PPO's train batch (two policies)
+
+
+def rll_env(env_config):
+    from ray_tpu_torch.rllib import RandomEnv
+    return RandomEnv(**env_config)
+
+
+def two_agent_env(env_config):
+    """Two agents, each a ``RandomEnv`` of its own seed (gym-free)."""
+    from ray_tpu_torch.rllib import MultiAgentEnv, RandomEnv
+
+    class TwoAgents(MultiAgentEnv):
+        possible_agents = ["a0", "a1"]
+
+        def __init__(self):
+            self.envs = {a: RandomEnv(**env_config, seed=i)
+                         for i, a in enumerate(self.possible_agents)}
+
+        def reset(self, *, seed=None):
+            return {a: e.reset(None if seed is None else seed + i)[0]
+                    for i, (a, e) in enumerate(self.envs.items())}, {}
+
+        def step(self, action_dict):
+            out = {a: e.step(action_dict[a]) for a, e in self.envs.items()}
+            done = any(o[2] for o in out.values())
+            terms = {a: done for a in out}
+            terms["__all__"] = done
+            return ({a: o[0] for a, o in out.items()},
+                    {a: o[1] for a, o in out.items()}, terms,
+                    {"__all__": False}, {})
+    return TwoAgents()
+
+
+def state_to_cpu(state):
+    """A learner's ``{"params", "opt_state"}`` as CPU copies."""
+    from ray_tpu_torch.rllib.models import tree_map
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+
+
+def tree_sha(tree) -> str:
+    """sha256 over a weights tree's leaves in path order."""
+    import hashlib
+    from ray_tpu_torch.rllib.models import tree_leaves
+    h = hashlib.sha256()
+    for leaf in tree_leaves(tree):
+        h.update(np.ascontiguousarray(leaf).tobytes())
+    return h.hexdigest()
+
+
+class LearnerWatch:
+    """Wraps a local learner's ``update_from_batch`` in the main path:
+    every call's time from CUDA events around it (the host clock on the
+    CPU), and for call ``capture`` its batch, the state before and after
+    it and its metrics, with the next call's batch (the control's)."""
+
+    def __init__(self, learner, dev, capture: int = 0):
+        self.learner, self.dev, self.capture = learner, dev, capture
+        self.captured: dict = {}
+        self.calls: list = []
+        inner = learner.update_from_batch
+
+        def update(batch):
+            k = len(self.calls)
+            if k == self.capture:
+                self.captured.update(
+                    batch={n: np.array(v) for n, v in batch.items()},
+                    before=state_to_cpu(learner._state))
+            elif k == self.capture + 1:
+                self.captured["next_batch"] = {n: np.array(v)
+                                               for n, v in batch.items()}
+            t0 = self._mark()
+            out = inner(batch)
+            self.calls.append((t0, self._mark()))
+            if k == self.capture:
+                self.captured.update(metrics=out,
+                                     after=state_to_cpu(learner._state))
+            return out
+        learner.update_from_batch = update
+
+    def _mark(self):
+        if self.dev.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def update_ms(self, first: int = 0):
+        """(count, median, min, max) ms of the wrapped calls from call
+        ``first`` on."""
+        calls = self.calls[first:]
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in calls]
+        else:
+            ms = [(b - a) * 1e3 for a, b in calls]
+        return (len(ms), float(np.median(ms)), float(np.min(ms)),
+                float(np.max(ms))) if ms else (0, 0.0, 0.0, 0.0)
+
+
+def check_on_device(learner, dev, name: str):
+    """Every params and optimizer tensor of ``learner`` on ``dev``."""
+    from ray_tpu_torch.rllib.models import tree_leaves
+    where = sorted({str(t.device) for t in tree_leaves(learner._state)})
+    want = str(dev) if dev.type != "cuda" else f"cuda:{dev.index or 0}"
+    check(where == [want], f"{name}: learner tensors on {where}, not "
+          f"{want}")
+    return where
+
+
+def param_update(before, after):
+    """The parameters' update ``after - before`` as one flat tensor."""
+    from ray_tpu_torch.rllib.models import tree_leaves
+    return torch.cat([(a.float() - b.float()).reshape(-1) for a, b in zip(
+        tree_leaves(after["params"]), tree_leaves(before["params"]))])
+
+
+def card_cpu_update(algo, cap):
+    """The captured update again on the CPU from the card's state before
+    it; the control: the CPU's update from that state on the next
+    minibatch."""
+    from ray_tpu_torch.rllib import Learner
+    from ray_tpu_torch.rllib.models import tree_map
+    cfg = algo.config
+
+    def on_cpu(batch):
+        cpu = Learner(algo.module_spec, algo.loss_fn(), learning_rate=cfg.lr,
+                      grad_clip=cfg.grad_clip,
+                      loss_config=algo.loss_config(), device="cpu")
+        cpu.load_state(tree_map(lambda t: t.clone(), cap["before"]))
+        m = cpu.update_from_batch(batch)
+        return m, param_update(cap["before"], cpu._state)
+
+    card = param_update(cap["before"], cap["after"])
+    m, cpu = on_cpu(cap["batch"])
+    _, ctl = on_cpu(cap["next_batch"])
+    want = cap["metrics"]["total_loss"]
+    return {"loss_card": want, "loss_cpu": m["total_loss"],
+            "loss_rel": abs(m["total_loss"] - want) / max(abs(want), 1e-12),
+            "update_rel": rel_l2(card, cpu), "control_rel": rel_l2(card, ctl),
+            "update_norm": card.norm().item(), "count": int(
+                cap["before"]["opt_state"]["count"])}
+
+
+def timed_iteration(algo, watch, group) -> dict:
+    """One ``algo.train()``: its wall and the parts spent in the learner
+    group's update and the weight sync (the rest is sampling: the
+    runners' calls and the concatenation, or a streamed step's waits)."""
+    parts = {"update": 0.0, "sync": 0.0}
+    depth = [0]        # a streamed epoch calls update_from_batch inside
+
+    def timed(name, fn):
+        def call(*a, **k):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    parts[name] += time.perf_counter() - t0
+        return call
+    wraps = {"update_from_batch": "update", "update_ordered": "update",
+             "update_from_stream": "update"}
+    inner = {k: getattr(group, k) for k in wraps if hasattr(group, k)}
+    for k in inner:
+        setattr(group, k, timed(wraps[k], inner[k]))
+    inner_sync = algo._sync_weights
+    algo._sync_weights = timed("sync", inner_sync)
+    n_calls = len(watch.calls) if watch is not None else 0
+    try:
+        t0 = time.perf_counter()
+        r = algo.train()
+        wall = time.perf_counter() - t0
+    finally:
+        for k in inner:
+            setattr(group, k, inner[k])
+        algo._sync_weights = inner_sync
+    ms = r["learner"]
+    flat = {f"{p}/{k}": v for p, m in ms.items() for k, v in m.items()} \
+        if ms and isinstance(next(iter(ms.values())), dict) else ms
+    check(all(math.isfinite(v) for v in flat.values()),
+          f"non-finite learner metrics {ms}")
+    bubble = r.get("rollout_train_bubble")
+    return {"wall_s": wall, "update_s": parts["update"],
+            "sync_s": parts["sync"],
+            "sample_share": (wall - parts["update"] - parts["sync"]) / wall,
+            "bubble": bubble,
+            "updates": (len(watch.calls) - n_calls) if watch else None,
+            "steps_lifetime": r["num_env_steps_sampled_lifetime"],
+            "learner": flat}
+
+
+def print_iterations(name: str, card: str, iters, watch, peak: int):
+    for i, it in enumerate(iters):
+        steps = it["steps_lifetime"] - (iters[i - 1]["steps_lifetime"]
+                                        if i else 0)
+        it["env_steps"] = steps
+        it["env_steps_per_s"] = steps / it["wall_s"]
+        print(f"{name} iteration {i + 1}: {it['wall_s']:.3f} s, {steps} "
+              f"env steps, {it['env_steps_per_s']:.0f} env steps/s, "
+              f"updates {it['updates']} in {it['update_s']:.3f} s, "
+              f"weight sync {it['sync_s']:.3f} s, sampling share "
+              f"{it['sample_share']:.3f}"
+              + (f", rollout_train_bubble {it['bubble']:.3f}"
+                 if it["bubble"] is not None else "") + f" | {card}",
+              flush=True)
+    rec = {"peak_gb": peak / 1e9}
+    if watch is not None:
+        n, med, lo, hi = watch.update_ms()
+        clock = "CUDA events" if watch.dev.type == "cuda" else "host clock"
+        print(f"{name}: learner update on {watch.dev} {med:.3f} ms median "
+              f"(min {lo:.3f}, max {hi:.3f}, {n} updates; {clock}); peak "
+              f"memory {peak / 1e9:.3f} GB | {card}", flush=True)
+        rec.update(updates=n, update_ms_median=med, update_ms_min=lo,
+                   update_ms_max=hi)
+    return rec
+
+
+def runner_shas(algo):
+    import ray_tpu_torch
+    return [tree_sha(w) for w in ray_tpu_torch.get(
+        [r.get_weights.remote() for r in algo.env_runners],
+        timeout=ACTOR_TIMEOUT_S)]
+
+
+def peak_bytes(dev) -> int:
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def phase_rll1(dev, card: str, seed: int):
+    """RLL1: PPO through ``PPOConfig().build()``, 2 synchronous iterations
+    and one streaming, the learner on the card."""
+    import tempfile
+
+    from ray_tpu_torch.rllib import PPOConfig
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the card-CPU check needs f32 products")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    config = (PPOConfig()
+              .environment(rll_env, env_config=dict(RLL_ENV))
+              .env_runners(num_env_runners=RLL_RUNNERS)
+              .training(model={"fcnet_hiddens": RLL_HIDDENS}, **RLL1)
+              .learners(device=dev)
+              .debugging(seed=seed))
+    cfg = config
+    per_iter = cfg.train_batch_size // RLL_RUNNERS * RLL_RUNNERS
+    per_epoch = -(-per_iter // cfg.minibatch_size)
+    updates = cfg.num_epochs * per_epoch
+    algo = config.build()
+    try:
+        setup_s = time.perf_counter() - t0
+        learner = algo.learner_group._local
+        where = check_on_device(learner, dev, "RLL1")
+        # the capture: iteration 2's first update (Adam's moments warm)
+        watch = LearnerWatch(learner, dev, capture=updates)
+        iters, shas = [], []
+        for _ in range(RLL1_SYNC_ITERS):
+            iters.append(timed_iteration(algo, watch, algo.learner_group))
+            shas.append(tree_sha(algo.get_policy_weights()))
+            got = runner_shas(algo)
+            check(got == [shas[-1]] * RLL_RUNNERS,
+                  f"RLL1: runners hold {got}, not the learner's "
+                  f"{shas[-1]}")
+        check(shas[0] != shas[1], "RLL1: iteration 2 left the weights")
+        check([it["steps_lifetime"] for it in iters]
+              == [per_iter * (i + 1) for i in range(RLL1_SYNC_ITERS)],
+              f"RLL1 env steps {[it['steps_lifetime'] for it in iters]}")
+        check(all(it["updates"] == updates for it in iters),
+              f"RLL1 updates an iteration "
+              f"{[it['updates'] for it in iters]}, want {updates}")
+        with tempfile.TemporaryDirectory(prefix="rll1_") as d:
+            ckpt = algo.save(d)
+            algo.config.streaming_rollouts = True
+            iters.append(timed_iteration(algo, watch, algo.learner_group))
+            streamed = tree_sha(algo.get_policy_weights())
+            check(streamed != shas[-1],
+                  "RLL1: the streaming iteration left the weights")
+            check(iters[-1]["steps_lifetime"] > per_iter * RLL1_SYNC_ITERS,
+                  f"RLL1 streamed steps {iters[-1]['steps_lifetime']}")
+            check(0.0 <= iters[-1]["bubble"] <= 1.0,
+                  f"RLL1 bubble {iters[-1]['bubble']}")
+            algo.config.streaming_rollouts = False
+            algo.restore(ckpt)
+        restored = tree_sha(algo.get_policy_weights())
+        check(restored == shas[-1], "RLL1: restore did not give back the "
+              "saved weights bit for bit")
+        check(runner_shas(algo) == [restored] * RLL_RUNNERS,
+              "RLL1: the runners did not get the restored weights")
+        check_on_device(learner, dev, "RLL1")
+        agree = card_cpu_update(algo, watch.captured)
+        print(f"RLL1 card vs CPU, update {agree['count'] + 1}: loss "
+              f"{agree['loss_card']:.7f} against {agree['loss_cpu']:.7f} "
+              f"(rel {agree['loss_rel']:.2e}, bound {RLL_LOSS_REL}); the "
+              f"update's rel L2 {agree['update_rel']:.2e} (bound "
+              f"{RLL_UPDATE_REL}), the control's {agree['control_rel']:.2e}"
+              f" (update norm {agree['update_norm']:.3e})", flush=True)
+        check(agree["loss_rel"] <= RLL_LOSS_REL
+              and agree["update_rel"] <= RLL_UPDATE_REL,
+              f"RLL1 card and CPU disagree: {agree}")
+        check(agree["control_rel"] > RLL_UPDATE_REL,
+              f"RLL1: the control falls inside the bound: {agree}")
+        rec = print_iterations("RLL1", card, iters, watch, peak_bytes(dev))
+    finally:
+        algo.cleanup()
+    sync = iters[:RLL1_SYNC_ITERS]
+    rec.update(card=card, setup_s=setup_s, iterations=iters,
+               agreement=agree, learner_device=where,
+               weights_sha=shas, restored_sha=restored,
+               env_steps_per_s=float(np.mean(
+                   [it["env_steps_per_s"] for it in sync])),
+               sampling_share=float(np.mean(
+                   [it["sample_share"] for it in sync])))
+    print("rll1 " + json.dumps(rec), flush=True)
+    return rec
+
+
+def vtrace_agreement(algo, cap, dev):
+    """V-trace on ``dev`` against its CPU run on the captured update's
+    batch, the target log-probs and values from the state before it."""
+    from ray_tpu_torch.rllib.impala import time_major, vtrace_returns
+    from ray_tpu_torch.rllib.learner import _batch_tensors
+    from ray_tpu_torch.rllib.models import tree_map
+    cfg = algo.config
+    params = tree_map(lambda t: t.to(dev), cap["before"]["params"])
+    batch = _batch_tensors(cap["batch"], dev)
+    with torch.no_grad():
+        out = algo.learner_group._local.module.forward_train(
+            params, batch["obs"])
+        tl, bl, v, r, d, _, boot = time_major(out, batch, cfg.rollout_len)
+        args = (tl, bl, r, v, boot, d)
+        kw = dict(gamma=cfg.gamma, rho_clip=cfg.vtrace_rho_clip,
+                  c_clip=cfg.vtrace_c_clip)
+        vs, adv = vtrace_returns(*args, **kw)
+        vs_c, adv_c = vtrace_returns(*(a.cpu() for a in args), **kw)
+    return {"T": int(tl.shape[0]), "B": int(tl.shape[1]),
+            "vs_rel": rel_l2(vs.cpu(), vs_c),
+            "pg_adv_rel": rel_l2(adv.cpu(), adv_c)}
+
+
+def rll2_algo(name: str, dev, seed: int):
+    from ray_tpu_torch.rllib import (APPOConfig, IMPALAConfig,
+                                     MultiAgentPPOConfig, PGConfig)
+    cls = {"PG": PGConfig, "IMPALA": IMPALAConfig, "APPO": APPOConfig,
+           "MultiAgentPPO": MultiAgentPPOConfig}[name]
+    ma = name == "MultiAgentPPO"
+    cfg = (cls().environment(two_agent_env if ma else rll_env,
+                             env_config=dict(RLL_ENV))
+           .env_runners(num_env_runners=RLL_RUNNERS)
+           .training(model={"fcnet_hiddens": RLL_HIDDENS},
+                     **({"train_batch_size": RLL_MA_BATCH} if ma else {}))
+           .learners(device=dev)
+           .debugging(seed=seed))
+    if ma:
+        pol = {"observation_dim": RLL_ENV["obs_dim"],
+               "num_actions": RLL_ENV["n_actions"]}
+        cfg.multi_agent(policies={"p0": dict(pol), "p1": dict(pol)},
+                        policy_mapping_fn=lambda aid: "p" + aid[1:])
+    return cfg.build()
+
+
+def group_against_one(dev, seed: int):
+    """A ``LearnerGroup`` of two remote learners (0.5 of the card each)
+    and one learner in this process, from the same weights, each updated
+    once on the same batch; the control updates on the first half."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import Learner, LearnerGroup, RLModuleSpec
+    from ray_tpu_torch.rllib.ppo import ppo_loss
+    spec = RLModuleSpec(observation_dim=RLL_ENV["obs_dim"],
+                        num_actions=RLL_ENV["n_actions"],
+                        hiddens=RLL_HIDDENS)
+    rng = np.random.default_rng(seed + 15)
+    n, half = RLL_GROUP_ROWS, RLL_GROUP_ROWS // 2
+    adv = rng.normal(size=n)
+    # each learner's half standardized: the loss's normalization is then
+    # the same over a half as over the whole batch. The group shards the
+    # rows in the order of its first permutation (its numpy generator,
+    # seeded with the group's seed, 0): the halves are of that order.
+    order = np.random.default_rng(0).permutation(n)
+    for s in (order[:half], order[half:]):
+        adv[s] = (adv[s] - adv[s].mean()) / adv[s].std()
+    batch = {"obs": rng.normal(size=(n, RLL_ENV["obs_dim"])).astype(
+                 np.float32),
+             "actions": rng.integers(0, RLL_ENV["n_actions"], n),
+             "logp": rng.normal(-1.4, 0.1, n).astype(np.float32),
+             "advantages": adv.astype(np.float32),
+             "value_targets": rng.normal(size=n).astype(np.float32)}
+
+    def make(device=None):
+        return Learner(spec, ppo_loss, seed=seed, device=device)
+
+    t0 = time.perf_counter()
+    group = LearnerGroup(make, num_learners=2,
+                         resources_per_learner={"num_gpus": 0.5}, seed=0)
+    try:
+        ready_s = time.perf_counter() - t0
+        before = group.get_weights()
+        t1 = time.perf_counter()
+        group.update_from_batch(batch)
+        update_s = time.perf_counter() - t1
+        reps = ray_tpu_torch.get([a.get_weights.remote()
+                                  for a in group._remote],
+                                 timeout=ACTOR_TIMEOUT_S)
+    finally:
+        group.shutdown()
+    shas = [tree_sha(w) for w in reps]
+    check(shas[0] == shas[1], f"RLL2 group replicas differ: {shas}")
+    one, ctl = make(dev), make(dev)
+    check(tree_sha(one.get_weights()) == tree_sha(before),
+          "RLL2: the group and one learner start from other weights")
+    one.update_from_batch(batch)
+    ctl.update_from_batch({k: v[order[:half]] for k, v in batch.items()})
+
+    def upd(w):
+        from ray_tpu_torch.rllib.models import tree_leaves
+        return torch.cat([torch.from_numpy(a - b).reshape(-1) for a, b in
+                          zip(tree_leaves(w), tree_leaves(before))])
+    g = upd(reps[0])
+    out = {"replica_sha": shas, "ready_s": ready_s, "update_s": update_s,
+           "update_rel": rel_l2(g, upd(one.get_weights())),
+           "control_rel": rel_l2(g, upd(ctl.get_weights())),
+           "rows": n}
+    print(f"RLL2 group of 2 remote learners (0.5 GPU each) vs one learner "
+          f"on the whole batch: update rel L2 {out['update_rel']:.2e} "
+          f"(bound {RLL_GROUP_REL}), the control's (first half) "
+          f"{out['control_rel']:.2e}; replicas sha256 {shas[0][:16]} x2; "
+          f"ready {ready_s:.1f} s, one update {update_s:.3f} s", flush=True)
+    check(out["update_rel"] <= RLL_GROUP_REL,
+          f"RLL2 group and one learner disagree: {out}")
+    check(out["control_rel"] > RLL_GROUP_REL,
+          f"RLL2: the control falls inside the bound: {out}")
+    return out
+
+
+def phase_rll2(dev, card: str, seed: int):
+    """RLL2: one iteration each of PG, IMPALA, APPO and multi-agent PPO
+    (two policies), the learners on the card; V-trace on the card against
+    the CPU; then a group of two remote learners against one."""
+    out = {"card": card}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for name in ("PG", "IMPALA", "APPO", "MultiAgentPPO"):
+        t0 = time.perf_counter()
+        algo = rll2_algo(name, dev, seed)
+        try:
+            setup_s = time.perf_counter() - t0
+            ma = name == "MultiAgentPPO"
+            learners = algo.learners if ma else \
+                {"": algo.learner_group._local}
+            for pid, lr in learners.items():
+                check_on_device(lr, dev, f"RLL2 {name} {pid}".strip())
+            watch = None if ma else LearnerWatch(learners[""], dev)
+            it = timed_iteration(algo, watch, algo.learner_group
+                                 if not ma else algo)
+            check(it["steps_lifetime"] > 0, f"RLL2 {name}: no env steps")
+            if ma:
+                check({k.split("/")[0] for k in it["learner"]}
+                      == {"p0", "p1"}, f"RLL2 {name}: policies updated "
+                      f"{sorted(it['learner'])}")
+            rec = {"setup_s": setup_s, "iteration": it}
+            if name == "APPO":
+                vt = vtrace_agreement(algo, watch.captured, dev)
+                print(f"RLL2 V-trace on the card vs the CPU at T={vt['T']}"
+                      f" x B={vt['B']}: vs rel L2 {vt['vs_rel']:.2e}, "
+                      f"pg_adv rel L2 {vt['pg_adv_rel']:.2e} (bound "
+                      f"{RLL_VTRACE_REL})", flush=True)
+                check(vt["vs_rel"] <= RLL_VTRACE_REL
+                      and vt["pg_adv_rel"] <= RLL_VTRACE_REL,
+                      f"RLL2 V-trace: card and CPU disagree {vt}")
+                rec["vtrace"] = vt
+            rec.update(print_iterations(f"RLL2 {name}", card, [it], watch,
+                                        peak_bytes(dev)))
+        finally:
+            algo.cleanup()
+        out[name] = rec
+    out["group"] = group_against_one(dev, seed)
+    out["peak_gb"] = peak_bytes(dev) / 1e9
+    print("rll2 " + json.dumps(out), flush=True)
+    return out
+
+
+def rllib_phases(dev, card: str, seed: int):
+    """RLL1 and RLL2 after EL1, on the caller's runtime where it shares
+    one, else each on a runtime of its own."""
+    return {name: on_own_runtime(name, dev, phase, card, seed)
+            for name, phase in (("RLL1", phase_rll1), ("RLL2", phase_rll2))}
 
 
 # ----------------------------------------------------------------- main
@@ -5268,7 +5858,9 @@ def main(argv=None) -> int:
     print(card, flush=True)
 
     phase_build()
+    t0 = time.perf_counter()
     server, checksum, paged = serving_phases(dev, card, args.seed)
+    print(phase_wall("3-6d", t0, group=True), flush=True)
     kernels = [paged]
     torch.cuda.empty_cache()
     print(f"released serving: {torch.cuda.memory_allocated() / 1e9:.3f}"
@@ -5282,16 +5874,22 @@ def main(argv=None) -> int:
     rl = rlhf_phases(dev, card, args.seed)
     paged["rlhf_launches"] = {name: rl[name]["paged_launches"]
                               for name in ("RL1", "RL2")}
+    t0 = time.perf_counter()
     flash = training_phases(dev, card, args.seed)
+    print(phase_wall("7-10", t0, group=True), flush=True)
     for rec in flash:
         rec["rlhf_learner_launches"] = {
             "RL1": rl["RL1"]["flash_launches"][rec["name"]],
             "RL2": [n[rec["name"]] for n in rl["RL2"]["learner_launches"]]}
     kernels.extend(flash)
-    sharded = sharding_phases(dev, card, args.seed)
-    moe_ring = moe_ring_phases(dev, card, args.seed)
-    pipes = pipeline_phases(dev, card, args.seed)
-    mesh = mesh_elastic_phases(dev, card, args.seed)
+    # P1-RLL2 on one runtime: each later phase's actors fork from the
+    # zygote P1's first spawn booted
+    with runtime():
+        sharded = sharding_phases(dev, card, args.seed)
+        moe_ring = moe_ring_phases(dev, card, args.seed)
+        pipes = pipeline_phases(dev, card, args.seed)
+        mesh = mesh_elastic_phases(dev, card, args.seed)
+        rllib_phases(dev, card, args.seed)
     for rec in flash:
         rec["sharded_launches"] = [r["launches"][rec["name"]]
                                    for r in sharded["P1"]["ranks"]]
@@ -5312,7 +5910,13 @@ def main(argv=None) -> int:
             [c[rec["name"]] if c is not None else None for c in prog]
             for prog in mesh["EL1"]["launches"]]
 
-    print(f"total wall: {time.perf_counter() - t_start:.1f} s", flush=True)
+    total = time.perf_counter() - t_start
+    print(f"total wall: {total:.1f} s", flush=True)
+    print("phase walls: " + json.dumps({
+        "card": card, "walls_s": WALLS, "groups_s": GROUP_WALLS,
+        "store_gb": STORE_GB,
+        "unaccounted_s": round(total - sum(WALLS.values()), 1),
+        "total_s": round(total, 1)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,9 +8,12 @@ model keeps f32 masters and casts at each use (``.astype(dt)``), which
 gives the same numbers. For training (``masters=True``) every leaf stays
 f32, as the JAX trainer holds it. Norm scales and biases stay f32 either
 way. :func:`train_state_from_jax` carries a whole JAX train state (params
-and the optax ``clip -> adamw`` moments) into the port's, and
+and the optax ``clip -> adamw`` moments) into the port's,
 :func:`policy_state_from_jax` an RLHF ``PolicyLearner``'s (params and the
-optax ``clip -> adam`` moments).
+optax ``clip -> adam`` moments), :func:`rl_params_from_jax` an rllib
+``RLModule``'s params, and :func:`rllib_state_from_jax` an rllib
+``Learner``'s (a tree of lists of ``{"w", "b"}`` layers under
+``"pi"`` and ``"vf"``, and the ``clip -> adam`` moments).
 
 Over a mesh: :func:`shard_params_from_jax` and
 :func:`shard_train_state_from_jax` give this rank its shards of a JAX
@@ -34,19 +37,21 @@ F32_LEAVES = frozenset({"ln_scale", "ln_bias", "fc_in_b", "fc_out_b",
 
 def params_from_jax(tree: Dict[str, Any], config, device,
                     masters: bool = False) -> Dict[str, Any]:
-    """Numpy parameter tree (JAX layout) -> tensors on ``device``:
-    matrices in ``config.dtype`` (f32 with ``masters=True``), norm scales
-    and biases in f32."""
+    """Numpy parameter tree (JAX layout; a leaf may also be a tensor)
+    -> tensors on ``device``: matrices in ``config.dtype`` (f32 with
+    ``masters=True``), norm scales and biases in f32."""
     dev = torch.device(device)
 
     def convert(name: str, value):
         if isinstance(value, dict):
             return {k: convert(k, v) for k, v in value.items()}
+        dt = torch.float32 if masters or name in F32_LEAVES \
+            else config.dtype
+        if isinstance(value, torch.Tensor):
+            return value.to(device=dev, dtype=dt, copy=True)
         arr = np.asarray(value)
         if arr.dtype != np.float32:
             arr = arr.astype(np.float32)   # bf16 (ml_dtypes) and others
-        dt = torch.float32 if masters or name in F32_LEAVES \
-            else config.dtype
         return torch.tensor(arr).to(device=dev, dtype=dt)   # a copy
 
     return {k: convert(k, v) for k, v in tree.items()}
@@ -96,6 +101,33 @@ def policy_state_from_jax(state: Dict[str, Any], config,
     return {"params": params_from_jax(state["params"], config, dev,
                                       masters=True),
             "opt_state": _adam_from_jax(state["opt_state"], config, dev)}
+
+
+def rl_params_from_jax(params, device):
+    """JAX RLModule params given as numpy arrays (a tree of lists of
+    ``{"w": [in, out], "b"}`` layers under ``"pi"`` and ``"vf"``) -> the
+    port's: the same tree of f32 tensors on ``device``, each a copy."""
+    from ray_tpu_torch.rllib.models import tree_to_tensors
+    return tree_to_tensors(params, torch.device(device))
+
+
+def rllib_state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
+    """A JAX rllib ``Learner``'s state (``{"params", "opt_state"}``: the
+    params tree and an optax ``clip_by_global_norm -> adam`` chain state,
+    or ``adam`` alone, leaves as numpy arrays) -> the port's ``Learner``
+    state (f32 params and ``{"count", "mu", "nu"}`` on ``device``), which
+    its ``load_state`` takes."""
+    from ray_tpu_torch.rllib.models import tree_to_tensors
+    dev = torch.device(device)
+    adam = _find_adam_state(state["opt_state"])
+    if adam is None:
+        raise ValueError("no adam state (count, mu, nu) in the opt_state")
+    return {"params": rl_params_from_jax(state["params"], dev),
+            "opt_state": {"count": torch.tensor(int(np.asarray(adam.count)),
+                                                dtype=torch.int32,
+                                                device=dev),
+                          "mu": tree_to_tensors(adam.mu, dev),
+                          "nu": tree_to_tensors(adam.nu, dev)}}
 
 
 def train_state_from_jax(state: Dict[str, Any], config,

@@ -6,8 +6,10 @@ with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 loaded with :mod:`ctypes`. The library's file name carries a hash of
 the source, of the ``csrc/*.cuh`` headers it includes and of the flags,
 so an edited source or header builds anew and an unchanged one is built
-once and then reused. Nothing here runs when the
-module is imported.
+once and then reused. A source named in :data:`PARTS` is compiled as
+several translation units at once (its macro set to each part's index),
+whose objects are linked into the one library. Nothing here runs when
+the module is imported.
 """
 
 from __future__ import annotations
@@ -29,6 +31,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ray_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: sources compiled as several translation units in parallel: the macro
+#: that selects a unit's part, and the number of parts. In one unit the
+#: paged kernel's instantiations, and the f32 flash forward, dK/dV and
+#: dQ, compile one after another and set the build's wall.
+PARTS = {"paged_attention.cu": ("PAGED_PART", 7),
+         "flash_attention.cu": ("FLASH_PART", 3)}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -80,23 +88,45 @@ def _paths(source: str):
     """The source's path and its library's: the name carries a hash of
     the source, of every header it includes, and of the flags."""
     src = CSRC / source
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + repr(PARTS.get(source)).encode())
     for path in _sources_of(src):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return src, BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
+def _nvcc(args: List[str], what) -> str:
+    proc = subprocess.run([find_nvcc(), *args], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {what} (exit {proc.returncode}):"
+                           f"\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def _compile(src: Path, lib_path: Path) -> Dict[str, object]:
     tmp = lib_path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    if src.name not in PARTS:
+        log = _nvcc([*NVCC_FLAGS, "-o", str(tmp), str(src)], src)
+    else:
+        macro, n = PARTS[src.name]
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objs = [tmp.with_suffix(f".{i}.o") for i in range(n)]
+        try:
+            with ThreadPoolExecutor(n) as pool:
+                logs = list(pool.map(lambda i: _nvcc(
+                    [*flags, f"-D{macro}={i}", "-c", "-o", str(objs[i]),
+                     str(src)], f"{src} ({macro}={i})"), range(n)))
+            log = "".join(logs) + _nvcc(
+                [*NVCC_FLAGS, "-o", str(tmp), *map(str, objs)], src)
+        finally:
+            for o in objs:
+                if o.exists():
+                    o.unlink()
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):"
-                           f"\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib_path)   # atomic: a concurrent build wins
-    return {"seconds": seconds, "log": proc.stdout + proc.stderr}
+    return {"seconds": seconds, "log": log}
 
 
 def build(sources) -> None:

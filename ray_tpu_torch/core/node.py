@@ -37,6 +37,16 @@ from ray_tpu_torch.core.shm_store import make_client, make_store
 
 logger = logging.getLogger(__name__)
 
+#: how long stop() waits for a process it SIGKILLed to be gone
+_KILL_WAIT_S = 10.0
+#: how long a spawn that finds the zygote still booting waits for it to
+#: listen before it boots a cold interpreter instead. The zygote imports
+#: once what each cold worker would import for itself (torch with
+#: ``torch._dynamo``: 14 s of a fresh worker's first step on the card's
+#: host), so a burst of spawns waits less than it would take to boot
+#: cold, and every later spawn is a fork.
+_ZYGOTE_BOOT_WAIT_S = 60.0
+
 
 class _ForkedWorker:
     """Popen-shaped handle over a zygote-forked worker. The process is
@@ -48,12 +58,17 @@ class _ForkedWorker:
 
     @staticmethod
     def _starttime(pid: int) -> Optional[str]:
+        """The process's start time, or None once it is gone or a zombie
+        (an init that reaps late leaves one behind: it holds no memory,
+        no card and no socket, and it runs nothing)."""
         try:
             with open(f"/proc/{pid}/stat") as f:
                 parts = f.read().rsplit(") ", 1)[-1].split()
-            return parts[19]  # starttime: field 22, 20th after comm
         except OSError:
             return None
+        if parts[0] == "Z":
+            return None
+        return parts[19]  # starttime: field 22, 20th after comm
 
     def __init__(self, pid: int):
         self.pid = pid
@@ -281,23 +296,43 @@ class NodeManager:
                              "fall back to cold boots")
             self._zygote = None
 
-    def _zygote_spawn(self, env: Dict[str, str],
-                      log_path: str) -> Optional[int]:
-        """Ask the zygote for a forked worker; returns its pid, or None
-        when the zygote isn't usable (booting, dead, disabled). The
-        zygote forks and moves on immediately; the pid arrives from the
-        CHILD once it is first scheduled — so this call can wait a
-        while under load and must only run on spawner threads."""
-        z = self._zygote
-        if z is None or z.poll() is not None:
-            return None
-        import json as _json
+    def _zygote_connect(self, z):
+        """A connection to the zygote's socket. While the zygote boots
+        (alive, not yet listening) this waits for it, up to
+        ``_ZYGOTE_BOOT_WAIT_S``; returns None once it is dead or the wait
+        is over."""
         import socket as _socket
-        try:
+        deadline = time.monotonic() + _ZYGOTE_BOOT_WAIT_S
+        while not self._stopped.is_set():
             conn = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
             conn.settimeout(30.0)
             try:
                 conn.connect(P.unix_address(self._zygote_sock))
+                return conn
+            except OSError:
+                conn.close()
+            if z.poll() is not None or time.monotonic() >= deadline:
+                return None
+            time.sleep(0.05)
+        return None
+
+    def _zygote_spawn(self, env: Dict[str, str],
+                      log_path: str) -> Optional[int]:
+        """Ask the zygote for a forked worker; returns its pid, or None
+        when the zygote isn't usable (dead, disabled, or still booting
+        after the wait in :meth:`_zygote_connect`). The zygote forks and
+        moves on immediately; the pid arrives from the CHILD once it is
+        first scheduled — so this call can wait a while under load and
+        must only run on spawner threads."""
+        z = self._zygote
+        if z is None or z.poll() is not None:
+            return None
+        import json as _json
+        try:
+            conn = self._zygote_connect(z)
+            if conn is None:
+                return None
+            try:
                 conn.sendall((_json.dumps(
                     {"env": env, "log_path": log_path})
                     + "\n").encode())
@@ -342,9 +377,21 @@ class NodeManager:
                 p.wait(timeout=max(0.1, deadline - time.monotonic()))
             except Exception:
                 try:
+                    # a worker that holds a card can take seconds to
+                    # release it even after SIGKILL: stop() returns once
+                    # it is gone, so none outlives the caller
                     p.kill()
+                    p.wait(timeout=_KILL_WAIT_S)
                 except Exception:
                     pass
+        # a spawn in flight registers (and kills) its worker before its
+        # thread sees the flag and ends
+        for _ in self._spawner_threads:
+            self._spawn_q.put(None)          # wakes an idle spawner
+        deadline = time.monotonic() + _KILL_WAIT_S
+        for t in list(self._spawner_threads):
+            if t is not threading.current_thread():
+                t.join(timeout=max(0.1, deadline - time.monotonic()))
         if self._zygote is not None:
             try:
                 self._zygote.terminate()
@@ -352,6 +399,7 @@ class NodeManager:
             except Exception:
                 try:
                     self._zygote.kill()
+                    self._zygote.wait(timeout=_KILL_WAIT_S)
                 except Exception:
                     pass
             if not P.is_abstract(self._zygote_sock):
@@ -592,12 +640,12 @@ class NodeManager:
                                          daemon=True)
                     t.start()
                     self._spawner_threads.append(t)
-            if self._spawn_count > self.num_initial_workers + 2:
+            if self._spawn_count > self.num_initial_workers:
                 # demand outgrew the initial pool (an actor burst or a
-                # scale-up): the warm factory pays for itself from here.
-                # Small clusters (most tests) never boot it — the first
-                # few spawns use the cold path either way while the
-                # zygote warms up.
+                # scale-up): the warm factory pays for itself from here,
+                # and the spawns that find it booting wait for it
+                # (_ZYGOTE_BOOT_WAIT_S). Clusters that never spawn past
+                # their initial pool never boot it.
                 self._start_zygote()
             spawn_idx = self._spawn_count
         self._spawn_q.put((requested, spawn_idx))
@@ -605,9 +653,12 @@ class NodeManager:
     def _spawner_loop(self) -> None:
         while not self._stopped.is_set():
             try:
-                requested, spawn_idx = self._spawn_q.get(timeout=1.0)
+                item = self._spawn_q.get(timeout=1.0)
             except Exception:
                 continue
+            if item is None:
+                continue
+            requested, spawn_idx = item
             try:
                 self._spawn_one(requested, spawn_idx)
             except Exception:
@@ -639,6 +690,15 @@ class NodeManager:
                 [sys.executable, "-u", "-m", "ray_tpu_torch.core.worker"],
                 env=env, stdout=out, stderr=subprocess.STDOUT,
                 start_new_session=True)
+        self._register_worker(worker_id, proc, requested)
+
+    def _register_worker(self, worker_id: WorkerID, proc,
+                         requested: bool) -> None:
+        """Track a spawned worker. A spawn that was in flight when
+        ``stop()`` took its list of workers is killed here: ``stop()``
+        sets the flag before it takes the list, so every worker is
+        killed by one of the two (an orphan would otherwise live on
+        until its watchdog sees this process gone)."""
         with self._workers_lock:
             self.workers[worker_id.binary()] = proc
             self._worker_started[worker_id.binary()] = time.monotonic()
@@ -646,6 +706,13 @@ class NodeManager:
                 # controller-requested: its starting_workers count must be
                 # repaired if this worker dies before registering
                 self._requested_workers.add(worker_id.binary())
+            stopped = self._stopped.is_set()
+        if stopped:
+            try:
+                proc.kill()
+                proc.wait(timeout=_KILL_WAIT_S)
+            except Exception:
+                pass
 
     def _reaper_loop(self) -> None:
         while not self._stopped.wait(0.5):

@@ -604,7 +604,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // The caller has checked: D % 8 == 0, D <= 256, Sk >= Sq when causal, all
 // tensors contiguous, on one device and 16-byte aligned. The forward, dK/dV
 // and dQ take f32 only (bf16: flash_fwd_sm90.cu, flash_bwd_sm90.cu), so each
-// dtype has exactly one kernel of each; delta takes both.
+// dtype has exactly one kernel of each; delta takes both. The build
+// compiles this source as three translation units in parallel, one set
+// of entries each (FLASH_PART = 0, 1, 2; ray_tpu_torch/_build.py PARTS).
+#ifndef FLASH_PART
+#error "flash_attention.cu is built in parts: define FLASH_PART (0-2)"
+#endif
+#if FLASH_PART == 0
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int B, int Sq, int Sk, int H, int D,
                          float scale, int causal, int dtype, void* stream) {
@@ -622,7 +628,9 @@ extern "C" int flash_delta(const void* o, const void* dout, float* delta, int B,
   if (dtype == 0) return launch_delta<float>(o, dout, delta, B, S, H, D, s);
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
+#if FLASH_PART == 1
 extern "C" int flash_dkdv(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse, const float* delta,
                           void* dk, void* dv, int B, int Sq, int Sk, int H, int D,
@@ -634,7 +642,9 @@ extern "C" int flash_dkdv(const void* q, const void* k, const void* v,
     return launch_dkdv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, sh, s);
   return launch_dkdv<float, 256>(q, k, v, dout, lse, delta, dk, dv, B, sh, s);
 }
+#endif
 
+#if FLASH_PART == 2
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse, const float* delta,
                         void* dq, int B, int Sq, int Sk, int H, int D, float scale,
@@ -645,3 +655,4 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   if (D <= 128) return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, sh, s);
   return launch_dq<float, 256>(q, k, v, dout, lse, delta, dq, B, sh, s);
 }
+#endif

@@ -48,12 +48,7 @@
 
 #include "mma_sm80.cuh"
 
-namespace {
-
-constexpr int kBK = 64;             // keys per staged tile
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxSplitKeys = 256;  // largest split the block-table cache holds
+namespace paged {
 
 struct Args {
   const void* q;
@@ -70,6 +65,35 @@ struct Args {
   int n_rt, n_splits, split_keys;
   float sm_scale;
 };
+
+// The launchers of the instantiations (dtype x largest head dim x row
+// tiles a block). The build compiles this source as seven translation
+// units, the bf16 D <= 128 set in one and each D <= 256 instantiation in
+// one of its own (PAGED_PART = 0-6; ray_tpu_torch/_build.py PARTS), so
+// that nvcc compiles them in parallel.
+#ifndef PAGED_PART
+#error "paged_attention.cu is built in parts: define PAGED_PART (0-6)"
+#endif
+int launch_bf16_d128(const Args& a, int wr, cudaStream_t stream);
+template <typename T, int WR>
+int launch_d256(const Args& a, cudaStream_t stream);
+template <> int launch_d256<__nv_bfloat16, 1>(const Args& a, cudaStream_t stream);
+template <> int launch_d256<__nv_bfloat16, 2>(const Args& a, cudaStream_t stream);
+template <> int launch_d256<__nv_bfloat16, 4>(const Args& a, cudaStream_t stream);
+template <> int launch_d256<float, 1>(const Args& a, cudaStream_t stream);
+template <> int launch_d256<float, 2>(const Args& a, cudaStream_t stream);
+template <> int launch_d256<float, 4>(const Args& a, cudaStream_t stream);
+
+}  // namespace paged
+
+namespace {
+
+using paged::Args;
+
+constexpr int kBK = 64;             // keys per staged tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxSplitKeys = 256;  // largest split the block-table cache holds
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -444,6 +468,45 @@ int launch_wr(const Args& a, int wr, cudaStream_t stream) {
 
 }  // namespace
 
+// One specialization of paged::launch_d256 a part (1-6).
+#define PAGED_D256(T, WR)                                                \
+  template <>                                                            \
+  int paged::launch_d256<T, WR>(const Args& a, cudaStream_t stream) {    \
+    return launch<T, 256, WR>(a, stream);                                \
+  }
+#if PAGED_PART == 1
+PAGED_D256(__nv_bfloat16, 1)
+#endif
+#if PAGED_PART == 2
+PAGED_D256(__nv_bfloat16, 2)
+#endif
+#if PAGED_PART == 3
+PAGED_D256(__nv_bfloat16, 4)
+#endif
+#if PAGED_PART == 4
+PAGED_D256(float, 1)
+#endif
+#if PAGED_PART == 5
+PAGED_D256(float, 2)
+#endif
+#if PAGED_PART == 6
+PAGED_D256(float, 4)
+#endif
+#if PAGED_PART == 0
+int paged::launch_bf16_d128(const Args& a, int wr, cudaStream_t stream) {
+  return launch_wr<__nv_bfloat16, 128>(a, wr, stream);
+}
+
+namespace {
+template <typename T>
+int launch_d256_wr(const Args& a, int wr, cudaStream_t stream) {
+  if (wr == 1) return paged::launch_d256<T, 1>(a, stream);
+  if (wr == 2) return paged::launch_d256<T, 2>(a, stream);
+  if (wr == 4) return paged::launch_d256<T, 4>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+}  // namespace
+
 // Plain C entry point (loaded with ctypes). dtype: 0 = float32,
 // 1 = bfloat16. Returns the cudaError_t of the launches (0 = success).
 // block_r in {16, 32, 64} is the block's row tile (4 warps as block_r / 16
@@ -471,9 +534,10 @@ extern "C" int paged_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int wr = block_r / 16;
   if (dtype == 1) {
-    if (D <= 128) return launch_wr<__nv_bfloat16, 128>(a, wr, s);
-    return launch_wr<__nv_bfloat16, 256>(a, wr, s);
+    if (D <= 128) return paged::launch_bf16_d128(a, wr, s);
+    return launch_d256_wr<__nv_bfloat16>(a, wr, s);
   }
-  if (dtype == 0) return launch_wr<float, 256>(a, wr, s);   // tests only: one build
+  if (dtype == 0) return launch_d256_wr<float>(a, wr, s);   // tests only: one build
   return (int)cudaErrorInvalidValue;
 }
+#endif

@@ -459,7 +459,7 @@ def rlhf_rollout_blocks(model: Dict[str, Any], engine: Dict[str, Any],
     ec["capture_logprobs"] = True
     ec["spec_tokens"] = 0
     dev = _llm_engine._server_device(None)
-    params, version = unpack_weights(packed_weights)
+    params, version = unpack_weights(packed_weights, dev)
     tree = params_from_jax(params, cfg, dev)
     eng = LLMEngine(cfg, EngineConfig(**ec), params=tree, device=dev,
                     replica_tag=f"rlhf-gen-{worker_index}")
@@ -470,7 +470,7 @@ def rlhf_rollout_blocks(model: Dict[str, Any], engine: Dict[str, Any],
     try:
         for b, suffix in enumerate(suffixes):
             if syncs and b in syncs:
-                p2, v2 = unpack_weights(syncs[b])
+                p2, v2 = unpack_weights(syncs[b], dev)
                 eng.stage_weights(params_from_jax(p2, cfg, dev), v2)
                 await_version(eng, v2, timeout_s=30.0)
             if fault and b == fault.get("die_at_block"):

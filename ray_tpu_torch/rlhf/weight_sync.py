@@ -16,8 +16,8 @@ thread (the actor call that delivers the payload, or the publisher's),
 never on the engine's step thread.
 
 :class:`WeightPublisher` fans a refresh out to in-process engines
-(``stage_weights``, after a dequantization into each engine's dtypes on
-its device) and to remote handles (``sync_weights``, which ship the
+(``stage_weights``, after a dequantization on its device into each
+engine's dtypes) and to remote handles (``sync_weights``, which ship the
 packed payload).
 """
 
@@ -33,6 +33,7 @@ import torch
 from ray_tpu_torch._bridge import params_from_jax
 from ray_tpu_torch.exceptions import EngineDeadError
 from ray_tpu_torch.parallel.quantization import (DEFAULT_BLOCK_SIZE,
+                                                 dequantize_int8,
                                                  dequantize_int8_np,
                                                  quantize_int8_np)
 
@@ -79,6 +80,13 @@ def _np_dtype(name: str) -> np.dtype:
         return np.dtype(np.float32)
 
 
+def _torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of :func:`_np_dtype`'s answer."""
+    dt = _np_dtype(name).name
+    return getattr(torch, dt) if dt in ("bfloat16", "float16", "float32",
+                                        "float64") else torch.float32
+
+
 def pack_weights(params: Dict[str, Any], version: int,
                  block_size: int = DEFAULT_BLOCK_SIZE
                  ) -> Dict[str, Any]:
@@ -99,14 +107,21 @@ def pack_weights(params: Dict[str, Any], version: int,
             "entries": entries}
 
 
-def unpack_weights(packed: Dict[str, Any]
+def unpack_weights(packed: Dict[str, Any], device=None
                    ) -> Tuple[Dict[str, Any], int]:
     """Invert :func:`pack_weights` -> ``(params, version)``, numpy
-    leaves."""
+    leaves; with ``device``, the float leaves are dequantized there into
+    torch tensors (the numpy twin's values: one f32 product each) and
+    only the int8 values and scales cross to it."""
     out: Dict[str, Any] = {}
     for key, e in packed["entries"].items():
         if "raw" in e:
             out[key] = e["raw"]
+        elif device is not None:
+            out[key] = dequantize_int8(
+                torch.from_numpy(e["q"]).to(device),
+                torch.from_numpy(e["scales"]).to(device), shape=e["shape"],
+                dtype=_torch_dtype(e["dtype"]))
         else:
             out[key] = dequantize_int8_np(
                 e["q"], e["scales"], shape=e["shape"],
@@ -207,18 +222,20 @@ class WeightPublisher:
         swapping = []
         for eng in self._engines:
             if hasattr(eng, "stage_weights"):
-                if unpacked is None:
-                    t1 = time.monotonic()
-                    unpacked, _ = unpack_weights(packed)
-                    t_unpack = time.monotonic() - t1
                 cfg = getattr(eng, "model_config", None)
                 if cfg is None:     # a target that takes the numpy tree
+                    if unpacked is None:
+                        t1 = time.monotonic()
+                        unpacked, _ = unpack_weights(packed)
+                        t_unpack += time.monotonic() - t1
                     eng.stage_weights(unpacked, version)
                     continue
                 key = (str(eng.device), cfg)
                 if key not in staged:
-                    staged[key] = params_from_jax(unpacked, cfg,
-                                                  eng.device)
+                    t1 = time.monotonic()
+                    staged[key] = params_from_jax(unpack_weights(
+                        packed, eng.device)[0], cfg, eng.device)
+                    t_unpack += time.monotonic() - t1
                 eng.stage_weights(staged[key], version)
                 swapping.append(eng)
             else:

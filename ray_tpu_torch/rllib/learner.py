@@ -1,58 +1,187 @@
-"""LearnerGroup: local or data-parallel remote learners, the port's copy
-of ``ray_tpu/rllib/learner.py``'s group.
+"""Learner and LearnerGroup: the port of ``ray_tpu/rllib/learner.py``.
+
+``Learner`` holds an ``RLModule``'s parameters and optimizer state on its
+device (the card by default) and runs one update per minibatch: the
+module's train forward, the algorithm's loss, the backward, the global
+norm, then optax's ``chain(clip_by_global_norm(grad_clip), adam(lr))`` as
+:class:`ray_tpu_torch.models.training.ClipAdamW` (``b2=0.999``, no weight
+decay, no clip when ``grad_clip`` is falsy). The ``grad_norm`` metric is
+the norm before the clip, ``total_loss`` the loss.
 
 A group holds one local learner, or N learner actors on the port's
 runtime that shard each batch and average their gradients. Gradients
-leave an actor as numpy trees (nested dicts of arrays) and are averaged
-on the host with ``np.mean(np.stack(...))``, leaf by leaf, as the JAX
-group does; the one average is then applied to every replica, so the
-replicas stay bit-identical. No collective is used. A tree bound for
+leave an actor as numpy trees (nested dicts and lists of arrays) and are
+averaged on the host with ``np.mean(np.stack(...))``, leaf by leaf, as
+the JAX group does; the one average is then applied to every replica, so
+the replicas stay bit-identical. No collective is used. A tree bound for
 every learner (the average, weights) is put into the object store once
-and passed by reference.
+and passed by reference. Minibatch permutations come from the group's
+numpy generator, so both packages shuffle alike.
 
 A learner is any object with the ``Learner`` protocol:
 ``compute_gradients(batch) -> (grads, metrics)``,
 ``apply_gradients(grads)``, ``get_weights()``, ``set_weights(w)`` and
 ``update_from_batch(batch) -> metrics`` (the RLHF ``PolicyLearner`` is
-one). The JAX package's ``Learner`` over an ``RLModule`` waits for the
-port of ``rllib/`` (ROADMAP Queue 1 item 10).
+another).
 """
 
 from __future__ import annotations
 
 import collections
+import os
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch.models.training import ClipAdamW, global_norm
+from ray_tpu_torch.rllib.models import (tree_get, tree_map, tree_paths,
+                                        tree_to_numpy)
+from ray_tpu_torch.rllib.rl_module import RLModuleSpec
 from ray_tpu_torch.rllib.rollout_stream import _concat_batches, _nrows
 
 
+def learner_device(device=None) -> torch.device:
+    """A learner's device: the one named, else the card, raising without
+    one. In a runtime worker put on the CPU platform
+    (``RAY_TPU_TORCH_PLATFORM=cpu``, which hides every card from it)
+    ``None`` is the CPU, as for the port's other actors' entry points."""
+    from ray_tpu_torch.core.global_state import try_global_worker
+    from ray_tpu_torch.models.transformer import resolve_device
+    worker = try_global_worker()
+    if device is None and getattr(worker, "kind", None) == "worker" \
+            and os.environ.get("RAY_TPU_TORCH_PLATFORM") == "cpu":
+        return torch.device("cpu")
+    return resolve_device(device)
+
+
+def _batch_tensors(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A numpy sample batch on ``device``: floats as f32, integers (the
+    actions of a Discrete space) as int64, which the log-probability
+    gathers index with."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v))
+        if t.is_floating_point():
+            t = t.to(torch.float32)
+        elif t.dtype != torch.bool:
+            t = t.to(torch.int64)
+        out[k] = t.to(device)
+    return out
+
+
 class Learner:
-    """The JAX package's ``RLModule`` learner. Not ported yet: it needs
-    ``rllib/rl_module.py`` and the rest of ``rllib/`` (ROADMAP Queue 1
-    item 10)."""
+    """Holds params and optimizer state on ``device``; ``update_from_batch``
+    is one update.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "rllib.Learner (the RLModule learner) waits for the port of "
-            "rllib/ (ROADMAP Queue 1 item 10); LearnerGroup takes any "
-            "object with the Learner protocol, as rlhf.PolicyLearner")
+    ``device=None`` is the card and raises without one (see
+    :func:`learner_device`); tests name the CPU. The initial weights are
+    drawn from ``seed`` on the CPU and moved, so a seed gives the same
+    weights on every device.
+    """
+
+    def __init__(self, module_spec: RLModuleSpec,
+                 loss_fn: Callable[..., Tuple[torch.Tensor, Dict]],
+                 learning_rate: float = 3e-4,
+                 grad_clip: Optional[float] = 0.5, seed: int = 0,
+                 loss_config: Optional[Dict[str, Any]] = None,
+                 device=None):
+        self.device = learner_device(device)
+        self.module = module_spec.build()
+        self._loss_fn = loss_fn
+        self._loss_config = loss_config or {}
+        self._opt = ClipAdamW(learning_rate, b2=0.999, weight_decay=0.0,
+                              clip_norm=grad_clip if grad_clip else None)
+        params = self.module.init(seed, device=self.device)
+        self.load_state({"params": params, "opt_state": {
+            "count": torch.zeros((), dtype=torch.int32, device=self.device),
+            "mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params)}})
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Take ``{"params", "opt_state": {"count", "mu", "nu"}}`` in this
+        learner's layout (``ray_tpu_torch._bridge.rllib_state_from_jax``
+        carries a JAX learner's state into it)."""
+        params = state["params"]
+        self._paths = tree_paths(params)
+        self._leaves = [tree_get(params, p) for p in self._paths]
+        for p in self._leaves:
+            p.requires_grad_(True)
+        self._state = state
+
+    # -- the update ----------------------------------------------------
+    def _loss(self, batch: Dict[str, torch.Tensor]):
+        out = self.module.forward_train(self._state["params"], batch["obs"])
+        return self._loss_fn(out, batch, **self._loss_config)
+
+    def _grads(self, batch: Dict[str, np.ndarray]):
+        loss, metrics = self._loss(_batch_tensors(batch, self.device))
+        grads = list(torch.autograd.grad(loss, self._leaves))
+        with torch.no_grad():
+            gnorm = global_norm(grads)
+        metrics = dict(metrics, total_loss=loss, grad_norm=gnorm)
+        return grads, gnorm, metrics
+
+    @staticmethod
+    def _floats(metrics) -> Dict[str, float]:
+        """Scalar tensors to floats, through one copy to the host."""
+        vals = torch.stack([v.detach().float().reshape(())
+                            for v in metrics.values()]).tolist()
+        return dict(zip(metrics, vals))
+
+    def _apply(self, grads: List[torch.Tensor], gnorm: torch.Tensor) -> None:
+        self._opt.update(grads, self._state["opt_state"], self._leaves,
+                         gnorm, paths=self._paths)
+
+    # -- public --------------------------------------------------------
+    def update_from_batch(self, batch: Dict[str, np.ndarray]
+                          ) -> Dict[str, float]:
+        grads, gnorm, metrics = self._grads(batch)
+        with torch.no_grad():
+            self._apply(grads, gnorm)
+        return self._floats(metrics)
+
+    def compute_gradients(self, batch: Dict[str, np.ndarray]):
+        """Data-parallel path: the gradient tree (tensors on the device)
+        and the metrics; the group averages and applies."""
+        grads, _, metrics = self._grads(batch)
+        metrics.pop("grad_norm")
+        it = iter(grads)
+        return (tree_map(lambda _: next(it), self._state["params"]),
+                self._floats(metrics))
+
+    @torch.no_grad()
+    def apply_gradients(self, grads) -> None:
+        """Apply a gradient tree (tensors or numpy arrays, keyed as the
+        params) through the clip and Adam."""
+        g = [_f32(tree_get(grads, p), self.device) for p in self._paths]
+        self._apply(g, global_norm(g))
+
+    def get_weights(self):
+        return tree_to_numpy(self._state["params"])
+
+    @torch.no_grad()
+    def set_weights(self, params) -> None:
+        """Copy a tree of the same structure (numpy arrays or tensors)
+        into the params in place; the optimizer state stays."""
+        for p, leaf in zip(self._paths, self._leaves):
+            leaf.copy_(_f32(tree_get(params, p), self.device))
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same keys."""
-    if isinstance(trees[0], dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+def _f32(x, device) -> torch.Tensor:
+    """A numpy array or tensor leaf as an f32 tensor on ``device``, a copy
+    (the clip scales gradients in place; a numpy leaf may view the object
+    store)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device, torch.float32, copy=True)
+    return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
 def _mean_grads(grads: List[Any]):
     """The leaf-wise mean of numpy gradient trees."""
-    return _tree_map(lambda *gs: np.mean(np.stack(gs), axis=0), *grads)
+    return tree_map(lambda *gs: np.mean(np.stack(gs), axis=0), *grads)
 
 
 class LearnerGroup:
@@ -275,15 +404,6 @@ class LearnerGroup:
                 pass
 
 
-def _to_numpy(tree):
-    """A gradient tree as numpy: tensors to f32 arrays on the host."""
-    if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", torch.float32).numpy()
-    return np.asarray(tree)
-
-
 class _RemoteLearner:
     """Actor wrapper: gradients leave and arrive as numpy trees. ``walls``
     keeps the seconds of each call's own work in the actor: the
@@ -300,7 +420,7 @@ class _RemoteLearner:
         t0 = time.perf_counter()
         grads, metrics = self._learner.compute_gradients(batch)
         t1 = time.perf_counter()
-        grads = _to_numpy(grads)
+        grads = tree_to_numpy(grads)
         self.walls["compute_gradients"].append(t1 - t0)
         self.walls["grads_to_host"].append(time.perf_counter() - t1)
         return grads, metrics

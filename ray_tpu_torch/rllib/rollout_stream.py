@@ -1,34 +1,148 @@
-"""Rollout-to-train streaming dataflow: the parts of
-``ray_tpu/rllib/rollout_stream.py`` that RLHF reads.
+"""Rollout-to-train streaming dataflow, the port of
+``ray_tpu/rllib/rollout_stream.py`` (Podracer-style decoupled
+actor/learner, arXiv:2104.06272; a distributed rollout feed,
+arXiv:2507.19017).
 
-``RolloutBlockStream`` is the fan-in consumer edge over N streaming
-generator tasks (``num_returns="streaming"``): ``wait_any`` surfaces
-whichever producer has a block buffered (one straggler never stalls the
-learner), blocks re-chunk into fixed minibatches through
-``iter_batches``, and the time the consumer spends blocked with no block
-ready is measured as the rollout-to-train bubble. ``block_uid`` is the
-per-(producer, block) id that makes exactly-once delivery assertable end
-to end.
+``rollout_stream`` is a **generator task** (``num_returns=
+"streaming"``), not an actor method: it is deterministic in its
+arguments (env construction, module init and action sampling are all
+seeded), so a mid-epoch SIGKILL of a runner's worker lineage-replays
+the stream prefix on a fresh worker and the owner's per-index dedup
+delivers every block to the consumer exactly once.
 
-Not ported yet: ``RandomEnv``, ``rollout_stream`` and
-``make_rollout_streams``, which read the env runner and ``RLModule``
-(ROADMAP Queue 1 item 10).
+``RolloutBlockStream`` is the fan-in consumer edge over N such streams:
+``wait_any`` surfaces whichever producer has a block buffered (one
+straggler never stalls the learner), blocks re-chunk into fixed
+minibatches through ``iter_batches``, and the time the consumer spends
+blocked with no block ready is measured as the rollout-to-train bubble.
+``block_uid`` is the per-(producer, block) id that makes exactly-once
+delivery assertable end to end.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 import ray_tpu_torch
 
 
+class RandomEnv:
+    """Gym-free env for benches and tests (no gymnasium dependency):
+    seeded random-walk observations, +1 reward per step, fixed-length
+    episodes. Observations, rewards and episode ends ignore the action
+    and come from a numpy generator. Speaks the 5-tuple gymnasium step
+    API the EnvRunner consumes."""
+
+    class _Space:
+        def __init__(self, **kw):
+            self.__dict__.update(kw)
+
+    def __init__(self, obs_dim: int = 8, n_actions: int = 4,
+                 episode_len: int = 50, seed: int = 0):
+        self.obs_dim = obs_dim
+        self.n_actions = n_actions
+        self.episode_len = episode_len
+        self._rng = np.random.default_rng(seed)
+        self._t = 0
+        # minimal gym-shaped spaces so Algorithm.setup's space probe
+        # (spec_for_spaces) works without gymnasium
+        self.observation_space = self._Space(shape=(obs_dim,))
+        self.action_space = self._Space(n=n_actions)
+
+    def close(self) -> None:
+        pass
+
+    def _obs(self) -> np.ndarray:
+        return self._rng.standard_normal(self.obs_dim).astype(np.float32)
+
+    def reset(self, seed: Optional[int] = None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        self._t += 1
+        terminated = self._t >= self.episode_len
+        if terminated:
+            self._t = 0
+        return self._obs(), 1.0, terminated, False, {}
+
+
 def block_uid(worker_index: int, block: int) -> int:
     """Stable per-(runner, block) id carried as a row column so
     exactly-once delivery is assertable end to end."""
     return worker_index * 1_000_000 + block
+
+
+def rollout_stream(env_creator: Callable[[], Any], module_spec,
+                   weights, num_blocks: int, steps_per_block: int,
+                   num_envs: int = 1, gamma: float = 0.99,
+                   lambda_: float = 0.95, seed: int = 0,
+                   worker_index: int = 0,
+                   fault: Optional[Dict[str, Any]] = None):
+    """Generator-task body: build a (deterministically seeded) EnvRunner
+    in-process and yield ``num_blocks`` rollout blocks of
+    ``steps_per_block`` env steps each. Each item is ``(batch, info)``:
+    the flat GAE'd sample batch (plus a ``block_uid`` row column) and a
+    small info dict (episode returns, ids).
+
+    ``fault={"die_at_block": i, "marker": path}`` is the chaos hook: the
+    first execution SIGKILLs its own worker right before yielding block
+    ``i`` (and drops a marker file so the lineage replay runs through)."""
+    from ray_tpu_torch.rllib.env_runner import EnvRunner
+    runner = EnvRunner(env_creator, module_spec, num_envs=num_envs,
+                       gamma=gamma, lambda_=lambda_, seed=seed,
+                       worker_index=worker_index)
+    runner.set_weights(weights)
+    blocks = runner.sample_blocks(num_blocks, steps_per_block)
+    for b, batch in enumerate(blocks):
+        if fault and b == fault.get("die_at_block"):
+            import os
+            import signal
+            marker = fault.get("marker")
+            if marker and not os.path.exists(marker):
+                open(marker, "w").close()
+                os.kill(os.getpid(), signal.SIGKILL)
+        uid = block_uid(worker_index, b)
+        batch["block_uid"] = np.full(len(batch["obs"]), uid, np.int64)
+        info = {"worker_index": worker_index, "block": b, "uid": uid,
+                "episode_returns": runner.episode_returns()}
+        yield batch, info
+
+
+_rollout_stream_remote = None
+
+
+def _remote_rollout_stream():
+    global _rollout_stream_remote
+    if _rollout_stream_remote is None:
+        _rollout_stream_remote = ray_tpu_torch.remote(
+            num_cpus=1, num_returns="streaming")(rollout_stream)
+    return _rollout_stream_remote
+
+
+def make_rollout_streams(env_creator, module_spec, weights,
+                         n_runners: int, num_blocks: int,
+                         steps_per_block: int, *, num_envs: int = 1,
+                         gamma: float = 0.99, lambda_: float = 0.95,
+                         seed: int = 0, backpressure: int = 4,
+                         faults: Optional[Dict[int, Dict]] = None
+                         ) -> List[Any]:
+    """Launch N rollout generator tasks; returns their
+    ``ObjectRefGenerator``s. ``weights`` may be a value or an
+    ``ObjectRef`` (put once, resolved at each runner). ``faults`` maps
+    worker_index -> fault dict (see ``rollout_stream``)."""
+    fn = _remote_rollout_stream()
+    return [
+        fn.options(generator_backpressure_num_objects=backpressure)
+        .remote(env_creator, module_spec, weights, num_blocks,
+                steps_per_block, num_envs, gamma, lambda_,
+                seed, i, (faults or {}).get(i))
+        for i in range(n_runners)]
 
 
 def _concat_batches(batches: List[Dict[str, np.ndarray]]

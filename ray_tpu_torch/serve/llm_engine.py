@@ -1799,12 +1799,12 @@ class LLMServer:
     def sync_weights(self, packed: Dict[str, Any]) -> int:
         """Apply an int8-packed weight refresh (the
         :mod:`ray_tpu_torch.rlhf.weight_sync` wire format) in flight:
-        dequantize on this actor-call thread into the engine's dtypes
-        and device, and stage it for the step thread's between-steps
+        dequantize on this actor-call thread, on the engine's device,
+        into its dtypes, and stage it for the step thread's between-steps
         pointer swap. Returns the staged version. Decode never drains."""
         from ray_tpu_torch._bridge import params_from_jax
         from ray_tpu_torch.rlhf.weight_sync import unpack_weights
-        tree, version = unpack_weights(packed)
+        tree, version = unpack_weights(packed, self.engine.device)
         self.engine.stage_weights(params_from_jax(
             tree, self.model_config, self.engine.device), version)
         return version

@@ -68,3 +68,35 @@ def test_editing_the_sm90_header_rebuilds_both_wgmma_libraries(
     after = {s: _build._paths(s)[1] for s in sources}
     assert [after[s] != before[s] for s in sources] == [True, True, False,
                                                          False]
+
+
+def test_a_parted_source_compiles_its_units_in_parallel_then_links(
+        csrc, tmp_path, monkeypatch):
+    """A source in ``PARTS`` runs one ``nvcc -c`` a part with the part's
+    macro (no ``-shared``), then one link of the objects; the objects
+    are gone afterwards and the library is in place."""
+    import json
+    import stat
+    calls = tmp_path / "calls.jsonl"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/usr/bin/env python3\nimport json, sys\n"
+        f"open({str(calls)!r}, 'a').write(json.dumps(sys.argv[1:]) + '\\n')\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('x')\nprint('ptxas info : Used 1 registers')\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "PARTS", {"kernel.cu": ("K_PART", 3)})
+    lib = tmp_path / "out" / "kernel-x.so"
+    lib.parent.mkdir()
+    out = _build._compile(csrc / "kernel.cu", lib)
+    argv = [json.loads(line) for line in calls.read_text().splitlines()]
+    units, link = argv[:3], argv[3]
+    assert sorted(a[a.index("-c") - 1] for a in units) == \
+        ["-DK_PART=0", "-DK_PART=1", "-DK_PART=2"]
+    assert all("-shared" not in a and a[-1].endswith("kernel.cu")
+               for a in units)
+    assert "-shared" in link and [p.endswith(f".{i}.o") for i, p in
+                                  enumerate(link[-3:])] == [True] * 3
+    assert lib.read_text() == "x" and list(lib.parent.iterdir()) == [lib]
+    assert out["log"].count("Used 1 registers") == 4

@@ -624,3 +624,48 @@ def test_mesh_and_elastic_phases_on_the_cpu(monkeypatch):
     # the second's surviving rank, the last program's two
     assert len(failed) == 4 * (4 + 4 + 4 + 1 + 2) \
         and all("launched" in f for f in failed), failed
+
+
+def test_rllib_phases_on_the_cpu(monkeypatch):
+    """RLL1 and RLL2 at hiddens (16, 16) and a small batch on the CPU,
+    on one runtime as after EL1 on the card: PPO's two iterations and the
+    streamed one with the runners' weights, ``save``/``restore`` bit for
+    bit and the repeated update (its control outside the bound); one
+    iteration of PG, IMPALA, APPO and multi-agent PPO, V-trace, and the
+    group of two remote learners against one, bit-identical, its control
+    outside. No kernel runs here, so every check holds."""
+    import cloudpickle
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(chip_smoke, "RLL_HIDDENS", (16, 16))
+    monkeypatch.setattr(chip_smoke, "RLL1", dict(
+        chip_smoke.RLL1, train_batch_size=256, minibatch_size=64,
+        num_epochs=2))
+    monkeypatch.setattr(chip_smoke, "RLL_MA_BATCH", 128)
+    monkeypatch.setattr(chip_smoke, "RLL_GROUP_ROWS", 64)
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        with chip_smoke.runtime():
+            out = chip_smoke.rllib_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    assert failed == []
+    rll1, rll2 = out["RLL1"], out["RLL2"]
+    assert [it["updates"] for it in rll1["iterations"][:2]] == [8, 8]
+    assert rll1["restored_sha"] == rll1["weights_sha"][-1]
+    agree = rll1["agreement"]
+    assert agree["count"] == 8
+    assert agree["loss_rel"] <= chip_smoke.RLL_LOSS_REL
+    assert agree["update_rel"] <= chip_smoke.RLL_UPDATE_REL \
+        < agree["control_rel"]
+    assert rll1["learner_device"] == ["cpu"]
+    for name in ("PG", "IMPALA", "APPO", "MultiAgentPPO"):
+        assert rll2[name]["iteration"]["steps_lifetime"] > 0
+    assert rll2["APPO"]["vtrace"]["vs_rel"] <= chip_smoke.RLL_VTRACE_REL
+    group = rll2["group"]
+    assert group["replica_sha"][0] == group["replica_sha"][1]
+    assert group["update_rel"] <= chip_smoke.RLL_GROUP_REL \
+        < group["control_rel"]

@@ -1,8 +1,9 @@
-"""The port stands alone: no file of ``ray_tpu_torch/`` and not
-``chip_smoke.py`` imports JAX, the JAX package or ``ml_dtypes``, and the
-port imports, serves (speculative decode, a bf16 KV hand-off, tracing
-included), takes a train step and serves an ``LLMServer`` through
-``serve.run`` with all of them made unimportable."""
+"""The port stands alone: no file of ``ray_tpu_torch/``, neither
+``chip_smoke.py`` nor ``store_probe.py``, imports JAX, the JAX package
+or ``ml_dtypes``, and the port imports, serves (speculative decode, a
+bf16 KV hand-off, tracing included), takes a train step and serves an
+``LLMServer`` through ``serve.run`` with all of them made
+unimportable."""
 
 import ast
 import json
@@ -21,7 +22,7 @@ BANNED = ("jax", "jaxlib", "optax", "flax", "ray_tpu", "ml_dtypes")
 
 def _port_files():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "store_probe.py"]
     return files
 
 
@@ -347,3 +348,35 @@ def test_serve_run_with_jax_and_ray_tpu_unimportable(tmp_path):
         assert not leaked, leaked
         print("OK")
     """, PYTHONPATH=os.pathsep.join([str(tmp_path), str(ROOT)]))
+
+
+def test_rllib_trains_with_jax_and_ray_tpu_unimportable():
+    """PPO's learner update on the CPU, an env runner's samples over
+    ``RandomEnv`` and a checkpoint's round trip with the JAX packages
+    unimportable."""
+    _run("""
+        import sys
+        for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu",
+                     "ml_dtypes"):
+            sys.modules[name] = None      # any import of them now fails
+        import math
+        from ray_tpu_torch.rllib import (EnvRunner, Learner, PPOConfig,
+                                         RandomEnv, RLModuleSpec)
+        from ray_tpu_torch.rllib.ppo import ppo_loss
+        from ray_tpu_torch.train import Checkpoint
+        spec = RLModuleSpec(observation_dim=4, num_actions=2, hiddens=(8,))
+        learner = Learner(spec, ppo_loss, device="cpu")
+        runner = EnvRunner(lambda: RandomEnv(4, 2, 5), spec, num_envs=2)
+        runner.set_weights(learner.get_weights())
+        m = learner.update_from_batch(runner.sample(8))
+        assert all(math.isfinite(v) for v in m.values()), m
+        back = Checkpoint(Checkpoint.from_torch(
+            learner._state["params"]).path).to_torch()
+        assert back["pi"][0]["w"].shape == (4, 8)
+        assert PPOConfig().lr > 0
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """)

@@ -148,8 +148,19 @@ def test_policy_learner_needs_the_card_unless_the_cpu_is_named():
 
 
 def test_rlmodule_learner_waits_for_the_rllib_port():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Learner(None, None)
+    """The RLModule ``Learner`` is ported (it raised until then): like
+    every entry point, it needs the card unless the CPU is named."""
+    import torch
+
+    from ray_tpu_torch.rllib.ppo import ppo_loss
+    from ray_tpu_torch.rllib.rl_module import RLModuleSpec
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    spec = RLModuleSpec(observation_dim=4, num_actions=2, hiddens=(8,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Learner(spec, ppo_loss)
+    learner = Learner(spec, ppo_loss, device="cpu")
+    assert learner.device == torch.device("cpu")
 
 
 def test_two_remote_learners_match_the_jax_single_learner(jax_learner):

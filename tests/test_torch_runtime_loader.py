@@ -1,12 +1,14 @@
-"""Run the JAX package's ``tests/core``, ``tests/serve`` and ``tests/rlhf``
-bodies on the port's runtime.
+"""Run the JAX package's ``tests/core``, ``tests/serve``, ``tests/rlhf``
+and ``tests/rllib`` bodies on the port's runtime.
 
 Each ``tests/test_torch_runtime_<name>.py`` file loads
 ``tests/core/test_<name>.py`` with :func:`load_core_tests`, and each
 ``tests/test_torch_serve_<name>.py`` loads ``tests/serve/test_<name>.py``
 (named ``"serve/test_<name>.py"``), and each
 ``tests/test_torch_rlhf_<name>.py`` that loads bodies
-``tests/rlhf/test_<name>.py`` (``"rlhf/test_<name>.py"``), as
+``tests/rlhf/test_<name>.py`` (``"rlhf/test_<name>.py"``), and each
+``tests/test_torch_rllib_<name>.py`` that loads bodies
+``tests/rllib/test_<name>.py`` (``"rllib/test_<name>.py"``), as
 ``tests/test_torch_autoscaler_slices.py`` and ``tests/test_torch_elastic.py``
 load ``"autoscaler/test_slices.py"`` and ``"parallel/test_elastic.py"``:
 the source is
@@ -20,13 +22,21 @@ module or ``ray_tpu``. The file then takes the module's tests, fixtures
 and helpers into its own namespace, less the bodies it leaves out (each
 named with its reason), beside this module's fixtures: the
 ``tests/conftest.py`` fixtures ``ray_start_regular``/``ray_start_shared``,
-the ``tests/serve/conftest.py`` fixture ``serve_session`` and the
-``tests/rlhf/conftest.py`` fixture ``rlhf_cluster`` on the port's
+the ``tests/serve/conftest.py`` fixture ``serve_session``, the
+``tests/rlhf/conftest.py`` fixture ``rlhf_cluster`` and the
+``tests/rllib/conftest.py`` fixture ``ray_session`` on the port's
 runtime, and a metrics-registry reset for the port's registry. The RLHF
 files also take ``RLHF_ON_THE_CPU``: the JAX bodies build trainers and
 rollout engines in the test process with no device named (the JAX
 package's run on the CPU platform there), so the fixture names the CPU
-for them, as a test passes ``device="cpu"``.
+for them, as a test passes ``device="cpu"``. The rllib files take
+``RLLIB_ON_THE_CPU`` for the same reason: it names the CPU for the
+``Learner``s a body builds with no device (an algorithm's local learner
+among them); remote learners and env runners are workers on the CPU
+platform. Two ``tests/rllib`` files are not loaded: every body of
+``test_dqn.py`` and ``test_ddpg_cql_estimators.py`` reads ``dqn.py``,
+``sac.py``, ``ddpg.py``, ``cql.py``, ``offline.py`` or ``estimators.py``,
+which wait for the next slice (ROADMAP Queue 1 item 10).
 
 The tests of this file check the loader itself.
 """
@@ -46,6 +56,7 @@ JAX_TESTS = ROOT / "tests"
 JAX_CORE = JAX_TESTS / "core"
 JAX_SERVE = JAX_TESTS / "serve"
 JAX_RLHF = JAX_TESTS / "rlhf"
+JAX_RLLIB = JAX_TESTS / "rllib"
 #: a get or wait in a loaded body that names no timeout gets this one
 DEFAULT_TIMEOUT_S = 120.0
 
@@ -158,6 +169,15 @@ def rlhf_cluster():
     ray_tpu_torch.shutdown()
 
 
+@pytest.fixture(scope="module")
+def ray_session():
+    import ray_tpu_torch
+    info = ray_tpu_torch.init(num_cpus=8, _num_initial_workers=3,
+                              ignore_reinit_error=True)
+    yield info
+    ray_tpu_torch.shutdown()
+
+
 @pytest.fixture(autouse=True)
 def _port_metrics_registry_isolation():
     """The port's twin of tests/conftest.py's registry reset: metrics a
@@ -185,6 +205,24 @@ def _rlhf_devices_on_the_cpu(monkeypatch):
 
 RLHF_ON_THE_CPU = {"_rlhf_devices_on_the_cpu": _rlhf_devices_on_the_cpu}
 
+
+@pytest.fixture(autouse=True)
+def _rllib_learners_on_the_cpu(monkeypatch):
+    """The rllib learners that a loaded body builds in the test process
+    with no device run on the CPU (their ``device=None`` is the card)."""
+    import torch
+
+    from ray_tpu_torch.rllib import learner
+    inner = learner.learner_device
+    monkeypatch.setattr(
+        learner, "learner_device",
+        lambda device=None: torch.device("cpu") if device is None
+        else inner(device))
+
+
+RLLIB_ON_THE_CPU = {"_rllib_learners_on_the_cpu": _rllib_learners_on_the_cpu,
+                    "ray_session": ray_session}
+
 FIXTURES = {"ray_start_regular": ray_start_regular,
             "ray_start_shared": ray_start_shared,
             "serve_session": serve_session,
@@ -196,7 +234,8 @@ FIXTURES = {"ray_start_regular": ray_start_regular,
 @pytest.mark.parametrize("filename", sorted(
     p.name for p in JAX_CORE.glob("test_*.py")) + sorted(
     f"serve/{p.name}" for p in JAX_SERVE.glob("test_*.py")) + sorted(
-    f"rlhf/{p.name}" for p in JAX_RLHF.glob("test_*.py")) + [
+    f"rlhf/{p.name}" for p in JAX_RLHF.glob("test_*.py")) + sorted(
+    f"rllib/{p.name}" for p in JAX_RLLIB.glob("test_*.py")) + [
     "autoscaler/test_slices.py", "parallel/test_elastic.py"])
 def test_rewrite_leaves_no_jax_package_import(filename):
     """After the rewrite no import names the JAX package."""
