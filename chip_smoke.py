@@ -340,9 +340,31 @@ RLL2. On the same runtime, one iteration each of PG, IMPALA, APPO and
     the replicas bit-identical (sha256), the update within 1e-3 relative
     L2 of one learner's on the whole batch, one learner's on the first
     half (the control) outside it.
+RLL3. On the same runtime, rllib's off-policy and offline learners at
+    RLL1's width, on the card, the JAX package's defaults otherwise:
+    ``DQNConfig()`` with 2 runner actors on ``RandomEnv`` past learning
+    starts to 504 updates (its target equal to the online params bit for
+    bit after update 500, unmoved at 501); discrete SAC on
+    ``RandomEnv`` and continuous SAC on a numpy ``Pendulum``
+    (gymnasium's ``Pendulum-v1`` dynamics), and TD3 on it, 2 iterations
+    past learning starts (the targets at their polyak step within 1e-6,
+    TD3's policy and its Adam count still across an odd update and moved
+    across an even one); ``update_many(8)`` against 8 single updates
+    within 1e-6; ``JsonWriter`` files of both envs read back bit for
+    bit, then CQL (Pendulum), BC and MARWIL (``RandomEnv``) 2 iterations
+    each, IS with the behaviour policy as target within 1e-6 of the
+    behaviour value, WIS, and DM and DR over FQE trained on the card.
+    Update 2 of DQN, continuous SAC, TD3 and CQL repeated on the CPU
+    from the card's state with the card's minibatch and draws: the loss
+    within 1e-5 relative, the update within 1e-3 relative L2, update 3's
+    (the control) outside it. Env steps/s, learner ms an update (CUDA
+    events), the burst's ms, peak memory (the ``rll3`` line).
 
 Before them the script's ``phase walls`` line (the build's wall, each
-phase's and the total) and its total wall are printed. The second-to-last line
+phase's and the total; around each phase on the shared runtime the
+store's live GB, the driver's resident GB outside the store's segment
+and the segment's pages resident in the driver, EL1's store held to
+within 0.1 GB of its value before) and its total wall are printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
 verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
 ``serve_launches``, S2's ``disagg_launches``, both replicas', and RL1's
@@ -369,6 +391,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -434,8 +457,50 @@ def card_line() -> str:
 WALLS: dict = {}
 GROUP_WALLS: dict = {}
 #: GB the runtime's object store holds (live objects) before and after
-#: each phase that :func:`on_own_runtime` runs
+#: each phase that :func:`on_own_runtime` runs; the driver's resident GB
+#: outside the store's shared segment before it, after it, and after the
+#: C allocator gave its free pages back (``malloc_trim``: what remains is
+#: live); and the segment's pages resident in the driver's mapping before
+#: and after it (tmpfs pages a freed object leaves for the next to reuse)
 STORE_GB: dict = {}
+DRIVER_GB: dict = {}
+SEGMENT_GB: dict = {}
+
+
+def malloc_trim() -> None:
+    """Hand the C allocator's free heap pages back to the system."""
+    import ctypes
+    import ctypes.util
+    try:
+        ctypes.CDLL(ctypes.util.find_library("c")).malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+
+
+def resident_gb():
+    """(the driver's resident GB outside the object store's shared
+    segments, the segments' resident GB in its mappings), from
+    ``/proc/self/smaps``; (its whole resident set, 0.0) where that cannot
+    be read."""
+    import psutil
+    own = seg = 0
+    try:
+        with open("/proc/self/smaps") as f:
+            path = ""
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                if not parts[0].endswith(":"):       # a mapping's header
+                    path = parts[5] if len(parts) > 5 else ""
+                elif parts[0] == "Rss:":
+                    if path.startswith("/dev/shm/raytorch-"):
+                        seg += int(parts[1])
+                    else:
+                        own += int(parts[1])
+    except (OSError, ValueError, IndexError):
+        return psutil.Process().memory_info().rss / 1e9, 0.0
+    return own * 1024 / 1e9, seg * 1024 / 1e9
 
 
 def phase_wall(name: str, t0: float, group: bool = False) -> str:
@@ -4919,6 +4984,13 @@ PL5_CONTROL_RATIO_TOL = 0.1
 # bound (the ranks' microbatches round their bf16 products apart from the
 # one-device batch's).
 EL1_LOSS_REL = P2_LOSS_REL_BOUND
+#: a phase of STORE_BACK_PHASES must give the store back to within
+#: STORE_BACK_GB of its live GB before it (EL1's trainer holds a 10.4 GB
+#: snapshot in the store); the after value is read once the runtime's
+#: free grace window and STORE_WAIT_S have passed
+STORE_BACK_GB = 0.1
+STORE_BACK_PHASES = ("EL1",)
+STORE_WAIT_S = 3.0
 
 
 def mesh_control_grad_norm(pipe, batch) -> float:
@@ -5234,13 +5306,18 @@ def phase_el1(dev, card: str, seed: int):
         mgr.shutdown()
         provider.shutdown()
         del ref
+        gone = weakref.ref(trainer)
+        del trainer
         gc.collect()
         torch.cuda.empty_cache()
+    res.update(trainer_collected=gone() is None)
     res.update(steps=steps, recoveries=recoveries, events=events,
                slice_state=mgr.slices[sid].state, launches=launches,
                wall_s=time.perf_counter() - t0)
     print("el1 " + json.dumps(res), flush=True)
     check(res["slice_up"], "EL1: the fake slice never came up")
+    check(res["trainer_collected"], "EL1: the shut-down trainer (and its "
+          "host snapshot) outlived its last reference")
     for st in steps:
         check(math.isfinite(st["loss"]) and st["rel"] <= EL1_LOSS_REL,
               f"EL1 step {st['step']}: loss {st['loss']} against the "
@@ -5281,16 +5358,37 @@ def on_own_runtime(name: str, dev, phase, *args):
     """``phase(dev, *args)`` on a runtime of its own, or on the one a
     caller shares (:func:`runtime`); the card's free memory must come
     back after it. The store's live GB before and after go to
-    ``STORE_GB``."""
+    ``STORE_GB``: the after value once the runtime's free grace window
+    has let go of what the phase dropped (waiting at most that window
+    and STORE_WAIT_S more for it to come within STORE_BACK_GB)."""
+    from ray_tpu_torch.core.global_state import global_worker
     gc.collect()
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     t0 = time.perf_counter()
     with runtime():
-        STORE_GB[name] = [round(store_gb(), 3)]
+        before = store_gb()
+        STORE_GB[name] = [round(before, 3)]
+        own, seg = resident_gb()
+        DRIVER_GB[name] = [round(own, 3)]
+        SEGMENT_GB[name] = [round(seg, 3)]
         out = phase(dev, *args)
         gc.collect()
+        deadline = time.monotonic() + STORE_WAIT_S \
+            + global_worker().config.free_grace_s
+        while store_gb() > before + STORE_BACK_GB \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
         STORE_GB[name].append(round(store_gb(), 3))
+        own, seg = resident_gb()
+        DRIVER_GB[name].append(round(own, 3))
+        SEGMENT_GB[name].append(round(seg, 3))
+        malloc_trim()
+        DRIVER_GB[name].append(round(resident_gb()[0], 3))
+    if name in STORE_BACK_PHASES:
+        check(STORE_GB[name][1] <= STORE_GB[name][0] + STORE_BACK_GB,
+              f"{name} left {STORE_GB[name][1]} GB live in the store, "
+              f"{STORE_GB[name][0]} GB before it (bound +{STORE_BACK_GB})")
     torch.cuda.empty_cache()
     deadline = time.monotonic() + 60
     while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
@@ -5830,11 +5928,573 @@ def phase_rll2(dev, card: str, seed: int):
     return out
 
 
+# ----------------------------------------------------------------- RLL3
+# rllib's off-policy and offline learners on the card, after RLL2 on the
+# same runtime: DQN, discrete SAC, continuous SAC and TD3 online (CPU
+# runner actors fill each algorithm's replay buffer in this process; its
+# learner trains on the card in bursts of ``update_many``), then, from
+# JSON files the port's writer made, CQL, BC, MARWIL and the off-policy
+# estimators (FQE on the card). The networks are MLPs at RLL_HIDDENS: no
+# kernel of this port runs here.
+#: the online algorithms' settings over their defaults (none on the card;
+#: the CPU rehearsal starts learning and syncs DQN's target sooner)
+RLL3_TRAINING: dict = {}
+RLL3_PAST_SYNC = 4          # DQN's updates past its hard target sync
+RLL3_ITERS_PAST_START = 2   # SAC's and TD3's iterations past learning starts
+RLL3_CAPTURE = (1, 2)       # updates 2 and 3: the card-CPU check's update
+#                             (Adam's moments warm) and its control's
+RLL3_TAU_ABS = 1e-6         # a polyak target against (1 - tau) t + tau o
+RLL3_BURST = 8              # update_many's K against K single updates
+RLL3_BURST_ABS = 1e-6
+RLL3_OFFLINE_ITERS = 2
+RLL3_OFFLINE_ROWS = 2000    # transitions in each offline dataset
+RLL3_IS_RTOL = 1e-6         # tests/rllib/test_ddpg_cql_estimators.py:152
+RLL3_FQE_ITERS = 200
+
+
+class _Box:
+    """A gym-shaped Box space: ``spec_for_spaces`` reads low, high and
+    shape (and no ``n``)."""
+
+    def __init__(self, low, high):
+        self.low = np.asarray(low, np.float32)
+        self.high = np.asarray(high, np.float32)
+        self.shape = self.low.shape
+
+
+class Pendulum:
+    """gymnasium's ``Pendulum-v1`` in numpy, gym-free: its published
+    dynamics (g 10, m 1, l 1, dt 0.05, speed within 8, torque within
+    2), observation (cos th, sin th, thdot), reward -(th^2 + 0.1 thdot^2
+    + 0.001 u^2) with th wrapped into [-pi, pi), a start drawn from
+    U([-pi, -1], [pi, 1]), 200-step episodes (truncated, never
+    terminated)."""
+
+    def __init__(self, env_config=None):
+        self.observation_space = _Box([-1.0, -1.0, -8.0], [1.0, 1.0, 8.0])
+        self.action_space = _Box([-2.0], [2.0])
+        self._rng = np.random.default_rng(
+            (env_config or {}).get("seed", 0))
+        self._th, self._thdot, self._t = 0.0, 0.0, 0
+
+    def _obs(self):
+        return np.array([np.cos(self._th), np.sin(self._th), self._thdot],
+                        np.float32)
+
+    def reset(self, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._th, self._thdot = self._rng.uniform([-np.pi, -1.0],
+                                                  [np.pi, 1.0])
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        u = float(np.clip(np.asarray(action, np.float64).reshape(-1)[0],
+                          -2.0, 2.0))
+        th, thdot = self._th, self._thdot
+        wrapped = (th + np.pi) % (2 * np.pi) - np.pi
+        cost = wrapped ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2
+        thdot = np.clip(thdot + (3 * 10.0 / 2 * np.sin(th) + 3.0 * u)
+                        * 0.05, -8.0, 8.0)
+        self._th, self._thdot = th + thdot * 0.05, thdot
+        self._t += 1
+        return self._obs(), -float(cost), False, self._t >= 200, {}
+
+    def close(self) -> None:
+        pass
+
+
+def pendulum_env(env_config):
+    return Pendulum(env_config)
+
+
+class UpdateWatch(LearnerWatch):
+    """Wraps an off-policy learner's ``_update`` in the main path: every
+    update's time from CUDA events around it (the host clock on the
+    CPU), and for the updates in ``capture`` (0-based) their minibatch,
+    draws, metrics and the state before and after."""
+
+    def __init__(self, learner, dev, capture=()):
+        self.learner, self.dev = learner, dev
+        self.capture = set(capture)
+        self.captured: dict = {}
+        self.calls: list = []
+        inner = learner._update
+
+        def update(batch, noise):
+            k = len(self.calls)
+            if k in self.capture:
+                rec = self.captured[k] = {
+                    "batch": state_to_cpu(batch),
+                    "noise": state_to_cpu(noise),
+                    "before": state_to_cpu(learner._state)}
+            t0 = self._mark()
+            out = inner(batch, noise)
+            self.calls.append((t0, self._mark()))
+            if k in self.capture:
+                rec.update(metrics={n: float(v) for n, v in out.items()},
+                           after=state_to_cpu(learner._state))
+            return out
+        learner._update = update
+
+
+def trained(learner, state):
+    """The leaves of every network ``learner``'s optimizers step, as one
+    flat f32 tensor."""
+    from ray_tpu_torch.rllib.models import tree_leaves
+    return torch.cat([t.float().reshape(-1) for keys in learner.OPTS.values()
+                      for k in keys for t in tree_leaves(state[k])])
+
+
+def cpu_learner(algo):
+    """A learner like ``algo``'s, on the CPU."""
+    cfg = algo.config
+    dev, cfg.learner_device = cfg.learner_device, "cpu"
+    try:
+        return algo._make_learner()
+    finally:
+        cfg.learner_device = dev
+
+
+def offpolicy_card_cpu(algo, watch):
+    """Captured update 2 again on the CPU from the card's state before
+    it, on its minibatch with its draws; the control: the CPU's update
+    from that state on update 3's minibatch and draws."""
+    cap, nxt = (watch.captured[k] for k in RLL3_CAPTURE)
+
+    def on_cpu(rec):
+        cpu = cpu_learner(algo)
+        cpu.load_state(cap["before"])
+        m = cpu._update(rec["batch"], rec["noise"])
+        return float(m["total_loss"]), trained(cpu, cpu._state)
+
+    before = trained(algo.learner, cap["before"])
+    card = trained(algo.learner, cap["after"]) - before
+    loss, cpu = on_cpu(cap)
+    _, ctl = on_cpu(nxt)
+    want = cap["metrics"]["total_loss"]
+    return {"loss_card": want, "loss_cpu": loss,
+            "loss_rel": abs(loss - want) / max(abs(want), 1e-12),
+            "update_rel": rel_l2(card, cpu - before),
+            "control_rel": rel_l2(card, ctl - before),
+            "update_norm": card.norm().item()}
+
+
+def check_card_cpu(name: str, agree):
+    print(f"RLL3 {name} card vs CPU, update {RLL3_CAPTURE[0] + 1}: loss "
+          f"{agree['loss_card']:.7f} against {agree['loss_cpu']:.7f} (rel "
+          f"{agree['loss_rel']:.2e}, bound {RLL_LOSS_REL}); the update's "
+          f"rel L2 {agree['update_rel']:.2e} (bound {RLL_UPDATE_REL}), the "
+          f"control's {agree['control_rel']:.2e}", flush=True)
+    check(agree["loss_rel"] <= RLL_LOSS_REL
+          and agree["update_rel"] <= RLL_UPDATE_REL,
+          f"RLL3 {name}: card and CPU disagree: {agree}")
+    check(agree["control_rel"] > RLL_UPDATE_REL,
+          f"RLL3 {name}: the control falls inside the bound: {agree}")
+
+
+def max_abs(a, b) -> float:
+    """The largest elementwise gap between two trees of tensors."""
+    from ray_tpu_torch.rllib.models import tree_leaves
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def polyak_gap(cap, pairs, tau: float) -> float:
+    """How far each target after the captured update is from
+    ``(1 - tau) * target_before + tau * online_after``."""
+    from ray_tpu_torch.rllib.models import tree_map
+    b, a = cap["before"], cap["after"]
+    return max(max_abs(a[t], tree_map(lambda x, y: (1 - tau) * x + tau * y,
+                                      b[t], a[o])) for t, o in pairs)
+
+
+def rll3_online(name: str, config, dev, seed: int, updates: int = 0,
+                capture=RLL3_CAPTURE):
+    """``config`` (2 runner actors, RLL_HIDDENS, the learner on ``dev``)
+    built and trained until its learner has made ``updates`` updates, or
+    RLL3_ITERS_PAST_START iterations past learning starts. Returns the
+    algorithm (still up), its watch and its record."""
+    config = (config.env_runners(num_env_runners=RLL_RUNNERS)
+              .training(model={"fcnet_hiddens": RLL_HIDDENS},
+                        **RLL3_TRAINING)
+              .learners(device=dev).debugging(seed=seed))
+    t0 = time.perf_counter()
+    algo = config.build()
+    setup_s = time.perf_counter() - t0
+    where = check_on_device(algo.learner, dev, f"RLL3 {name}")
+    watch = UpdateWatch(algo.learner, dev, capture)
+    t1 = time.perf_counter()
+    past, r = 0, {}
+    while (len(watch.calls) < updates) if updates else \
+            (past < RLL3_ITERS_PAST_START):
+        r = algo.train()
+        past += bool(r["learner"])
+    wall = time.perf_counter() - t1
+    check(all(math.isfinite(v) for v in r["learner"].values()),
+          f"RLL3 {name}: non-finite metrics {r['learner']}")
+    n, med, lo, hi = watch.update_ms()
+    steps = r["num_env_steps_sampled_lifetime"]
+    rec = {"setup_s": setup_s, "train_s": wall, "env_steps": steps,
+           "env_steps_per_s": steps / wall, "updates": n,
+           "update_ms_median": med, "update_ms_min": lo,
+           "update_ms_max": hi, "learner_device": where}
+    print(f"RLL3 {name}: {steps} env steps in {wall:.3f} s "
+          f"({rec['env_steps_per_s']:.0f}/s), {n} updates, learner update "
+          f"{med:.3f} ms median (min {lo:.3f}, max {hi:.3f}; "
+          f"{'CUDA events' if dev.type == 'cuda' else 'host clock'})",
+          flush=True)
+    return algo, watch, rec
+
+
+def rll3_dqn(dev, seed: int):
+    """DQN's defaults; the target against the online params around its
+    hard sync (at update 500); the card's update 2 against the CPU's."""
+    from ray_tpu_torch.rllib import DQNConfig
+    sync = RLL3_TRAINING.get("target_network_update_freq",
+                             DQNConfig().target_network_update_freq)
+    algo, watch, rec = rll3_online(
+        "DQN", DQNConfig().environment(rll_env, env_config=dict(RLL_ENV)),
+        dev, seed, updates=sync + RLL3_PAST_SYNC,
+        capture=RLL3_CAPTURE + (sync - 1, sync))
+    try:
+        at, after = watch.captured[sync - 1], watch.captured[sync]
+        rec["target"] = {
+            "at_sync": max_abs(at["after"]["target_params"],
+                               at["after"]["params"]),
+            "after_sync": max_abs(after["after"]["target_params"],
+                                  at["after"]["target_params"]),
+            "online_moved": max_abs(after["after"]["params"],
+                                    at["after"]["params"])}
+        print(f"RLL3 DQN target: after update {sync} its max gap to the "
+              f"online params {rec['target']['at_sync']}; after update "
+              f"{sync + 1} it moved {rec['target']['after_sync']}, the "
+              f"online params {rec['target']['online_moved']:.3e}",
+              flush=True)
+        check(rec["target"]["at_sync"] == 0.0
+              and rec["target"]["after_sync"] == 0.0
+              and rec["target"]["online_moved"] > 0.0,
+              f"RLL3 DQN: the target sync is off: {rec['target']}")
+        rec["agreement"] = offpolicy_card_cpu(algo, watch)
+        check_card_cpu("DQN", rec["agreement"])
+    finally:
+        algo.cleanup()
+    return rec
+
+
+def rll3_burst(algo, dev):
+    """``update_many(K)`` on a fresh learner against K single updates on
+    another from the same seed, on the same K minibatches of ``algo``'s
+    buffer (the draws from each learner's generator in the same order):
+    the states within RLL3_BURST_ABS; then each timed by CUDA events."""
+    cfg = algo.config
+    batches = algo.buffer.sample_many(RLL3_BURST, cfg.train_batch_size)
+    one = [{k: v[i] for k, v in batches.items()} for i in range(RLL3_BURST)]
+    a, b = algo._make_learner(), algo._make_learner()
+    a.update_many(batches)
+    for x in one:
+        b.update(x)
+    gap = max_abs(a._state, b._state)
+
+    def timed(fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    burst_ms = timed(lambda: a.update_many(batches))
+    singles_ms = timed(lambda: [b.update(x) for x in one])
+    rec = {"k": RLL3_BURST, "state_gap": gap, "burst_ms": burst_ms,
+           "singles_ms": singles_ms}
+    print(f"RLL3 update_many({RLL3_BURST}) against {RLL3_BURST} single "
+          f"updates: state gap {gap:.2e} (bound {RLL3_BURST_ABS}); "
+          f"{burst_ms:.3f} ms the burst, {singles_ms:.3f} ms the singles "
+          f"(host wall, synchronized)", flush=True)
+    check(gap <= RLL3_BURST_ABS,
+          f"RLL3 update_many({RLL3_BURST}) left {gap} from single updates")
+    return rec
+
+
+def rll3_sac(dev, seed: int):
+    """Discrete SAC on RandomEnv, continuous SAC on Pendulum; the
+    continuous one's update 2 against the CPU's, its targets' polyak
+    step, and update_many against single updates."""
+    from ray_tpu_torch.rllib import SACConfig
+    out = {}
+    algo, watch, out["discrete"] = rll3_online(
+        "SAC discrete",
+        SACConfig().environment(rll_env, env_config=dict(RLL_ENV)), dev,
+        seed)
+    algo.cleanup()
+    algo, watch, rec = rll3_online(
+        "SAC continuous", SACConfig().environment(pendulum_env), dev, seed)
+    try:
+        cap = watch.captured[RLL3_CAPTURE[0]]
+        rec["polyak_gap"] = polyak_gap(cap, (("q1_t", "q1"), ("q2_t", "q2")),
+                                       algo.config.tau)
+        print(f"RLL3 SAC targets: max gap to (1 - tau) t + tau q "
+              f"{rec['polyak_gap']:.2e} (bound {RLL3_TAU_ABS})", flush=True)
+        check(rec["polyak_gap"] <= RLL3_TAU_ABS,
+              f"RLL3 SAC: a target is off its polyak step: "
+              f"{rec['polyak_gap']}")
+        rec["agreement"] = offpolicy_card_cpu(algo, watch)
+        check_card_cpu("SAC continuous", rec["agreement"])
+        rec["burst"] = rll3_burst(algo, dev)
+    finally:
+        algo.cleanup()
+    out["continuous"] = rec
+    return out
+
+
+def rll3_td3(dev, seed: int):
+    """TD3 on Pendulum: the delayed policy step across updates 2 (even:
+    the policy, its Adam count and its target move) and 3 (odd: they
+    stay), the targets' polyak step, the card's update 2 against the
+    CPU's."""
+    from ray_tpu_torch.rllib import TD3Config
+    algo, watch, rec = rll3_online(
+        "TD3", TD3Config().environment(pendulum_env), dev, seed)
+    try:
+        even, odd = (watch.captured[k] for k in RLL3_CAPTURE)
+        tau = algo.config.tau
+
+        def moved(cap):
+            return {"pi": max_abs(cap["after"]["pi"], cap["before"]["pi"]),
+                    "pi_t": max_abs(cap["after"]["pi_t"],
+                                    cap["before"]["pi_t"]),
+                    "pi_count": int(cap["after"]["pi_opt"]["count"])
+                    - int(cap["before"]["pi_opt"]["count"])}
+        rec["delay"] = {"even": moved(even), "odd": moved(odd)}
+        rec["polyak_gap"] = max(polyak_gap(even, (("qs_t", "qs"),
+                                                  ("pi_t", "pi")), tau),
+                                polyak_gap(odd, (("qs_t", "qs"),), tau))
+        print(f"RLL3 TD3 delay: update {RLL3_CAPTURE[0] + 1} moved "
+              f"{rec['delay']['even']}, update {RLL3_CAPTURE[1] + 1} "
+              f"{rec['delay']['odd']}; targets' max gap to their polyak "
+              f"step {rec['polyak_gap']:.2e} (bound {RLL3_TAU_ABS})",
+              flush=True)
+        check(rec["delay"]["odd"] == {"pi": 0.0, "pi_t": 0.0, "pi_count": 0}
+              and rec["delay"]["even"]["pi"] > 0.0
+              and rec["delay"]["even"]["pi_t"] > 0.0
+              and rec["delay"]["even"]["pi_count"] == 1,
+              f"RLL3 TD3: the policy's delay is off: {rec['delay']}")
+        check(rec["polyak_gap"] <= RLL3_TAU_ABS,
+              f"RLL3 TD3: a target is off its polyak step: "
+              f"{rec['polyak_gap']}")
+        rec["agreement"] = offpolicy_card_cpu(algo, watch)
+        check_card_cpu("TD3", rec["agreement"])
+    finally:
+        algo.cleanup()
+    return rec
+
+
+def offline_datasets(root: str, seed: int):
+    """The port's ``JsonWriter`` writes RandomEnv's episodes (uniform
+    behaviour actions, their log-probs kept) and Pendulum's transitions
+    (uniform torques, stored squashed into (-1, 1)); ``JsonReader`` must
+    give back what was written, bit for bit."""
+    from ray_tpu_torch.rllib import JsonReader, JsonWriter, RandomEnv
+    rng = np.random.default_rng(seed + 16)
+    paths, written = {}, {}
+    env = RandomEnv(**RLL_ENV, seed=seed)
+    n_act = RLL_ENV["n_actions"]
+    episodes = []
+    obs, _ = env.reset(seed=seed)
+    ep = {k: [] for k in ("obs", "next_obs", "actions", "rewards",
+                          "dones", "logp")}
+    for _ in range(RLL3_OFFLINE_ROWS):
+        a = int(rng.integers(0, n_act))
+        nxt, r, term, _, _ = env.step(a)
+        for k, v in (("obs", obs), ("next_obs", nxt), ("actions", a),
+                     ("rewards", r), ("dones", float(term)),
+                     ("logp", np.log(1.0 / n_act))):
+            ep[k].append(v)
+        obs = nxt
+        if term:
+            episodes.append(ep)
+            obs, _ = env.reset()
+            ep = {k: [] for k in ep}
+    dtypes = {"obs": np.float32, "next_obs": np.float32,
+              "actions": np.int64, "rewards": np.float32,
+              "dones": np.float32, "logp": np.float32}
+    batches = {"random": [{k: np.asarray(v, dtypes[k]) for k, v in e.items()}
+                          for e in episodes]}
+    pend = Pendulum({"seed": seed})
+    obs, _ = pend.reset(seed=seed)
+    rows = {k: [] for k in ("obs", "next_obs", "actions", "rewards",
+                            "dones")}
+    for _ in range(RLL3_OFFLINE_ROWS):
+        u = rng.uniform(-2.0, 2.0, size=(1,)).astype(np.float32)
+        nxt, r, term, trunc, _ = pend.step(u)
+        for k, v in (("obs", obs), ("next_obs", nxt), ("actions", u / 2.0),
+                     ("rewards", np.float32(r)), ("dones", np.float32(term))):
+            rows[k].append(v)
+        obs = pend.reset()[0] if (term or trunc) else nxt
+    batches["pendulum"] = [{k: np.asarray(v, np.float32)
+                            for k, v in rows.items()}]
+    bits = {}
+    for name, bs in batches.items():
+        paths[name] = os.path.join(root, name)
+        w = JsonWriter(paths[name])
+        for b in bs:
+            w.write(b)
+        w.close()
+        written[name] = {k: np.concatenate([b[k] for b in bs])
+                         for k in bs[0]}
+        got = JsonReader(paths[name])._data
+        bits[name] = all(
+            np.array_equal(got[k].astype(v.dtype), v)
+            and np.array_equal(got[k].astype(v.dtype).view(np.uint8),
+                               v.view(np.uint8))
+            for k, v in written[name].items())
+        check(bits[name] and set(got) == set(written[name]),
+              f"RLL3: JsonReader did not give back {name}'s rows bit for "
+              f"bit")
+    return paths, written, bits
+
+
+def rll3_offline(dev, seed: int, root: str):
+    """CQL from Pendulum's file, BC and MARWIL from RandomEnv's, each
+    RLL3_OFFLINE_ITERS iterations with the learner on the card; CQL's
+    update 2 against the CPU's; IS (the target policy the behaviour
+    one), WIS, and DM and DR over an FQE model trained on the card."""
+    from ray_tpu_torch.rllib import (BCConfig, CQLConfig, DirectMethod,
+                                     DoublyRobust, FQEModel,
+                                     ImportanceSampling, MARWILConfig,
+                                     WeightedImportanceSampling)
+    from ray_tpu_torch.rllib.models import tree_leaves
+    paths, data, bits = offline_datasets(root, seed)
+    out = {"json_bit_for_bit": bits,
+           "rows": {k: int(len(v["obs"])) for k, v in data.items()}}
+    cfg = (CQLConfig().environment(pendulum_env)
+           .offline(offline_data=paths["pendulum"])
+           .training(model={"fcnet_hiddens": RLL_HIDDENS})
+           .learners(device=dev).debugging(seed=seed))
+    algo = cfg.build()
+    try:
+        where = check_on_device(algo.learner, dev, "RLL3 CQL")
+        watch = UpdateWatch(algo.learner, dev, RLL3_CAPTURE)
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(RLL3_OFFLINE_ITERS)]
+        wall = time.perf_counter() - t0
+        m = results[-1]["learner"]
+        check(all(math.isfinite(v) for v in m.values()),
+              f"RLL3 CQL: non-finite metrics {m}")
+        n, med, lo, hi = watch.update_ms()
+        rec = {"train_s": wall, "updates": n, "update_ms_median": med,
+               "update_ms_min": lo, "update_ms_max": hi,
+               "cql_loss": m["cql_loss"], "learner_device": where,
+               "eval_return": results[-1]["episode_return_mean"]}
+        rec["agreement"] = offpolicy_card_cpu(algo, watch)
+        check_card_cpu("CQL", rec["agreement"])
+    finally:
+        algo.cleanup()
+    print(f"RLL3 CQL: {n} updates in {wall:.3f} s (with "
+          f"{cfg.evaluation_episodes} evaluation episodes an iteration), "
+          f"learner update {med:.3f} ms median", flush=True)
+    out["CQL"] = rec
+    for name, ccls in (("BC", BCConfig), ("MARWIL", MARWILConfig)):
+        c = ccls().training(model={"fcnet_hiddens": RLL_HIDDENS}) \
+            .learners(device=dev).debugging(seed=seed)
+        c.offline_data = paths["random"]
+        algo = c.build()
+        try:
+            learner = algo.learner_group._local
+            where = check_on_device(learner, dev, f"RLL3 {name}")
+            watch = LearnerWatch(learner, dev)
+            t0 = time.perf_counter()
+            results = [algo.train() for _ in range(RLL3_OFFLINE_ITERS)]
+            wall = time.perf_counter() - t0
+            m = results[-1]["learner"]
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"RLL3 {name}: non-finite metrics {m}")
+            n, med, _, _ = watch.update_ms()
+        finally:
+            algo.cleanup()
+        out[name] = {"train_s": wall, "updates": n, "update_ms_median": med,
+                     "learner_device": where, "learner": m}
+        print(f"RLL3 {name}: {n} updates of {c.train_batch_size} rows in "
+              f"{wall:.3f} s, learner update {med:.3f} ms", flush=True)
+    batch = data["random"]
+    n_act = RLL_ENV["n_actions"]
+
+    def behaviour_logp(obs, actions):
+        return np.full(len(actions), np.log(1.0 / n_act))
+
+    def behaviour_probs(obs):
+        return np.full((len(obs), n_act), 1.0 / n_act)
+    est = {"IS": ImportanceSampling(behaviour_logp).estimate(batch),
+           "WIS": WeightedImportanceSampling(behaviour_logp).estimate(batch)}
+    t0 = time.perf_counter()
+    fqe = FQEModel(RLL_ENV["obs_dim"], n_act, behaviour_probs,
+                   hiddens=RLL_HIDDENS, seed=seed, device=dev)
+    fqe_loss = fqe.train(batch, iters=RLL3_FQE_ITERS)
+    fqe_s = time.perf_counter() - t0
+    fqe_on = sorted({str(t.device) for t in tree_leaves(fqe._params)})
+    check(fqe_on == [str(dev) if dev.type != "cuda"
+                     else f"cuda:{dev.index or 0}"],
+          f"RLL3 FQE on {fqe_on}")
+    est["DM"] = DirectMethod(fqe).estimate(batch)
+    est["DR"] = DoublyRobust(fqe, behaviour_logp).estimate(batch)
+    is_rel = abs(est["IS"]["v_target"] - est["IS"]["v_behavior"]) \
+        / abs(est["IS"]["v_behavior"])
+    print(f"RLL3 estimators over {est['IS']['num_episodes']} episodes: IS "
+          f"{est['IS']['v_target']:.6f} against the behaviour value "
+          f"{est['IS']['v_behavior']:.6f} (rel {is_rel:.1e}, bound "
+          f"{RLL3_IS_RTOL}), WIS {est['WIS']['v_target']:.6f}, DM "
+          f"{est['DM']['v_target']:.6f}, DR {est['DR']['v_target']:.6f}; "
+          f"FQE {RLL3_FQE_ITERS} iterations on {fqe_on[0]} in "
+          f"{fqe_s:.3f} s, last loss {fqe_loss:.4e}", flush=True)
+    check(is_rel <= RLL3_IS_RTOL,
+          f"RLL3 IS with the behaviour policy as target: {est['IS']}")
+    check(all(math.isfinite(e["v_target"]) for e in est.values()),
+          f"RLL3 estimators: {est}")
+    out["estimators"] = dict(est, is_rel=is_rel, fqe_s=fqe_s,
+                             fqe_loss=fqe_loss)
+    return out
+
+
+def phase_rll3(dev, card: str, seed: int):
+    """RLL3: DQN, discrete and continuous SAC and TD3 online, then CQL,
+    BC, MARWIL and the estimators from the port's JSON files; the
+    learners on the card."""
+    import tempfile
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the card-CPU check needs f32 products")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = {"card": card, "DQN": rll3_dqn(dev, seed),
+           "SAC": rll3_sac(dev, seed), "TD3": rll3_td3(dev, seed)}
+    with tempfile.TemporaryDirectory(prefix="rll3_") as root:
+        out["offline"] = rll3_offline(dev, seed, root)
+    out["peak_gb"] = peak_bytes(dev) / 1e9
+    out["wall_s"] = time.perf_counter() - t0
+    online = {"DQN": out["DQN"], "SAC discrete": out["SAC"]["discrete"],
+              "SAC continuous": out["SAC"]["continuous"], "TD3": out["TD3"]}
+    out["summary"] = {
+        "env_steps_per_s": {k: v["env_steps_per_s"]
+                            for k, v in online.items()},
+        "update_ms_median": dict(
+            {k: v["update_ms_median"] for k, v in online.items()},
+            **{k: out["offline"][k]["update_ms_median"]
+               for k in ("CQL", "BC", "MARWIL")}),
+        "burst_ms": out["SAC"]["continuous"]["burst"]["burst_ms"],
+        "singles_ms": out["SAC"]["continuous"]["burst"]["singles_ms"],
+        "peak_gb": out["peak_gb"], "wall_s": out["wall_s"]}
+    print("rll3 " + json.dumps(out), flush=True)
+    return out
+
+
 def rllib_phases(dev, card: str, seed: int):
-    """RLL1 and RLL2 after EL1, on the caller's runtime where it shares
-    one, else each on a runtime of its own."""
+    """RLL1, RLL2 and RLL3 after EL1, on the caller's runtime where it
+    shares one, else each on a runtime of its own."""
     return {name: on_own_runtime(name, dev, phase, card, seed)
-            for name, phase in (("RLL1", phase_rll1), ("RLL2", phase_rll2))}
+            for name, phase in (("RLL1", phase_rll1), ("RLL2", phase_rll2),
+                                ("RLL3", phase_rll3))}
 
 
 # ----------------------------------------------------------------- main
@@ -5915,6 +6575,8 @@ def main(argv=None) -> int:
     print("phase walls: " + json.dumps({
         "card": card, "walls_s": WALLS, "groups_s": GROUP_WALLS,
         "store_gb": STORE_GB,
+        "driver_gb": DRIVER_GB,
+        "segment_gb": SEGMENT_GB,
         "unaccounted_s": round(total - sum(WALLS.values()), 1),
         "total_s": round(total, 1)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -130,6 +130,39 @@ def rllib_state_from_jax(state: Dict[str, Any], device) -> Dict[str, Any]:
                           "nu": tree_to_tensors(adam.nu, dev)}}
 
 
+def offpolicy_state_from_jax(state: Dict[str, Any], device
+                             ) -> Dict[str, Any]:
+    """A JAX off-policy learner's ``_state`` (DQN, SAC, DDPG/TD3, CQL;
+    leaves as numpy arrays) -> the port's learner state, which its
+    ``load_state`` takes: the networks (params, targets, ``log_alpha``) as
+    f32 tensors on ``device``, each optimizer (``opt_state`` or
+    ``*_opt``: an optax ``clip_by_global_norm -> adam`` chain state, or
+    ``adam`` alone) as ``{"count", "mu", "nu"}`` in
+    :func:`rllib_state_from_jax`'s layout, and the step count. The JAX
+    ``key`` is dropped: the port's learners draw from a
+    ``torch.Generator``."""
+    from ray_tpu_torch.rllib.models import tree_to_tensors
+    dev = torch.device(device)
+    out: Dict[str, Any] = {}
+    for k, v in state.items():
+        if k == "key":
+            continue
+        if k == "steps":
+            out[k] = torch.tensor(int(np.asarray(v)), dtype=torch.int32,
+                                  device=dev)
+        elif k == "opt_state" or k.endswith("_opt"):
+            adam = _find_adam_state(v)
+            if adam is None:
+                raise ValueError(f"no adam state (count, mu, nu) in {k}")
+            out[k] = {"count": torch.tensor(int(np.asarray(adam.count)),
+                                            dtype=torch.int32, device=dev),
+                      "mu": tree_to_tensors(adam.mu, dev),
+                      "nu": tree_to_tensors(adam.nu, dev)}
+        else:
+            out[k] = tree_to_tensors(v, dev)
+    return out
+
+
 def train_state_from_jax(state: Dict[str, Any], config,
                          device) -> Dict[str, Any]:
     """A JAX train state (``{"params", "opt_state", "step"}`` with an optax

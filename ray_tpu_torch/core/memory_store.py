@@ -9,6 +9,7 @@ shared-memory store instead (dual-path ``GetImpl``, memory_store.cc).
 
 from __future__ import annotations
 
+import copy
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -30,6 +31,18 @@ class WeakCacheExpired(Exception):
 
 
 _WEAK_EXPIRED = WeakExpired()
+
+
+def fresh_error(err: BaseException) -> BaseException:
+    """A copy of a stored error, to raise in its place. A raised exception
+    takes a traceback of every frame it passes through; raised from the
+    store itself, it would keep those frames, and all their locals, alive
+    for as long as its entry lives (an elastic trainer's snapshot, pinned
+    in the shared-memory store, was one such local)."""
+    try:
+        return copy.copy(err)
+    except Exception:
+        return err.with_traceback(None)
 
 
 class _Entry:
@@ -103,7 +116,7 @@ class InProcessStore:
                 e = self._objects.get(object_id)
                 if e is not None and e.ready:
                     if e.error is not None:
-                        raise e.error
+                        raise fresh_error(e.error)
                     alive, v = e.live_value()
                     if not alive:
                         # collected weak value: the caller re-derives it
@@ -125,7 +138,7 @@ class InProcessStore:
             if e is None or not e.ready:
                 return False, None
             if e.error is not None:
-                raise e.error
+                raise fresh_error(e.error)
             alive, v = e.live_value()
             if not alive:
                 del self._objects[object_id]

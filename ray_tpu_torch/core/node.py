@@ -164,7 +164,9 @@ class NodeManager:
         self.sock.setsockopt(zmq.IDENTITY, self.identity)
         self.sock.setsockopt(zmq.LINGER, 0)
         self.sock.connect(P.socket_path(session_dir))
-        self._send_lock = threading.Lock()
+        # the heartbeat, retransmit and loop threads send on it, the loop
+        # receives from it
+        self._ctl_sock = D.SharedSocket(self.ctx, self.sock)
         # direct peer channel: object chunks move node-to-node here and
         # NEVER transit the controller (reference: object_manager.h:206
         # pushes between object managers; GCS sees only locations)
@@ -408,8 +410,7 @@ class NodeManager:
                 except OSError:
                     pass
         try:
-            with self._send_lock:
-                self.sock.close(0)
+            self._ctl_sock.close()
             self.direct_sock.close(0)
             for s in self._peer_socks.values():
                 s.close(0)
@@ -454,18 +455,14 @@ class NodeManager:
         self._send_now(mtype, payload)
 
     def _send_now(self, mtype: bytes, payload) -> None:
-        # the heartbeat, retransmit and loop threads all send; stop()
-        # closes the socket under the same lock (a zmq socket is not
-        # thread-safe: a close racing a send can free it under the send)
-        with self._send_lock:
-            if self._stopped.is_set():
-                return
-            self.sock.send_multipart([mtype, P.dumps(payload)])
+        if self._stopped.is_set():
+            return
+        self._ctl_sock.send_multipart([mtype, P.dumps(payload)])
 
     # ------------------------------------------------------------ messages
     def _loop(self) -> None:
         poller = zmq.Poller()
-        poller.register(self.sock, zmq.POLLIN)
+        self._ctl_sock.register(poller)
         poller.register(self.direct_sock, zmq.POLLIN)
         while not self._stopped.is_set():
             try:
@@ -487,16 +484,12 @@ class NodeManager:
                         [mtype, P.dumps(pl)])
                 except Exception:
                     pass
-            if self.sock in events:
-                while True:
-                    try:
-                        frames = self.sock.recv_multipart(zmq.NOBLOCK)
-                    except zmq.ZMQError:
-                        break
-                    try:
-                        self._handle(frames[0], P.loads(frames[1]))
-                    except Exception:
-                        logger.exception("node: error handling %s", frames[0])
+            # every turn: the socket's descriptor is edge-triggered
+            for frames in self._ctl_sock.drain():
+                try:
+                    self._handle(frames[0], P.loads(frames[1]))
+                except Exception:
+                    logger.exception("node: error handling %s", frames[0])
             if self.direct_sock in events:
                 while True:
                     try:

@@ -31,7 +31,7 @@ from ray_tpu_torch.core import reliable as RD
 from ray_tpu_torch.core.config import Config, get_config
 from ray_tpu_torch.core.ids import (
     ActorID, JobID, NodeID, ObjectID, PlacementGroupID, TaskID, WorkerID)
-from ray_tpu_torch.core.memory_store import InProcessStore
+from ray_tpu_torch.core.memory_store import InProcessStore, fresh_error
 from ray_tpu_torch.core.object_ref import ObjectRef
 from ray_tpu_torch.core.reference_counter import ReferenceCounter
 from ray_tpu_torch.core.serialization import (
@@ -245,7 +245,9 @@ class Runtime:
         self.sock.setsockopt(zmq.SNDHWM, 0)
         self.sock.setsockopt(zmq.RCVHWM, 0)
         self.sock.connect(P.socket_path(session_dir))
-        self._send_lock = threading.Lock()
+        # the flusher sends on it, the pump receives from it; its wake
+        # channel also lets shutdown interrupt the pump's long poll
+        self._ctl_sock = D.SharedSocket(self.ctx, self.sock)
         # direct peer channel (reference: direct_actor_transport.h — actor
         # calls and task results move worker<->worker without the broker).
         # The ROUTER is recv-only (pump thread); outgoing peer DEALERs are
@@ -275,13 +277,6 @@ class Runtime:
         self._flusher = threading.Thread(target=self._flush_loop,
                                          name=f"{kind}-flush", daemon=True)
         self._flusher.start()
-        # wake channel so shutdown can interrupt the pump's long poll and
-        # join it before closing the DEALER (zmq sockets are not
-        # thread-safe; close must not race poll/recv)
-        self._pump_wake_recv = self.ctx.socket(zmq.PULL)
-        self._pump_wake_recv.bind(f"inproc://pump-wake-{id(self)}")
-        self._pump_wake_send = self.ctx.socket(zmq.PUSH)
-        self._pump_wake_send.connect(f"inproc://pump-wake-{id(self)}")
         self._pump = threading.Thread(target=self._pump_loop,
                                       name=f"{kind}-pump", daemon=True)
         self._pump.start()
@@ -384,8 +379,7 @@ class Runtime:
             self._out_q.put(rest)
 
     def _sock_send(self, mtype: bytes, blob: bytes) -> None:
-        with self._send_lock:
-            self.sock.send_multipart([mtype, blob])
+        self._ctl_sock.send_multipart([mtype, blob])
 
     def _peer_sock(self, target: bytes) -> "zmq.Socket":
         """Flusher-thread-only: lazily connected DEALER to a peer ROUTER."""
@@ -568,9 +562,8 @@ class Runtime:
 
     def _pump_loop(self) -> None:
         poller = zmq.Poller()
-        poller.register(self.sock, zmq.POLLIN)
+        self._ctl_sock.register(poller)
         poller.register(self.direct_sock, zmq.POLLIN)
-        poller.register(self._pump_wake_recv, zmq.POLLIN)
         # long idle timeout: poll wakes instantly on traffic; frequent
         # timer wakeups across many processes starve small hosts
         while not self._stopped.is_set():
@@ -578,23 +571,13 @@ class Runtime:
                 events = dict(poller.poll(timeout=1000))
             except zmq.ZMQError:
                 break
-            if self._pump_wake_recv in events:
+            # every turn: the socket's descriptor is edge-triggered
+            for frames in self._ctl_sock.drain():
                 try:
-                    while True:
-                        self._pump_wake_recv.recv(zmq.NOBLOCK)
-                except zmq.ZMQError:
-                    pass
-            if self.sock in events:
-                while True:
-                    try:
-                        frames = self.sock.recv_multipart(zmq.NOBLOCK)
-                    except zmq.ZMQError:
-                        break
-                    try:
-                        self._on_message(frames[0], P.loads(frames[1]))
-                    except Exception:
-                        logger.exception("%s: error handling %s", self.kind,
-                                         frames[0])
+                    self._on_message(frames[0], P.loads(frames[1]))
+                except Exception:
+                    logger.exception("%s: error handling %s", self.kind,
+                                     frames[0])
             if self.direct_sock in events:
                 while True:
                     try:
@@ -777,19 +760,15 @@ class Runtime:
         # sentinel after the final enqueues: FIFO guarantees they flush
         self._out_q.put(None)
         self._flusher.join(timeout=2.0)
-        try:
-            self._pump_wake_send.send(b"", zmq.NOBLOCK)
-        except Exception:
-            pass
+        self._ctl_sock.wake()
         self._pump.join(timeout=2.0)
         try:
-            self.sock.close(0)
+            self._ctl_sock.close()
+            self._ctl_sock.close_loop_end()
             self.direct_sock.close(0)
             for s, _ in self._peer_socks.values():
                 s.close(0)
             self._peer_socks.clear()
-            self._pump_wake_recv.close(0)
-            self._pump_wake_send.close(0)
         except Exception:
             pass
         if self.shm:
@@ -1367,7 +1346,7 @@ class Runtime:
         if meta.get("error") is not None:
             err = P.loads(meta["error"])
             self.memory_store.put(oid, None, error=err, force=True)
-            raise err
+            raise fresh_error(err)
         if meta.get("inline") is not None:
             view = memoryview(meta["inline"])
             value, _ = self.serialization.deserialize_from_view(view)
@@ -1410,7 +1389,7 @@ class Runtime:
             if reply.get("error") is not None:
                 err = P.loads(reply["error"])
                 self.memory_store.put(oid, None, error=err, force=True)
-                raise err
+                raise fresh_error(err)
             if reply.get("inline") is not None:
                 view = memoryview(reply["inline"])
                 value, _ = self.serialization.deserialize_from_view(view)

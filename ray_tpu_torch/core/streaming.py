@@ -33,6 +33,7 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple, TYPE_CHECKING
 
 from ray_tpu_torch.core.ids import ObjectID, TaskID
+from ray_tpu_torch.core.memory_store import fresh_error
 from ray_tpu_torch.core.object_ref import ObjectRef
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -219,7 +220,7 @@ class StreamState:
                     self.runtime._stream_finished(self.task_id_b)
                     raise StopIteration
                 if self.error is not None:
-                    raise self.error
+                    raise fresh_error(self.error)
                 remaining = None if deadline is None \
                     else deadline - _time.monotonic()
                 if remaining is not None and remaining <= 0:

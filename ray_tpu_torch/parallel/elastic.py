@@ -307,10 +307,12 @@ class ElasticTrainer(TrainProgram):
                         f"step {self._step_index + 1} still failing "
                         f"after {self.max_recoveries} recovery "
                         f"attempts") from e
+                # the message, not the error: a handler that keeps
+                # records would keep the error's frames, and this trainer
                 logger.warning(
                     "elastic: step %d failed (%s: %s) — recovering "
                     "(attempt %d/%d)", self._step_index + 1,
-                    type(e).__name__, e, attempts, self.max_recoveries)
+                    type(e).__name__, str(e), attempts, self.max_recoveries)
                 self._recover_failure(e)
         self._step_index += 1
         self._replay.append(batch)
@@ -555,12 +557,17 @@ class ElasticTrainer(TrainProgram):
         }
 
     def shutdown(self) -> None:
+        """Shut the program down and drop the recovery point: the
+        snapshot's arrays may view the object store's shared memory, and
+        the replay buffer holds the batches since it was taken."""
         if self._registered and self.slice_manager is not None:
             try:
                 self.slice_manager.unregister_on_drain(self._on_drain)
             except Exception:
                 pass
             self._registered = False
+        self._snapshot = None
+        self._replay = []
         try:
             self.program.shutdown()
         except Exception:

@@ -5,11 +5,12 @@ The learner stack: ``Algorithm`` (a Tune Trainable) drives parallel
 ``EnvRunner`` actors, whose policies run on the CPU, and a ``Learner`` /
 ``LearnerGroup`` whose update (the module's forward, the loss, the
 backward, the global-norm clip and Adam) runs on the card. The on-policy
-algorithms are ported: PPO (the flagship), PG, IMPALA, APPO and
-multi-agent PPO, with the rollout-to-train stream. DQN, SAC, DDPG/TD3,
-CQL, BC/MARWIL, the offline reader and writer and the off-policy
-estimators wait for the next slice (ROADMAP Queue 1 item 10); their
-names raise on access.
+algorithms: PPO (the flagship), PG, IMPALA, APPO and multi-agent PPO,
+with the rollout-to-train stream. The off-policy ones, over a replay
+buffer and learners of their own on the card: DQN, SAC (discrete and
+continuous), DDPG and TD3. Offline: the JSON reader and writer, BC,
+MARWIL, CQL, and the off-policy estimators (IS, WIS, DM and DR over an
+FQE model).
 """
 
 from ray_tpu_torch.rllib.algorithm import Algorithm
@@ -18,55 +19,59 @@ from ray_tpu_torch.rllib.appo import APPO, APPOConfig
 from ray_tpu_torch.rllib.connectors import (
     ClipObs, Connector, ConnectorPipeline, FlattenObs, FrameStack,
     NormalizeObs)
+from ray_tpu_torch.rllib.cql import CQL, CQLConfig
+from ray_tpu_torch.rllib.ddpg import DDPG, DDPGConfig, TD3, TD3Config
+from ray_tpu_torch.rllib.dqn import DQN, DQNConfig
 from ray_tpu_torch.rllib.env_runner import EnvRunner, compute_gae
+from ray_tpu_torch.rllib.estimators import (
+    DirectMethod, DoublyRobust, FQEModel, ImportanceSampling,
+    WeightedImportanceSampling)
 from ray_tpu_torch.rllib.impala import IMPALA, IMPALAConfig
 from ray_tpu_torch.rllib.learner import Learner, LearnerGroup
 from ray_tpu_torch.rllib.multi_agent import (
     MultiAgentEnv, MultiAgentEnvRunner, MultiAgentPPO,
     MultiAgentPPOConfig)
+from ray_tpu_torch.rllib.offline import (
+    BC, BCConfig, JsonReader, JsonWriter, MARWIL, MARWILConfig)
 from ray_tpu_torch.rllib.pg import PG, PGConfig
 from ray_tpu_torch.rllib.ppo import PPO, PPOConfig
 from ray_tpu_torch.rllib.rl_module import RLModule, RLModuleSpec
 from ray_tpu_torch.rllib.rollout_stream import (
     RandomEnv, RolloutBlockStream, block_uid, make_rollout_streams,
     rollout_stream)
-
-#: names of the JAX package's ``rllib`` whose modules wait for the next
-#: slice (ROADMAP Queue 1 item 10), with the module of each
-_LATER = {"DQN": "dqn", "DQNConfig": "dqn", "SAC": "sac",
-          "SACConfig": "sac", "DDPG": "ddpg", "DDPGConfig": "ddpg",
-          "TD3": "ddpg", "TD3Config": "ddpg", "CQL": "cql",
-          "CQLConfig": "cql", "BC": "offline", "BCConfig": "offline",
-          "MARWIL": "offline", "MARWILConfig": "offline",
-          "JsonReader": "offline", "JsonWriter": "offline",
-          "DirectMethod": "estimators", "DoublyRobust": "estimators",
-          "FQEModel": "estimators", "ImportanceSampling": "estimators",
-          "WeightedImportanceSampling": "estimators"}
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"rllib.{name} waits for the port of rllib/{_LATER[name]}.py "
-            f"(ROADMAP Queue 1 item 10)")
-    raise AttributeError(name)
-
+from ray_tpu_torch.rllib.sac import SAC, SACConfig
 
 __all__ = [
     "APPO",
     "APPOConfig",
     "Algorithm",
     "AlgorithmConfig",
+    "BC",
+    "BCConfig",
+    "CQL",
+    "CQLConfig",
     "ClipObs",
     "Connector",
     "ConnectorPipeline",
+    "DDPG",
+    "DDPGConfig",
+    "DQN",
+    "DQNConfig",
+    "DirectMethod",
+    "DoublyRobust",
     "EnvRunner",
+    "FQEModel",
     "FlattenObs",
     "FrameStack",
     "IMPALA",
     "IMPALAConfig",
+    "ImportanceSampling",
+    "JsonReader",
+    "JsonWriter",
     "Learner",
     "LearnerGroup",
+    "MARWIL",
+    "MARWILConfig",
     "MultiAgentEnv",
     "MultiAgentEnvRunner",
     "MultiAgentPPO",
@@ -80,6 +85,11 @@ __all__ = [
     "RLModuleSpec",
     "RandomEnv",
     "RolloutBlockStream",
+    "SAC",
+    "SACConfig",
+    "TD3",
+    "TD3Config",
+    "WeightedImportanceSampling",
     "block_uid",
     "compute_gae",
     "make_rollout_streams",

@@ -118,7 +118,11 @@ class Learner:
 
     def _grads(self, batch: Dict[str, np.ndarray]):
         loss, metrics = self._loss(_batch_tensors(batch, self.device))
-        grads = list(torch.autograd.grad(loss, self._leaves))
+        # zeros for a leaf the loss does not reach (BC's value head), as
+        # JAX's gradients have them
+        grads = list(torch.autograd.grad(loss, self._leaves,
+                                         allow_unused=True,
+                                         materialize_grads=True))
         with torch.no_grad():
             gnorm = global_norm(grads)
         metrics = dict(metrics, total_loss=loss, grad_norm=gnorm)

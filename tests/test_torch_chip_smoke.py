@@ -627,13 +627,18 @@ def test_mesh_and_elastic_phases_on_the_cpu(monkeypatch):
 
 
 def test_rllib_phases_on_the_cpu(monkeypatch):
-    """RLL1 and RLL2 at hiddens (16, 16) and a small batch on the CPU,
-    on one runtime as after EL1 on the card: PPO's two iterations and the
-    streamed one with the runners' weights, ``save``/``restore`` bit for
-    bit and the repeated update (its control outside the bound); one
-    iteration of PG, IMPALA, APPO and multi-agent PPO, V-trace, and the
-    group of two remote learners against one, bit-identical, its control
-    outside. No kernel runs here, so every check holds."""
+    """RLL1, RLL2 and RLL3 at hiddens (16, 16) and a small batch on the
+    CPU, on one runtime as after EL1 on the card: PPO's two iterations
+    and the streamed one with the runners' weights, ``save``/``restore``
+    bit for bit and the repeated update (its control outside the bound);
+    one iteration of PG, IMPALA, APPO and multi-agent PPO, V-trace, and
+    the group of two remote learners against one, bit-identical, its
+    control outside; DQN past its target sync, discrete and continuous
+    SAC, TD3 (its delayed policy step), then CQL, BC, MARWIL and the
+    estimators from the port's JSON files, every off-policy learner's
+    update repeated from its state (the control outside the bound),
+    ``update_many`` against single updates. No kernel runs here, so
+    every check holds."""
     import cloudpickle
     _cpu_card(monkeypatch)
     monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
@@ -643,6 +648,10 @@ def test_rllib_phases_on_the_cpu(monkeypatch):
         num_epochs=2))
     monkeypatch.setattr(chip_smoke, "RLL_MA_BATCH", 128)
     monkeypatch.setattr(chip_smoke, "RLL_GROUP_ROWS", 64)
+    monkeypatch.setattr(chip_smoke, "RLL3_OFFLINE_ROWS", 400)
+    monkeypatch.setattr(chip_smoke, "RLL3_TRAINING", {
+        "num_steps_sampled_before_learning_starts": 64,
+        "target_network_update_freq": 100})
     failed = []
     monkeypatch.setattr(chip_smoke, "check",
                         lambda ok, what: ok or failed.append(what))
@@ -669,3 +678,22 @@ def test_rllib_phases_on_the_cpu(monkeypatch):
     assert group["replica_sha"][0] == group["replica_sha"][1]
     assert group["update_rel"] <= chip_smoke.RLL_GROUP_REL \
         < group["control_rel"]
+    rll3 = out["RLL3"]
+    assert rll3["DQN"]["updates"] == 100 + chip_smoke.RLL3_PAST_SYNC
+    assert rll3["DQN"]["target"]["at_sync"] == 0.0
+    assert rll3["TD3"]["delay"]["odd"]["pi_count"] == 0
+    for rec in (rll3["DQN"], rll3["SAC"]["continuous"], rll3["TD3"],
+                rll3["offline"]["CQL"]):
+        assert rec["learner_device"] == ["cpu"]
+        agree = rec["agreement"]
+        assert agree["loss_rel"] <= chip_smoke.RLL_LOSS_REL
+        assert agree["update_rel"] <= chip_smoke.RLL_UPDATE_REL \
+            < agree["control_rel"]
+    assert rll3["SAC"]["continuous"]["burst"]["state_gap"] \
+        <= chip_smoke.RLL3_BURST_ABS
+    offline = rll3["offline"]
+    assert offline["json_bit_for_bit"] == {"random": True, "pendulum": True}
+    assert offline["estimators"]["is_rel"] <= chip_smoke.RLL3_IS_RTOL
+    assert set(rll3["summary"]["update_ms_median"]) == {
+        "DQN", "SAC discrete", "SAC continuous", "TD3", "CQL", "BC",
+        "MARWIL"}

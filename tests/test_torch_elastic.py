@@ -27,6 +27,7 @@ collective is ``tests/test_torch_mpmd3d.py``'s last test.)
 import dataclasses
 import os
 import sys
+import time
 
 import cloudpickle
 import jax
@@ -234,3 +235,103 @@ def test_pp2_dp2_folds_on_a_notice_then_survives_a_killed_stage_actor(
     finally:
         streaming.wait_any = orig
         t.shutdown()
+
+
+class _SliceHosts:
+    """What the slice manager sees of a controller: the fake provider's
+    hosts are synthetic, so its drain and placement hooks act on
+    nothing."""
+
+    def __init__(self):
+        from ray_tpu_torch.core.events import FlightRecorder
+        self.recorder = FlightRecorder("test", capacity=4096)
+        self.scheduler = self
+        self.draining = {}
+        self.ready_queues, self.tasks, self.leases = {}, {}, {}
+        self.actors, self.nodes, self.pending_pgs = {}, {}, []
+
+    def set_draining(self, node_id, flag):
+        self.draining[node_id.binary()] = flag
+
+    def call_on_loop(self, fn, timeout=None):
+        return fn()
+
+    def _reschedule_pgs_on_nodes(self, node_bs):
+        return 0
+
+    def _maybe_schedule(self, force=False):
+        pass
+
+
+def _store_bytes():
+    from ray_tpu_torch.core.global_state import global_worker
+    return global_worker().shm._segment().stats()[0]
+
+
+def test_a_shut_down_trainer_gives_the_store_back(runtime):
+    """An ``ElasticTrainer`` (pp=2, dp=2, a layer a stage) under a fake
+    one-slice ``SliceManager`` folds on the slice's maintenance notice,
+    then recovers from a stage actor killed mid-step. Once it is shut
+    down and dropped it is collected: the killed actor's error, cached
+    for its object, is never raised itself (a raised copy's traceback
+    would hold the recovery's frames, the trainer and its host snapshot,
+    for as long as the entry lives). And the store's live bytes come back
+    to within 1 MB of what they were before it was built (the recoveries
+    move some 20 MB through it here); the runtime frees an object after
+    its grace window, so the check waits for it."""
+    import gc
+    import weakref
+
+    from ray_tpu_torch.autoscaler import (FakeSliceProvider, SliceManager,
+                                          SliceTypeConfig)
+    from ray_tpu_torch.core import streaming
+    from ray_tpu_torch.core.global_state import global_worker
+    cfg = dataclasses.replace(TCFG, vocab_size=4096, d_model=64, n_heads=4,
+                              n_layers=2)
+    b = _train_batch(seed=3)
+    b["input_ids"] = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, b["input_ids"].shape).astype(np.int32)
+    provider = FakeSliceProvider(provider_config={"max_slices": 1})
+    mgr = SliceManager(_SliceHosts(), provider,
+                       [SliceTypeConfig("host", "1x1", {"CPU": 8})],
+                       idle_timeout_s=3600.0, drain_deadline_s=0.0)
+    sid = mgr.acquire_slice("host")
+    hosts = set(provider.internal_ids(sid))
+
+    def pump():
+        mgr.update({"demand": [], "slice_demand": [], "busy_nodes": hosts,
+                    "alive_nodes": hosts})
+    pump()
+    gc.collect()
+    before = _store_bytes()
+    t = ElasticTrainer(ParallelPlan(pp=2, dp=2, n_microbatches=2), cfg,
+                       learning_rate=1e-3, snapshot_interval=8,
+                       slice_manager=mgr)
+    orig = streaming.wait_any
+    try:
+        for k in range(6):
+            if k == 2:
+                provider.inject_maintenance(sid)
+                pump()
+            if k == 4:
+                _kill_on_first_item(t.program.pipeline.stages[1])
+            t.step(b)
+        assert [(r.trigger, r.steps_lost) for r in t.recoveries] == \
+            [("notice", 0), ("failure", 3)]
+        held = _store_bytes() - before
+    finally:
+        streaming.wait_any = orig
+        t.shutdown()
+        mgr.shutdown()
+        provider.shutdown()
+    gone = weakref.ref(t)
+    del t
+    gc.collect()
+    assert gone() is None, "the trainer outlived its last reference"
+    deadline = time.monotonic() + global_worker().config.free_grace_s + 10
+    while _store_bytes() > before + (1 << 20) \
+            and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert held > 10 << 20
+    assert _store_bytes() <= before + (1 << 20), (before, held,
+                                                  _store_bytes())

@@ -352,8 +352,9 @@ def test_serve_run_with_jax_and_ray_tpu_unimportable(tmp_path):
 
 def test_rllib_trains_with_jax_and_ray_tpu_unimportable():
     """PPO's learner update on the CPU, an env runner's samples over
-    ``RandomEnv`` and a checkpoint's round trip with the JAX packages
-    unimportable."""
+    ``RandomEnv``, a checkpoint's round trip, a DQN update on a DQN
+    runner's transitions and a continuous SAC update, with the JAX
+    packages unimportable."""
     _run("""
         import sys
         for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu",
@@ -374,6 +375,30 @@ def test_rllib_trains_with_jax_and_ray_tpu_unimportable():
             learner._state["params"]).path).to_torch()
         assert back["pi"][0]["w"].shape == (4, 8)
         assert PPOConfig().lr > 0
+        from ray_tpu_torch.rllib.dqn import DQNEnvRunner, DQNLearner
+        from ray_tpu_torch.rllib.sac import ContinuousSACLearner
+        import numpy as np
+        dqn = DQNLearner(spec, learning_rate=1e-3, gamma=0.99,
+                         grad_clip=10.0, target_update_freq=2,
+                         double_q=True, seed=0, device="cpu")
+        dqn_runner = DQNEnvRunner(lambda: RandomEnv(4, 2, 5), spec)
+        dqn_runner.set_weights(dqn.get_weights())
+        m = dqn.update(dqn_runner.sample(16, 0.5))
+        assert all(math.isfinite(v) for v in m.values()), m
+        box = RLModuleSpec(observation_dim=3, dist="squashed_gaussian",
+                           action_dim=1, action_low=(-2.0,),
+                           action_high=(2.0,), hiddens=(8,))
+        sac = ContinuousSACLearner(box, actor_lr=1e-3, critic_lr=1e-3,
+                                   alpha_lr=1e-3, gamma=0.99, tau=0.01,
+                                   target_entropy=None, grad_clip=None,
+                                   seed=0, device="cpu")
+        rng = np.random.default_rng(0)
+        m = sac.update({"obs": rng.normal(size=(8, 3)).astype("f4"),
+                        "next_obs": rng.normal(size=(8, 3)).astype("f4"),
+                        "actions": rng.uniform(-1, 1, (8, 1)).astype("f4"),
+                        "rewards": rng.normal(size=8).astype("f4"),
+                        "dones": np.zeros(8, "f4")})
+        assert all(math.isfinite(v) for v in m.values()), m
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
                   and sys.modules[m] is not None]

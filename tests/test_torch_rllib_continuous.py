@@ -1,26 +1,15 @@
-"""The PPO and distribution bodies of the JAX package's
-``tests/rllib/test_continuous.py`` on the port (loaded by
-``tests/test_torch_runtime_loader.py``): the squashed Gaussian's
-log-density against the change of variables and the diagonal Gaussian's
-entropy (on tensors, the sample from a ``torch.Generator``, where the
-bodies use ``jax``), and, ``slow``-marked as in the JAX package, Gaussian
-PPO on Pendulum."""
+"""The JAX package's ``tests/rllib/test_continuous.py`` bodies on the port
+(loaded by ``tests/test_torch_runtime_loader.py``): the squashed
+Gaussian's log-density against the change of variables and the diagonal
+Gaussian's entropy (on tensors, the sample from a ``torch.Generator``,
+where the bodies use ``jax``), DQN refusing a Box space, and,
+``slow``-marked as in the JAX package, Gaussian PPO and continuous SAC on
+Pendulum."""
 
 from test_torch_runtime_loader import (FIXTURES, RLLIB_ON_THE_CPU,
                                        load_core_tests)
 
-_NEXT = "reads rllib/{}.py, the next slice (ROADMAP Queue 1 item 10)"
-
-#: bodies left out, each with its reason
-LEAVE_OUT = {
-    "test_sac_pendulum_one_iteration": _NEXT.format("sac"),
-    "test_sac_pendulum_reaches_minus_300": _NEXT.format("sac"),
-    "test_dqn_rejects_box_space": _NEXT.format("dqn"),
-}
-
-EDITS = (("from ray_tpu_torch.rllib import PPOConfig, SACConfig",
-          "from ray_tpu_torch.rllib import PPOConfig"),
-         ("    import jax\n    import jax.numpy as jnp\n"
+EDITS = (("    import jax\n    import jax.numpy as jnp\n"
           "    key = jax.random.PRNGKey(0)",
           "    import torch\n    key = torch.Generator().manual_seed(0)"),
          ("    import jax.numpy as jnp\n    log_std = jnp.zeros((4, 3))",
@@ -29,5 +18,4 @@ EDITS = (("from ray_tpu_torch.rllib import PPOConfig, SACConfig",
 
 globals().update(FIXTURES)
 globals().update(RLLIB_ON_THE_CPU)
-globals().update(load_core_tests("rllib/test_continuous.py", LEAVE_OUT,
-                                 edits=EDITS))
+globals().update(load_core_tests("rllib/test_continuous.py", edits=EDITS))

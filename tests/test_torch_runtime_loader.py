@@ -33,10 +33,7 @@ for them, as a test passes ``device="cpu"``. The rllib files take
 ``RLLIB_ON_THE_CPU`` for the same reason: it names the CPU for the
 ``Learner``s a body builds with no device (an algorithm's local learner
 among them); remote learners and env runners are workers on the CPU
-platform. Two ``tests/rllib`` files are not loaded: every body of
-``test_dqn.py`` and ``test_ddpg_cql_estimators.py`` reads ``dqn.py``,
-``sac.py``, ``ddpg.py``, ``cql.py``, ``offline.py`` or ``estimators.py``,
-which wait for the next slice (ROADMAP Queue 1 item 10).
+platform.
 
 The tests of this file check the loader itself.
 """
