@@ -133,14 +133,14 @@ S2. The disaggregated pair, on a runtime of its own:
    ``serve.shutdown()`` kills the replicas and the runtime is shut down;
    the card's free memory comes back before the RLHF phases.
 RL1. RLHF, anakin: ``RLHFTrainer`` with one local PPO learner and one
-   rollout engine at GPT-J-6B width cut to 2 of 28 layers (f32 masters,
-   gradients and Adam take 13.1 GB; the engine's bf16 weights, a staged
-   copy and the pool about 4 GB more), bf16 compute, random weights from
+   rollout engine at GPT-J-6B width cut to 1 of 28 layers (f32 masters,
+   gradients and Adam take 9.8 GB; the engine's bf16 weights, a staged
+   copy and the pool about 3 GB more), bf16 compute, random weights from
    the seed; a seeded 256-token system prompt and 32-token suffixes, 64
    new tokens, 16 rollouts a round on 16 decode slots (32-token blocks,
    256-token chunks, a 384-token window), minibatches of 4, one round
    (most of a round's host time is its publish: the numpy int8 pack and
-   unpack of 0.82 B weights).
+   unpack of 0.61 B weights).
    Every round: 16 trajectories, prefix hit rate > 0.5, no sync stall,
    staleness <= 1, the engines' version equal to the publishes, wire
    compression > 3.5. Round 1's tokens (all version 0) recomputed from
@@ -153,8 +153,8 @@ RL1. RLHF, anakin: ``RLHFTrainer`` with one local PPO learner and one
    probe prompt is served at version 1, its first token the argmax and
    its log-probability that of direct ``prefill`` logits of
    ``unpack_weights(pack_weights(w))``, farther from version 0's. Paged
-   launches 2 x the engine's prefill chunks and decode steps, each flash
-   kernel 2 x ``compute_gradients`` calls. Round,
+   launches 1 x the engine's prefill chunks and decode steps, each flash
+   kernel 1 x ``compute_gradients`` calls. Round,
    rollout, update and publish walls, wire bytes, pack/unpack host time,
    peak memory.
 RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
@@ -207,14 +207,14 @@ RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
 10. Where the time goes in a train step: one profiler window, device time
     by kind (flash forward, flash backward, matmul, other) and the idle
     share.
-P1. Sharding, on a runtime of its own that M1-RLL2 share: four rank
+P1. Sharding, on a runtime of its own that M1-TN1 share: four rank
     actors (``num_gpus=0.25`` each, all on this card) joined into one
     gloo group through
     ``init_torch_distributed``, each building ``MeshSpec(fsdp=2, tp=2)``
     (``__graft_entry__._factor_mesh(4)``) and ``make_train_step`` at
     GPT-J-6B width cut to 2 layers under ``FSDP_RULES``, remat
     ``"dots"``, lr 1e-4, global batch 2 x 2048 (one row a data rank),
-    one warm-up and 2 timed steps. Losses finite, equal on every rank and
+    one warm-up and 1 timed step. Losses finite, equal on every rank and
     falling; each rank launched each flash kernel 2 x steps (at 8 heads,
     its tp half); each rank's shard shapes are ``FSDP_RULES``'; leaves
     replicated over tp bit-identical across each tp pair. Step wall,
@@ -226,9 +226,9 @@ P2. The sharded step against the one-device step at 2 layers, 1 x 2048 a
     one-device init) and batch: loss and gradients (each rank's shards
     against the slices of the one-device gradients; global and worst-leaf
     relative L2) within P2's bounds, a faulty control (wk/wv's gradients
-    not summed over tp) outside them; then 3
+    not summed over tp) outside them; then 2
     steps with ``grad_transport="int8"`` and ``shard_weight_update``
-    within JAX's bound (1e-2) of 3 fp32 sharded steps, the int8 bytes the
+    within JAX's bound (1e-2) of 2 fp32 sharded steps, the int8 bytes the
     scatter legs sent equal to ``tree_wire_bytes`` of what the step
     reduces.
 P3. NCCL at world size 1: a rank actor (``num_gpus=1``) runs
@@ -240,19 +240,19 @@ M1. Mixture-of-experts over ep, on P1-P3's runtime (its ranks forked
     from the zygote P1's first spawn booted) with four rank actors as
     P1's: ``make_train_step`` at GPT-J-6B width with 4 experts
     a layer (Switch top-1, capacity factor 1.25, aux weight 0.01; built
-    here with ``dataclasses.replace``) at 2 layers on ``MeshSpec(fsdp=2,
-    ep=2)``, global batch 2 x 2048, one warm-up and 2 timed steps. P1's
-    checks, each flash kernel launched 2 x steps a rank (at 1 row x 16
+    here with ``dataclasses.replace``) at 1 layer on ``MeshSpec(fsdp=2,
+    ep=2)``, global batch 2 x 2048, one warm-up and 1 timed step. P1's
+    checks, each flash kernel launched 1 x steps a rank (at 1 row x 16
     heads), the leaves ep does not split bit-identical across each ep
     pair, each layer's dropped share printed and equal within each ep
     pair.
-M2. Ring attention over sp: dense GPT-J-6B width at 2 layers on
+M2. Ring attention over sp: dense GPT-J-6B width at 1 layer on
     ``MeshSpec(fsdp=2, sp=2)``, 1 row x 1024 positions a rank, one
-    warm-up and 2 timed steps. P1's checks, the flash kernels launched 0
+    warm-up and 1 timed step. P1's checks, the flash kernels launched 0
     times, and the ring's exchanges (host-staged: gloo takes no CUDA
-    send) 3 x 2 a step of 2 x 1 x 1024 x 16 x 256 x 4 B each, with their
+    send) 3 x 1 a step of 2 x 1 x 1024 x 16 x 256 x 4 B each, with their
     seconds.
-M3. Gradients against one device at 2 layers on M1's and M2's meshes,
+M3. Gradients against one device at 1 layer on M1's and M2's meshes,
     the ranks' shards mapped into the driver (CUDA IPC): loss relative
     difference and gradient relative L2 (global, worst leaf) within M3's
     bounds, each mesh's control (the ep one sums the leaves ep does not
@@ -359,6 +359,35 @@ RLL3. On the same runtime, rllib's off-policy and offline learners at
     within 1e-5 relative, the update within 1e-3 relative L2, update 3's
     (the control) outside it. Env steps/s, learner ms an update (CUDA
     events), the burst's ms, peak memory (the ``rll3`` line).
+TR1. ``TorchTrainer`` on the same runtime: two workers (``GPU`` 0.5
+    each, both on this card, one gloo process group formed by
+    ``TorchConfig(backend="gloo")``) build ``make_train_step`` at
+    GPT-J-6B width cut to TR_LAYERS layers over ``MeshSpec(fsdp=2)``,
+    global batch 2 x 2048 seeded by the step (tokens from an eighth of
+    the vocabulary), steps 0-3. After step 1 rank 0 reports the
+    gathered params and Adam moments through ``Checkpoint.from_torch``
+    (``num_to_keep=1``); on the first attempt rank 1 writes its death
+    time and exits after the step-3 update; the trainer restarts the
+    gang from the step-1 checkpoint (``max_failures=1``) and steps 2-3
+    run again. No error, one restart, the re-run steps' losses within
+    TR_RESUME_REL of the killed attempt's (step 2's reads the restored
+    params, step 3's the restored Adam state through step 2's update),
+    losses equal on both ranks and falling,
+    every worker on ``cuda:0``, each flash kernel launched TR_LAYERS x
+    the attempt's steps on each rank of each attempt, the final
+    checkpoint loading back through ``Checkpoint.to_torch`` with its
+    step. Fit wall, gang start (spawn and rendezvous) first and after
+    the restart, each step's wall and tokens/s, the checkpoint's GB and
+    its gather, write and copy seconds, restart seconds (death to the
+    first step after), peak GB a rank (the ``tr1`` line).
+TN1. ``Tuner`` over a ``TorchTrainer`` of one worker (``GPU`` 0.5)
+    sweeping lr over TN_LRS with ``grid_search``: each trial trains
+    GPT-J-6B width at TN_LAYERS layer, 1 x 2048, TN_STEPS steps and
+    reports its loss a step. No error, two trials, the best result the
+    trial with the lower last loss, world size 1, each trial on
+    ``cuda:0`` with each flash kernel launched TN_LAYERS x TN_STEPS
+    times. Fit wall, each trial's wall and first step, whether the
+    trials overlapped in time (the ``tn1`` line).
 
 Before them the script's ``phase walls`` line (the build's wall, each
 phase's and the total; around each phase on the shared runtime the
@@ -373,8 +402,9 @@ learner's ``rlhf_learner_launches``, each P1 rank's
 ``sharded_launches``, each M1 rank's ``moe_launches``, each M2 rank's
 ``ring_launches``, each PL1 and PL2 stage's ``pipeline_launches``,
 each PL4 rank's ``gpipe_launches``, each PL5 and PL6 rank's
-``mpmd3d_launches`` and each rank of each program EL1 built
-``elastic_launches``); the last line is ``{"ok": true, "device":
+``mpmd3d_launches``, each rank of each program EL1 built
+``elastic_launches``, and each TR1 rank's and each TN1 trial's
+``trainer_launches``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -2482,7 +2512,7 @@ def serve_phases(dev, card: str, seed: int, server, actor_server,
 RL_SYSTEM = 256       # tokens of the system prompt every rollout shares
 RL_SUFFIX = 32        # tokens of each rollout's own suffix
 RL_NEW = 64           # tokens each rollout generates
-RL1_LAYERS = 2        # 8 until the 900 s budget; 28 would be 97 GB of state
+RL1_LAYERS = 1        # 8, then 2, until the 900 s budget; 28: 97 GB of state
 RL2_LAYERS = 1        # each learner's f32 grads cross the store both ways
 #                       (2 until the 900 s budget)
 RL1_ROUNDS = 1        # each round ends in a publish: numpy int8 pack/unpack
@@ -2619,6 +2649,7 @@ def watch_streams(rollout):
 def round_record(out, wall_s, stream):
     s = stream.stats()
     keys = ("round", "trajectories", "rollout_tokens", "prefix_hit_rate",
+            "prompt_blocks_total", "rewarm_blocks",
             "weight_version", "weight_syncs", "wire_compression",
             "sync_stall_s", "staleness_max", "total_loss", "approx_kl",
             "ratio_mean", "grad_norm", "stream_updates", "learners_used")
@@ -2758,6 +2789,7 @@ def phase_rl1(dev, card: str, seed: int):
            "engine": {k: s[k] for k in ("prefill_chunks", "decode_steps",
                                         "prefix_hit_blocks_total",
                                         "prompt_blocks_total",
+                                        "rewarm_blocks",
                                         "weight_swaps", "tokens_total")},
            "paged_launches": paged, "flash_launches": flash,
            "check_forward_calls": fwd_calls,
@@ -3586,9 +3618,9 @@ def training_phases(dev, card: str, seed: int):
 SHARD_MESH = {"fsdp": 2, "tp": 2}   # __graft_entry__._factor_mesh(4)
 SHARD_BATCH = 2                     # global rows: 1 x 2048 a data rank
 P1_LAYERS = 2                       # 4 until the 900 s budget
-P1_TIMED_STEPS = 2                  # 3 until the 900 s budget
+P1_TIMED_STEPS = 1                  # 3, then 2, until the 900 s budget
 P2_LAYERS = 2
-P2_STEPS = 3
+P2_STEPS = 2                        # 3 until the 900 s budget
 P3_BACKEND = "nccl"
 # P2's bounds: the sharded step sums bf16 partial products across the
 # heads axis (row-parallel outputs, the vocab-parallel loss) where one
@@ -4155,10 +4187,10 @@ def sharding_phases(dev, card: str, seed: int):
 # tensor: it crosses a host buffer, so M2's ring seconds time host copies.
 MOE_MESH = {"fsdp": 2, "ep": 2}
 RING_MESH = {"fsdp": 2, "sp": 2}
-M1_LAYERS = 2
-M2_LAYERS = 2                       # 4 until the 900 s budget
-M_TIMED_STEPS = 2                   # 3 until the 900 s budget
-M3_LAYERS = 2
+M1_LAYERS = 1                       # 2 until the 900 s budget
+M2_LAYERS = 1                       # 4, then 2, until the 900 s budget
+M_TIMED_STEPS = 1                   # 3, then 2, until the 900 s budget
+M3_LAYERS = 1                       # 2 until the 900 s budget
 # M3's bounds, P2's and for P2's reasons: the sharded step's bf16
 # products run at other shapes than one device's (a rank's rows, its
 # chunk of the sequence; the ring's f32 blocks where the flash kernels
@@ -6497,6 +6529,384 @@ def rllib_phases(dev, card: str, seed: int):
                                 ("RLL3", phase_rll3))}
 
 
+# -------------------------------------------- the trainer and the tuner
+TR_LAYERS = 2          # P1's depth: 0.81 B parameters, about 13 GB of state
+TR_STEPS = 4
+TR_ROWS = 2            # global batch 2 x 2048, one row a rank (fsdp 2)
+TR_CKPT_STEP = 1       # rank 0 reports the gathered state after this step
+TR_KILL_STEP = 3       # rank 1 dies after this step's update, once
+TR_LR = 1e-4
+TR_RESUME_REL = 1e-5   # a re-run step's loss against the killed attempt's
+TN_LAYERS = 1
+TN_STEPS = 3
+TN_ROWS = 1
+TN_LRS = (1e-4, 3e-4)
+
+
+def tr_batch(cfg, seed: int, step: int, rows: int):
+    """The global batch of ``step``, seeded by it: tokens from an eighth
+    of the vocabulary, what a model learns within a few steps, so that
+    the loss falls."""
+    rng = np.random.default_rng(seed * 1000 + step)
+    return {"input_ids": rng.integers(0, cfg.vocab_size // 8,
+                                      (rows, cfg.max_seq_len))}
+
+
+def tr_log(config, rank: int, rec: dict) -> None:
+    """One line of this worker's log in the run's directory (the driver
+    reads every rank's, the killed one's too, after the fit)."""
+    path = os.path.join(config["dir"], f"lr{config['lr']:g}-rank{rank}.jsonl")
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+def tr_logs(root: str, lr: float, world: int):
+    out = []
+    for r in range(world):
+        with open(os.path.join(root, f"lr{lr:g}-rank{r}.jsonl")) as f:
+            out.append([json.loads(line) for line in f])
+    return out
+
+
+def tr_gathered(state, cfg, mesh):
+    """The one-device train state of a sharded one as numpy, in the
+    checkpoint layout (every rank of the mesh calls it)."""
+    from ray_tpu_torch._bridge import gather_to_numpy
+    from ray_tpu_torch.parallel.sharding import FSDP_RULES
+    opt = state["opt_state"]
+    return {"params": gather_to_numpy(state["params"], cfg, mesh, FSDP_RULES),
+            "opt_state": {
+                "count": opt["count"].cpu().numpy(),
+                "mu": gather_to_numpy(opt["mu"], cfg, mesh, FSDP_RULES),
+                "nu": gather_to_numpy(opt["nu"], cfg, mesh, FSDP_RULES)},
+            "step": state["step"].cpu().numpy()}
+
+
+def dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 1e9
+
+
+def tr_worker(config):
+    """A ``TorchTrainer`` worker of TR1 and TN1: GPT-J-6B width at
+    ``layers``, ``make_train_step`` over ``MeshSpec(fsdp=world)`` on the
+    gang's process group (one device for one worker), from the trainer's
+    checkpoint where it has one; each step's loss gathered from every
+    rank, logged and reported. With ``kill``: after step TR_CKPT_STEP
+    the gathered params and moments go to rank 0's report through
+    ``Checkpoint.from_torch``, and on the first attempt rank 1 dies
+    right after its step-TR_KILL_STEP update (the last step's)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch._bridge import (shard_train_state_from_jax,
+                                       train_state_from_jax)
+    from ray_tpu_torch.models import make_train_step
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.sharding import FSDP_RULES
+    t_enter = time.time()
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    dev = torch.device(config["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats()
+    cfg = shard_model(config["layers"])
+    mesh = build_mesh(MeshSpec(fsdp=world), device_type=dev.type) \
+        if world > 1 else None
+    bundle = make_train_step(cfg, mesh, FSDP_RULES if mesh else None,
+                             learning_rate=config["lr"], remat_policy="dots",
+                             ce_chunk_size=512, device=dev)
+    ckpt = train.get_checkpoint()
+    t0 = time.perf_counter()
+    if ckpt is None:
+        state = bundle.init(seed=config["seed"])
+    else:
+        tree = ckpt.to_torch()
+        state = shard_train_state_from_jax(
+            tree, cfg, mesh, FSDP_RULES, device=dev) if mesh \
+            else train_state_from_jax(tree, cfg, dev)
+        del tree
+    if cuda:
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    killed = os.path.join(config["dir"], "killed.json")
+    attempt = int(os.path.exists(killed))
+    reset_flash_counts()
+    for step in range(int(state["step"]), config["steps"]):
+        batch = tr_batch(cfg, config["seed"], step, config["rows"])
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = bundle.step(state, batch)
+        loss = m["loss"].item()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [loss]
+        if world > 1:
+            losses = [None] * world
+            dist.all_gather_object(losses, loss)
+        tr_log(config, rank, {
+            "kind": "step", "attempt": attempt, "step": step,
+            "losses": losses, "wall_s": wall, "t_enter": t_enter,
+            "t_done": time.time(), "load_s": load_s, "world": world,
+            "launches": flash_counts(), "device": device_name(dev),
+            "current": f"cuda:{torch.cuda.current_device()}" if cuda
+            else "cpu", "pid": os.getpid(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+            else 0.0})
+        if config["kill"] and step == TR_KILL_STEP and rank == 1 \
+                and attempt == 0:
+            with open(killed, "w") as f:
+                json.dump({"t": time.time()}, f)
+            os._exit(1)
+        out, rec = None, {}
+        if config["kill"] and step == TR_CKPT_STEP:
+            t0 = time.perf_counter()
+            full = tr_gathered(state, cfg, mesh)
+            rec["gather_s"] = time.perf_counter() - t0
+            if rank == 0:
+                t0 = time.perf_counter()
+                out = train.Checkpoint.from_torch(full, step=step)
+                rec["write_s"] = time.perf_counter() - t0
+                rec["gb"] = dir_gb(out.path)
+            del full
+        t0 = time.perf_counter()
+        train.report({"step": step, "loss": loss}, checkpoint=out)
+        if out is not None:
+            # the report copied it into the run's storage
+            rec["report_s"] = time.perf_counter() - t0
+            shutil.rmtree(out.path, ignore_errors=True)
+            tr_log(config, rank, dict(rec, kind="checkpoint",
+                                      attempt=attempt, step=step))
+    del state, bundle
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def check_tr_ranks(name: str, dev, logs, layers: int):
+    """Each attempt of each rank: every worker on this card (``cuda:0``),
+    each flash kernel launched ``layers`` x the attempt's steps."""
+    want = "cuda:0" if dev.type == "cuda" else "cpu"
+    for r, lines in enumerate(logs):
+        steps = [x for x in lines if x["kind"] == "step"]
+        for x in steps:
+            check(x["current"] == want and x["device"] == device_name(dev),
+                  f"{name} rank {r} ran on {x['current']} "
+                  f"({x['device']}), not {want}")
+        for attempt in sorted({x["attempt"] for x in steps}):
+            mine = [x for x in steps if x["attempt"] == attempt]
+            for n, c in mine[-1]["launches"].items():
+                check(c == layers * len(mine),
+                      f"{name} rank {r} attempt {attempt}: {n} launched "
+                      f"{c} times, not {layers} x {len(mine)}")
+
+
+def phase_tr1(dev, card: str, seed: int):
+    """TR1: a ``TorchTrainer`` of two workers (half the card each, gloo)
+    at GPT-J-6B width and TR_LAYERS layers over ``MeshSpec(fsdp=2)``,
+    steps 0-3 on 2 x 2048; the gathered state reported after step 1
+    (``num_to_keep=1``); rank 1 killed after its first step-3 update;
+    the gang restarted from the step-1 checkpoint (``max_failures=1``).
+    Checks: no error, one restart, the re-run steps 2 and 3's losses
+    within TR_RESUME_REL of the killed attempt's (step 3's after an
+    update from the restored Adam moments and count), losses equal on
+    both ranks and falling, every worker on ``cuda:0``, the flash
+    launches, the final checkpoint loading back with its step."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchConfig,
+                                     TorchTrainer)
+    root = tempfile.mkdtemp(prefix="tr1_")
+    try:
+        config = {"layers": TR_LAYERS, "rows": TR_ROWS, "steps": TR_STEPS,
+                  "lr": TR_LR, "seed": seed, "device": str(dev),
+                  "dir": root, "kill": True}
+        trainer = TorchTrainer(
+            tr_worker, train_loop_config=config,
+            torch_config=TorchConfig(backend="gloo"),
+            scaling_config=ScalingConfig(
+                num_workers=2, use_gpu=True,
+                resources_per_worker={"GPU": 0.5}),
+            run_config=RunConfig(
+                name="tr1", storage_path=os.path.join(root, "runs"),
+                checkpoint_config=CheckpointConfig(num_to_keep=1),
+                failure_config=FailureConfig(max_failures=1)))
+        t_fit = time.time()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"TR1 fit failed: {result.error!r}")
+        logs = tr_logs(root, TR_LR, 2)
+        with open(os.path.join(root, "killed.json")) as f:
+            killed = json.load(f)
+        steps = [[x for x in lines if x["kind"] == "step"] for lines in logs]
+        order = [(x["attempt"], x["step"]) for x in steps[0]]
+        again = range(TR_CKPT_STEP + 1, TR_STEPS)
+        check(order == [(0, s) for s in range(TR_KILL_STEP + 1)]
+              + [(1, s) for s in again],
+              f"TR1 attempts and steps on rank 0: {order}, not one restart "
+              f"from step {TR_CKPT_STEP}'s checkpoint")
+        losses = {(x["attempt"], x["step"]): x["losses"] for x in steps[0]}
+        check(all(ls[0] == ls[1] for ls in losses.values()),
+              f"TR1 losses differ between ranks: {losses}")
+        killed_losses = {s: losses[(0, s)][0] for s in again}
+        rerun = {s: losses[(1, s)][0] for s in again}
+        gap = {s: abs(rerun[s] - killed_losses[s]) / abs(killed_losses[s])
+               for s in again}
+        for s in again:
+            check(gap[s] <= TR_RESUME_REL,
+                  f"TR1 step {s} re-run loss {rerun[s]} against the killed "
+                  f"attempt's {killed_losses[s]}: rel {gap[s]}")
+        check(losses[(1, TR_STEPS - 1)][0] < losses[(0, 0)][0],
+              f"TR1 loss did not fall: {losses}")
+        check_tr_ranks("TR1", dev, logs, TR_LAYERS)
+        t0 = time.perf_counter()
+        tree = result.checkpoint.to_torch()
+        read_s = time.perf_counter() - t0
+        ck_step = result.checkpoint.to_dict()["step"]
+        check(ck_step == TR_CKPT_STEP and int(tree["step"]) == TR_CKPT_STEP
+              + 1 and tuple(tree["params"]["embed"].shape) == (
+                  shard_model(TR_LAYERS).vocab_size,
+                  shard_model(TR_LAYERS).d_model),
+              f"TR1 final checkpoint: step {ck_step}, state step "
+              f"{int(tree['step'])}")
+        del tree
+        ck = [x for x in logs[0] if x["kind"] == "checkpoint"][0]
+        S = shard_model(TR_LAYERS).max_seq_len
+        first = min(x["t_enter"] for lines in steps for x in lines
+                    if x["attempt"] == 0)
+        second = min(x["t_enter"] for lines in steps for x in lines
+                     if x["attempt"] == 1)
+        back = max(x["t_done"] for lines in steps for x in lines
+                   if (x["attempt"], x["step"]) == (1, TR_CKPT_STEP + 1))
+        out = {"card": card, "config": f"gptj-6b n_layers={TR_LAYERS}",
+               "params": shard_model(TR_LAYERS).num_params,
+               "mesh": {"fsdp": 2}, "backend": "gloo",
+               "gpus_a_worker": 0.5, "batch": [TR_ROWS, S],
+               "fit_s": fit_s,
+               "gang_start_s": {"first": first - t_fit,
+                                "after_restart": second - killed["t"]},
+               "restart_s": back - killed["t"],
+               "load_s_after_restart": [
+                   [x for x in st if x["attempt"] == 1][0]["load_s"]
+                   for st in steps],
+               "steps": [{"attempt": a, "step": s,
+                          "loss": losses[(a, s)][0],
+                          "wall_s": max(x["wall_s"] for st in steps
+                                        for x in st
+                                        if (x["attempt"], x["step"])
+                                        == (a, s)),
+                          "tokens_per_s": TR_ROWS * S / max(
+                              x["wall_s"] for st in steps for x in st
+                              if (x["attempt"], x["step"]) == (a, s))}
+                         for a, s in order],
+               "killed_losses": killed_losses, "rerun_losses": rerun,
+               "resume_rel": gap,
+               "checkpoint": {"gb": ck["gb"], "gather_s": ck["gather_s"],
+                              "write_s": ck["write_s"],
+                              "report_s": ck["report_s"],
+                              "read_s_driver": read_s},
+               "peak_gb_a_rank": [max(x["peak_gb"] for x in st)
+                                  for st in steps],
+               "launches": [[x for x in st if x["attempt"] == 1][-1][
+                   "launches"] for st in steps],
+               "devices": sorted({x["current"] for st in steps
+                                  for x in st})}
+        print("tr1 " + json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tn1(dev, card: str, seed: int):
+    """TN1: ``Tuner`` over a ``TorchTrainer`` of one worker (half the
+    card) sweeping lr over TN_LRS, each trial GPT-J-6B width at
+    TN_LAYERS layer, 1 x 2048, TN_STEPS steps. Checks: no error, two
+    trials, the best result the trial with the lower last loss, world
+    size 1, each trial on ``cuda:0`` with its flash launches."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.tune import TuneConfig, Tuner
+    root = tempfile.mkdtemp(prefix="tn1_")
+    try:
+        config = {"layers": TN_LAYERS, "rows": TN_ROWS, "steps": TN_STEPS,
+                  "lr": TN_LRS[0], "seed": seed, "device": str(dev),
+                  "dir": root, "kill": False}
+        trainer = TorchTrainer(
+            tr_worker, train_loop_config=config,
+            scaling_config=ScalingConfig(
+                num_workers=1, use_gpu=True,
+                resources_per_worker={"GPU": 0.5}),
+            run_config=RunConfig(storage_path=os.path.join(root, "inner")))
+        t_fit = time.time()
+        t0 = time.perf_counter()
+        grid = Tuner(
+            trainer,
+            param_space={"train_loop_config": {
+                "lr": tune.grid_search(list(TN_LRS))}},
+            tune_config=TuneConfig(metric="loss", mode="min"),
+            run_config=RunConfig(name="tn1",
+                                 storage_path=os.path.join(root, "runs")),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        check(grid.num_errors == 0, f"TN1 trials failed: {grid.errors}")
+        check(len(grid) == len(TN_LRS), f"TN1 ran {len(grid)} trials")
+        trials = []
+        for lr in TN_LRS:
+            logs = tr_logs(root, lr, 1)
+            check_tr_ranks(f"TN1 lr={lr:g}", dev, logs, TN_LAYERS)
+            st = [x for x in logs[0] if x["kind"] == "step"]
+            check([x["step"] for x in st] == list(range(TN_STEPS))
+                  and all(x["world"] == 1 for x in st),
+                  f"TN1 lr={lr:g}: steps {[x['step'] for x in st]}, world "
+                  f"{[x['world'] for x in st]}")
+            trials.append({
+                "lr": lr, "losses": [x["losses"][0] for x in st],
+                "start_s": st[0]["t_enter"] - t_fit,
+                "wall_s": st[-1]["t_done"] - st[0]["t_enter"],
+                "first_step_s": st[0]["wall_s"],
+                "step_walls_s": [x["wall_s"] for x in st],
+                "t": [st[0]["t_enter"], st[-1]["t_done"]],
+                "launches": st[-1]["launches"], "device": st[-1]["current"],
+                "peak_gb": max(x["peak_gb"] for x in st)})
+        best = grid.get_best_result()
+        low = min(trials, key=lambda t: t["losses"][-1])
+        check(best.metrics["loss"] == low["losses"][-1]
+              and best.metrics["config"]["train_loop_config"]["lr"]
+              == low["lr"],
+              f"TN1 best result {best.metrics.get('loss')} is not the trial "
+              f"with the lower last loss {low['losses'][-1]}")
+        (a0, a1), (b0, b1) = trials[0]["t"], trials[1]["t"]
+        out = {"card": card, "config": f"gptj-6b n_layers={TN_LAYERS}",
+               "params": shard_model(TN_LAYERS).num_params,
+               "batch": [TN_ROWS, shard_model(TN_LAYERS).max_seq_len],
+               "gpus_a_trial": 0.5, "fit_s": fit_s, "trials": trials,
+               "best_lr": best.metrics["config"]["train_loop_config"]["lr"],
+               "overlapped": a0 < b1 and b0 < a1}
+        print("tn1 " + json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def train_tune_phases(dev, card: str, seed: int):
+    """TR1 and TN1 after RLL3, on the caller's runtime where it shares
+    one, else each on a runtime of its own."""
+    return {name: on_own_runtime(name, dev, phase, card, seed)
+            for name, phase in (("TR1", phase_tr1), ("TN1", phase_tn1))}
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6542,7 +6952,7 @@ def main(argv=None) -> int:
             "RL1": rl["RL1"]["flash_launches"][rec["name"]],
             "RL2": [n[rec["name"]] for n in rl["RL2"]["learner_launches"]]}
     kernels.extend(flash)
-    # P1-RLL2 on one runtime: each later phase's actors fork from the
+    # P1-TN1 on one runtime: each later phase's actors fork from the
     # zygote P1's first spawn booted
     with runtime():
         sharded = sharding_phases(dev, card, args.seed)
@@ -6550,6 +6960,7 @@ def main(argv=None) -> int:
         pipes = pipeline_phases(dev, card, args.seed)
         mesh = mesh_elastic_phases(dev, card, args.seed)
         rllib_phases(dev, card, args.seed)
+        trained = train_tune_phases(dev, card, args.seed)
     for rec in flash:
         rec["sharded_launches"] = [r["launches"][rec["name"]]
                                    for r in sharded["P1"]["ranks"]]
@@ -6569,6 +6980,10 @@ def main(argv=None) -> int:
         rec["elastic_launches"] = [
             [c[rec["name"]] if c is not None else None for c in prog]
             for prog in mesh["EL1"]["launches"]]
+        rec["trainer_launches"] = {
+            "TR1": [c[rec["name"]] for c in trained["TR1"]["launches"]],
+            "TN1": [t["launches"][rec["name"]]
+                    for t in trained["TN1"]["trials"]]}
 
     total = time.perf_counter() - t_start
     print(f"total wall: {total:.1f} s", flush=True)

@@ -25,6 +25,7 @@ every rank calls it).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict
 
 import numpy as np
@@ -67,9 +68,14 @@ def to_numpy(tree):
 
 def _find_adam_state(opt_state):
     """The optax ``ScaleByAdamState`` (the node with ``count``, ``mu`` and
-    ``nu``) inside a numpy-converted optax state of nested tuples."""
+    ``nu``) inside a numpy-converted optax state of nested tuples, or a
+    dict with those keys (the one-device checkpoint layout, as a
+    checkpoint file holds it)."""
     if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
         return opt_state
+    if isinstance(opt_state, dict) and \
+            {"count", "mu", "nu"} <= set(opt_state):
+        return SimpleNamespace(**opt_state)
     if isinstance(opt_state, (tuple, list)):
         for item in opt_state:
             found = _find_adam_state(item)
@@ -269,10 +275,15 @@ def gather_to_numpy(tree, config, mesh, rules=None) -> Dict[str, Any]:
     from ray_tpu_torch.parallel.sharding import local_slices, spec_axes
     world = axis_group(mesh, AXIS_ORDER)
     sizes = axis_sizes(mesh)
+    # gloo stages a CUDA tensor through host memory both ways: gather the
+    # host copy instead, which is where the result goes
+    on_host = world.pg is not None and dist.get_backend(world.pg) == "gloo"
 
     def one(t, spec):
-        t = t.detach().float().contiguous()
-        shards = _all_gather(t, world).cpu().numpy()
+        t = t.detach().float()
+        if on_host:
+            t = t.cpu()
+        shards = _all_gather(t.contiguous(), world).cpu().numpy()
         parts = [int(np.prod([sizes[a] for a in spec_axes(spec[d])]))
                  if d < len(spec) else 1 for d in range(t.dim())]
         glob = tuple(n * k for n, k in zip(t.shape, parts))

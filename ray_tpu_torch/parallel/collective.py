@@ -752,7 +752,8 @@ def _kv_take(key: bytes, timeout: float = 120.0) -> bytes:
             w.kv_del(key, ns="collective")
             return v
         time.sleep(0.005)
-    raise TimeoutError(f"collective recv timed out on {key!r}")
+    raise TimeoutError(f"collective recv timed out on {key!r}; "
+                       f"{_present(w, key)}")
 
 
 def _kv_wait(key: bytes, timeout: float = 120.0) -> bytes:
@@ -763,7 +764,19 @@ def _kv_wait(key: bytes, timeout: float = 120.0) -> bytes:
         if v is not None:
             return v
         time.sleep(0.005)
-    raise TimeoutError(f"collective wait timed out on {key!r}")
+    raise TimeoutError(f"collective wait timed out on {key!r}; "
+                       f"{_present(w, key)}")
+
+
+def _present(w, key: bytes) -> str:
+    """The keys present beside ``key`` in its group (its prefix up to
+    the group's name), for a timeout's message."""
+    prefix = b"/".join(key.split(b"/")[:2]) + b"/"
+    try:
+        keys = sorted(w.kv_keys(prefix, ns="collective"))
+    except Exception as e:  # noqa: BLE001 — the message must still rise
+        return f"the group's keys could not be listed ({e!r})"
+    return f"the group's keys present: {keys!r}"
 
 
 def _host_rendezvous(group_name: str, world_size: int, rank: int) -> None:

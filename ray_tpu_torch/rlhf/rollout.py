@@ -13,8 +13,9 @@ Two rollout paths share one trajectory-block schema:
   trajectories. Admission of each new trajectory is gated by the
   ``max_weight_lag`` staleness bound. The port's engine drops its
   prefix index at a weight swap (the JAX engine keeps it: ROADMAP
-  Queue 3), so a request admitted after a swap prefills its whole
-  prompt on the new weights.
+  Queue 3) and prefills the system prompt again on the new weights
+  before the next admission, so a trajectory admitted after a swap
+  matches it.
 - :func:`rlhf_rollout_blocks` — a **streaming generator task**
   (``num_returns="streaming"``), deterministic in its arguments
   (engine built from a version-stamped packed weight payload, one
@@ -178,9 +179,9 @@ class RolloutEngine:
 
     Every trajectory request is ``system_prompt + suffix`` — the radix
     trie serves the shared prefix from cache after the first request
-    per engine, so rollout prefill cost is ~one suffix per trajectory:
-    each round's first trajectory on an engine is prefilled before the
-    round's others are submitted to it. ``stream_round`` admits
+    per engine, so rollout prefill cost is ~one suffix per trajectory
+    (the engine holds a trajectory back while another one is prefilling
+    the prompt they share). ``stream_round`` admits
     trajectories under the staleness gate and streams completed
     trajectory blocks in completion order. ``device`` is the engines'
     (see the module's docstring).
@@ -285,9 +286,6 @@ class RolloutEngine:
                 futs.append(self._pool.submit(
                     self._drain, j % len(self.engines), seq, prompt,
                     req, eng, stream, rid))
-                if j == min(len(suffixes), len(self.engines)) - 1:
-                    self._await_prefilled(self.engines[:j + 1],
-                                          admit_timeout_s)
             tokens = 0
             versions: set = set()
             slowest_rid, slowest_s = None, -1.0
@@ -310,30 +308,6 @@ class RolloutEngine:
             stream.finish()
         except BaseException as e:  # noqa: BLE001 — surface, never hang
             stream.finish(err=e)
-
-    @staticmethod
-    def _await_prefilled(engines, timeout_s: float) -> None:
-        """Wait until each engine has prefilled what it was given (its
-        round's first trajectory), so the system prompt's blocks are in
-        its radix trie before the round's other trajectories arrive.
-        Trajectories admitted in one step would each prefill the shared
-        prompt (a match sees only indexed blocks); the JAX rollout
-        engine submits them all at once (ROADMAP Queue 3)."""
-        deadline = time.monotonic() + timeout_s
-        for eng in engines:
-            if not eng.config.enable_prefix_sharing:
-                continue
-            while True:
-                s = eng.stats()
-                if s["queue_depth"] == 0 and s["prefilling"] == 0:
-                    break
-                if eng._dead is not None:
-                    raise EngineDeadError(
-                        f"engine step loop died: {eng._dead!r}")
-                if time.monotonic() > deadline:
-                    raise TimeoutError("a round's first trajectory was "
-                                       "never prefilled")
-                time.sleep(0.002)
 
     def _drain(self, engine_idx: int, seq: int, prompt: List[int],
                req, eng, stream: LocalBlockStream,
@@ -399,6 +373,8 @@ class RolloutEngine:
             "tokens_total": sum(s["tokens_total"] for s in eng),
             "prefix_hit_rate": (round(hits / blocks, 4) if blocks
                                 else None),
+            "prompt_blocks_total": blocks,
+            "rewarm_blocks": sum(s["rewarm_blocks"] for s in eng),
             "weight_version": self.weight_version,
             "weight_swaps": sum(s["weight_swaps"] for s in eng),
             "weight_swap_wall_s": round(

@@ -308,6 +308,8 @@ class RLHFTrainer:
             "trajectories": len(stream.infos),
             "rollout_tokens": rstats["tokens_total"],
             "prefix_hit_rate": rstats["prefix_hit_rate"],
+            "prompt_blocks_total": rstats["prompt_blocks_total"],
+            "rewarm_blocks": rstats["rewarm_blocks"],
             "weight_version": rstats["weight_version"],
             "weight_syncs": pstats["publishes"],
             "wire_compression": pstats["compression"],

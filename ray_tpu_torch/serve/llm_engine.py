@@ -163,7 +163,7 @@ class _Request:
                  "trie_cursor", "spec_ewma", "spec_disabled", "warmup",
                  "detailed", "trace", "t_enqueue_wall", "queue_wait_s",
                  "last_tok_wall", "tick_t0", "tick_toks", "export",
-                 "adopt")
+                 "adopt", "rewarm")
 
     def __init__(self, rid: int, prompt: List[int], max_new_tokens: int,
                  eos_token_id: Optional[int]):
@@ -180,6 +180,7 @@ class _Request:
         self.generated = 0            # tokens emitted
         self.cancelled = False
         self.warmup = False           # warm-up request: no telemetry
+        self.rewarm = False           # a prefix prefilled again at a swap
         self.detailed = False         # stream (tok, version, logprob)
         # -- disaggregated hand-off (serve/disagg.py)
         self.export = False           # end at the prompt: ship its KV
@@ -304,6 +305,17 @@ class LLMEngine:
         self._decode_pages_window = 0
         self._prompt_blocks_total = 0
         self._cow_copies = 0
+        #: steps whose admission waited for a prefix another request was
+        #: prefilling into the current index
+        self._prefix_waits = 0
+        #: prompt blocks prefilled again after weight swaps (the reused
+        #: prefixes of the dropped index)
+        self._rewarm_blocks = 0
+        #: the prefixes the last swap queued for a re-prefill, and
+        #: whether a request has been admitted since (one that did not
+        #: match a re-prefilled prefix drops it at the next swap)
+        self._rewarmed: List[tuple] = []
+        self._admitted_since_swap = False
         # hand-off accounting: exports on the prefill side, adopts on
         # the decode side; the two walls are the device and copy work of
         # packing and of adopting a payload
@@ -797,6 +809,8 @@ class LLMEngine:
                 "prefix_hit_rate": hit_rate,
                 "prefix_evictions_total": ps["evictions_total"],
                 "cow_copies_total": self._cow_copies,
+                "prefix_wait_steps": self._prefix_waits,
+                "rewarm_blocks": self._rewarm_blocks,
                 "tokens_total": self._tokens_total,
                 "tokens_per_s": round(self._tokens_total / elapsed, 2),
                 "decode_steps": self._decode_steps,
@@ -949,9 +963,11 @@ class LLMEngine:
         request waits. On the card the step thread's stream first waits
         (on the device, not the host) for the staging caller's stream.
         The prefix index is dropped: its KV was written by the old
-        weights, so a request admitted after the swap prefills its whole
-        prompt on the new ones (the JAX engine keeps the index: ROADMAP
-        Queue 3)."""
+        weights (the JAX engine keeps the index: ROADMAP Queue 3). Its
+        reused prefixes are prefilled again on the new weights ahead of
+        every queued request (``rewarm_blocks``), so that what a request
+        admitted after the swap matches does not depend on when the swap
+        landed."""
         with self._lock:
             staged = self._staged_weights
             if staged is None:
@@ -972,7 +988,20 @@ class LLMEngine:
             if r.trace is not None:
                 r.trace.span(RT.WEIGHT_SWAP, t0w, now_w, version=version)
         with self._lock:
+            again = self._rewarm_prefixes() \
+                if self.config.enable_prefix_sharing else []
             self._pool.drop_index()
+            # the re-prefills still queued are in ``again``
+            kept = [r for r in self._pending if not r.rewarm]
+            self._pending.clear()
+            self._pending.extend(kept)
+            for tokens in reversed(again):
+                self._rid += 1
+                req = _Request(self._rid, list(tokens), 1, None)
+                req.warmup = req.rewarm = True
+                self._pending.appendleft(req)
+            self._rewarmed = again
+            self._admitted_since_swap = False
             self._weight_version = version
             self._weight_swaps += 1
             self._weight_swap_wall_s += swap_s
@@ -1024,6 +1053,13 @@ class LLMEngine:
                 if not self._pending or not self._free_slots:
                     return
                 req = self._pending[0]
+                if ec.enable_prefix_sharing and \
+                        self._prefix_in_flight(req.prompt):
+                    # its prefix is being prefilled into the index now:
+                    # admit it once those blocks are indexed (prefill
+                    # runs one request at a time, so nothing is lost)
+                    self._prefix_waits += 1
+                    return
                 plen = len(req.prompt)
                 need = -(-min(plen + req.max_new_tokens,
                               ec.max_seq_len) // bs)
@@ -1037,6 +1073,12 @@ class LLMEngine:
                 if ec.enable_prefix_sharing:
                     matched, mtok, req.trie_node = \
                         self._pool.match_prefix(req.prompt)
+                    if req.rewarm:
+                        # a re-prefill's match is no request's reuse
+                        node = req.trie_node
+                        while node.parent is not None:
+                            node.hits -= 1
+                            node = node.parent
                     if mtok == plen and matched:
                         cow_src = matched.pop()
                         mtok -= bs
@@ -1059,11 +1101,15 @@ class LLMEngine:
                     ([cow_dst] if cow_dst is not None else []) + priv
                 req.hit_blocks = len(matched) + \
                     (1 if cow_src is not None else 0)
-                self._pool.count_hits(req.hit_blocks)
                 req.trie_cursor = req.hit_blocks
                 req.prefill_pos = (plen - 1) if cow_src is not None \
                     else mtok
-                self._prompt_blocks_total += -(-plen // bs)
+                if req.rewarm:
+                    self._rewarm_blocks += -(-plen // bs)
+                else:
+                    self._pool.count_hits(req.hit_blocks)
+                    self._prompt_blocks_total += -(-plen // bs)
+                    self._admitted_since_swap = True
                 self._pending.popleft()
                 req.slot = self._free_slots.pop()
                 self._block_tables[req.slot, :] = 0
@@ -1073,7 +1119,7 @@ class LLMEngine:
                 req.state = _PREFILL
                 self._slots[req.slot] = req
                 self._prefilling.append(req)
-                if req.hit_blocks:
+                if req.hit_blocks and not req.rewarm:
                     self._metrics.serve_prefix_hits.inc(req.hit_blocks)
                 self._trace_admit(req, mtok, cow=cow_src is not None)
             # device-side copy outside the lock (the step thread is the
@@ -1082,6 +1128,46 @@ class LLMEngine:
                 self._copy_block(cow_src, cow_dst)
                 with self._lock:
                     self._pool.release([cow_src])
+
+    def _rewarm_prefixes(self) -> List[tuple]:
+        """What to prefill again at a swap, less any that is a prefix of
+        another: the prefixes requests matched since the last swap; the
+        re-prefills this swap cuts short or finds queued; and, when no
+        request has been admitted since the last swap, what that swap
+        queued. So a re-prefilled prefix that the requests admitted after
+        it did not match is not prefilled at the next swap (call with
+        self._lock held)."""
+        cands = {tuple(c) for c in self._pool.reused_prefixes()} | {
+            tuple(r.prompt) for r in (*self._prefilling, *self._pending)
+            if r.rewarm}
+        if not self._admitted_since_swap:
+            cands.update(self._rewarmed)
+        keep: List[tuple] = []
+        for c in sorted(cands, key=len, reverse=True):
+            if not any(k[:len(c)] == c for k in keep):
+                keep.append(c)
+        return keep
+
+    def _prefix_in_flight(self, prompt: Sequence[int]) -> bool:
+        """True while a request prefilling into the current index (one
+        admitted since the last weight swap, whose inserts have not
+        aborted) has full prompt blocks in common with ``prompt`` that
+        it has not indexed yet. Two requests admitted in one step would
+        otherwise both prefill a shared prefix, as after a swap drops the
+        index; KV from before the swap is never matched (call with
+        self._lock held)."""
+        bs = self.config.kv_block_size
+        for r in self._prefilling:
+            if r.trie_node is None or r.trie_node.detached:
+                continue
+            n = min(len(prompt), len(r.prompt)) // bs
+            k = 0
+            while k < n and prompt[k * bs:(k + 1) * bs] == \
+                    r.prompt[k * bs:(k + 1) * bs]:
+                k += 1
+            if r.trie_cursor < k:
+                return True
+        return False
 
     # --------------------------------------------- disagg adopt / export
     def _admit_adopt(self, req: _Request) -> bool:
@@ -1118,6 +1204,7 @@ class LLMEngine:
             req.trie_cursor = req.hit_blocks
             req.prefill_pos = plen
             self._prompt_blocks_total += -(-plen // bs)
+            self._admitted_since_swap = True
             self._pending.popleft()
             req.slot = self._free_slots.pop()
             self._block_tables[req.slot, :] = 0
@@ -1276,6 +1363,12 @@ class LLMEngine:
                     req.trie_node = node   # None = parent evicted: stop
                     req.trie_cursor += 1
         if req.prefill_pos < len(req.prompt):
+            return
+        if req.rewarm:
+            # indexed again: nothing to emit
+            with self._lock:
+                self._prefilling.popleft()
+                self._release_locked(req)
             return
         # prompt fully cached: the final chunk's last logits give the
         # first generated token

@@ -281,6 +281,26 @@ class PrefixBlockPool:
             chains = out
         return chains
 
+    def reused_prefixes(self) -> List[List[int]]:
+        """The tokens of every root-anchored trie path whose blocks were
+        each matched, longest paths only: the prefixes worth prefilling
+        again when the index is dropped (a weight swap), referenced
+        blocks included."""
+        out: List[List[int]] = []
+
+        def walk(node: _TrieNode, toks: List[int]) -> None:
+            extended = False
+            for child in node.children.values():
+                if child.detached or not child.hits:
+                    continue
+                walk(child, toks + list(child.key))
+                extended = True
+            if not extended and toks:
+                out.append(toks)
+
+        walk(self._root, [])
+        return out
+
     # -------------------------------------------------------- introspection
     def root_fingerprints(self, limit: int = 64) -> List[int]:
         """Fingerprints of the trie ROOT's children — the first-block

@@ -153,6 +153,60 @@ def _load_treedef(raw: bytes) -> List[tuple]:
     return _TreeDefUnpickler(io.BytesIO(raw)).load().nodes
 
 
+def _read_member(path: str, info):
+    """One stored member of an ``np.savez`` file: its ``.npy`` header
+    parsed in place, its data read with one ``fromfile``, the whole
+    member checked against the archive's CRC-32 (as ``zipfile`` checks
+    it). ``np.savez`` writes nothing else: a compressed member, an
+    object array or a header of another version is refused."""
+    import zipfile
+    import zlib
+
+    import numpy as np
+    from numpy.lib import format as npf
+    readers = {(1, 0): npf.read_array_header_1_0,
+               (2, 0): npf.read_array_header_2_0}
+    with open(path, "rb") as f:
+        f.seek(info.header_offset)
+        local = f.read(30)
+        if local[:4] != b"PK\x03\x04":
+            raise zipfile.BadZipFile(f"{info.filename}: no local header")
+        start = info.header_offset + 30 + int.from_bytes(
+            local[26:28], "little") + int.from_bytes(local[28:30], "little")
+        if info.compress_type != zipfile.ZIP_STORED:
+            raise zipfile.BadZipFile(f"{info.filename}: compressed")
+        f.seek(start)
+        version = npf.read_magic(f)
+        if version not in readers:
+            raise zipfile.BadZipFile(f"{info.filename}: .npy {version}")
+        shape, fortran, dtype = readers[version](f)
+        if dtype.hasobject:
+            raise zipfile.BadZipFile(f"{info.filename}: an object array")
+        head = f.tell() - start
+        f.seek(start)
+        crc = zlib.crc32(f.read(head))
+        count = int(np.prod(shape))
+        arr = np.fromfile(f, dtype=dtype, count=count)
+    if arr.size != count:
+        raise zipfile.BadZipFile(f"{info.filename}: truncated")
+    if zlib.crc32(memoryview(arr).cast("B"), crc) != info.CRC:
+        raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r}")
+    return arr.reshape(shape[::-1]).T if fortran else arr.reshape(shape)
+
+
+def _read_npz(path: str) -> Dict[str, Any]:
+    """Every array of an ``np.savez`` file by name, several members read
+    at once (``np.load`` reads a member 256 KiB at a time through
+    ``zipfile``; the reads and the CRC sums here release the GIL)."""
+    import zipfile
+    from concurrent.futures import ThreadPoolExecutor
+    with zipfile.ZipFile(path) as z:
+        infos = z.infolist()
+    with ThreadPoolExecutor(max_workers=min(8, max(1, len(infos)))) as ex:
+        arrays = list(ex.map(lambda i: _read_member(path, i), infos))
+    return {i.filename[:-len(".npy")]: a for i, a in zip(infos, arrays)}
+
+
 class Checkpoint:
     """A directory snapshot. ``path`` is the canonical location."""
 
@@ -212,11 +266,10 @@ class Checkpoint:
     def to_torch(self) -> Any:
         """The saved tree (by ``from_torch`` or the JAX package's
         ``from_jax``) with CPU tensor leaves."""
-        import numpy as np
         import torch
-        data = np.load(os.path.join(self.path, _PYTREE_FILE))
-        leaves = [torch.from_numpy(np.array(data[f"leaf_{i}"]))
-                  for i in range(len(data.files))]
+        data = _read_npz(os.path.join(self.path, _PYTREE_FILE))
+        leaves = [torch.from_numpy(data[f"leaf_{i}"])
+                  for i in range(len(data))]
         with open(os.path.join(self.path, _TREEDEF_FILE), "rb") as f:
             nodes = _load_treedef(f.read())
         return _unflatten(nodes, leaves)

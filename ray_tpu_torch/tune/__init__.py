@@ -1,26 +1,45 @@
-"""ray_tpu_torch.tune: the part of ``ray_tpu/tune/`` that rllib's
-``Algorithm`` stands on, the class API ``Trainable``
-(``tune/trainable.py``). The function API, ``with_resources``,
-``Tuner``, the search spaces, searchers and schedulers wait for the port
-of ``tune/`` (ROADMAP Queue 1 item 11); their names raise on access.
+"""ray_tpu_torch.tune: hyperparameter tuning, the port of
+``ray_tpu/tune/`` (reference: ``python/ray/tune/``).
+
+Public surface mirrors ``ray.tune``: Tuner/TuneConfig/ResultGrid, the
+search-space DSL, the default searcher and ``ConcurrencyLimiter``, the
+FIFO and ASHA schedulers, Trainable (class and function APIs),
+``tune.report`` and the classic ``tune.run``. The other schedulers and
+the searchers over third-party packages wait for ROADMAP Queue 1 item 11
+(``tune.schedulers`` and ``tune.search`` name them and raise).
 """
 
-from ray_tpu_torch.tune.trainable import Trainable
+from ray_tpu_torch.tune.placement_groups import PlacementGroupFactory
+from ray_tpu_torch.tune.result_grid import ResultGrid
+from ray_tpu_torch.tune.search.sample import (
+    choice, grid_search, lograndint, loguniform, qloguniform, qrandint,
+    quniform, randint, randn, sample_from, uniform)
+from ray_tpu_torch.tune.trainable import (
+    FunctionTrainable, Trainable, get_checkpoint, report, with_parameters,
+    with_resources)
+from ray_tpu_torch.tune.tuner import TuneConfig, Tuner, run
 
-#: names of the JAX package's ``tune`` that wait for item 11
-_LATER = ("FunctionTrainable", "PlacementGroupFactory", "ResultGrid",
-          "TuneConfig", "Tuner", "choice", "get_checkpoint",
-          "grid_search", "lograndint", "loguniform", "qloguniform",
-          "qrandint", "quniform", "randint", "randn", "report", "run",
-          "sample_from", "uniform", "with_parameters", "with_resources")
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"tune.{name} waits for the port of tune/ (ROADMAP Queue 1 "
-            f"item 11)")
-    raise AttributeError(name)
-
-
-__all__ = ["Trainable"]
+__all__ = [
+    "FunctionTrainable",
+    "PlacementGroupFactory",
+    "ResultGrid",
+    "Trainable",
+    "TuneConfig",
+    "Tuner",
+    "choice",
+    "get_checkpoint",
+    "grid_search",
+    "lograndint",
+    "loguniform",
+    "qloguniform",
+    "qrandint",
+    "quniform",
+    "randint",
+    "randn",
+    "report",
+    "run",
+    "sample_from",
+    "uniform",
+    "with_parameters",
+    "with_resources",
+]

@@ -697,3 +697,50 @@ def test_rllib_phases_on_the_cpu(monkeypatch):
     assert set(rll3["summary"]["update_ms_median"]) == {
         "DQN", "SAC discrete", "SAC continuous", "TD3", "CQL", "BC",
         "MARWIL"}
+
+
+def test_trainer_and_tuner_phases_on_the_cpu(monkeypatch):
+    """TR1 and TN1 at gptj-tiny width (bf16, the phases' depths) on the
+    CPU, on one runtime as after RLL3 on the card: TR1's two workers (half
+    a GPU each) train over fsdp 2, report the gathered state after step
+    1, lose rank 1 after its first step-3 update and resume from the
+    checkpoint: one restart, the re-run steps' losses equal to the killed
+    attempt's, losses equal on both ranks and falling, the checkpoint loading
+    back with its step; TN1's two trials of one worker each, the best the
+    one with the lower last loss. The flash wrappers launch nothing on
+    the CPU, so the launch checks (four kernels for each attempt of each
+    TR1 rank and each TN1 trial) are the only ones that fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    from ray_tpu_torch.models import get_config
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(chip_smoke, "shard_model", lambda n: dataclasses.replace(
+        get_config("gptj-tiny"), n_layers=n, dtype=torch.bfloat16))
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        with chip_smoke.runtime():
+            out = chip_smoke.train_tune_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    tr1, tn1 = out["TR1"], out["TN1"]
+    assert [(s["attempt"], s["step"]) for s in tr1["steps"]] == [
+        (0, 0), (0, 1), (0, 2), (0, 3), (1, 2), (1, 3)]
+    assert tr1["rerun_losses"] == tr1["killed_losses"]
+    assert sorted(tr1["rerun_losses"]) == [2, 3]
+    assert tr1["steps"][-1]["loss"] < tr1["steps"][0]["loss"]
+    assert tr1["devices"] == ["cpu"]
+    assert tr1["checkpoint"]["gb"] > 0
+    assert tr1["restart_s"] > 0 and tr1["gang_start_s"]["first"] > 0
+    assert [t["lr"] for t in tn1["trials"]] == list(chip_smoke.TN_LRS)
+    low = min(tn1["trials"], key=lambda t: t["losses"][-1])
+    assert tn1["best_lr"] == low["lr"]
+    assert all(len(t["losses"]) == chip_smoke.TN_STEPS
+               for t in tn1["trials"])
+    assert len(failed) == 4 * (2 * 2 + 2) \
+        and all("launched" in f for f in failed), failed

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of ``ray_tpu_torch/``, neither
-``chip_smoke.py`` nor ``store_probe.py``, imports JAX, the JAX package
+"""The port stands alone: no file of ``ray_tpu_torch/``, nor
+``chip_smoke.py``, ``store_probe.py`` or ``checkpoint_probe.py``,
+imports JAX, the JAX package
 or ``ml_dtypes``, and the port imports, serves (speculative decode, a
 bf16 KV hand-off, tracing included), takes a train step and serves an
 ``LLMServer`` through ``serve.run`` with all of them made
@@ -22,7 +23,8 @@ BANNED = ("jax", "jaxlib", "optax", "flax", "ray_tpu", "ml_dtypes")
 
 def _port_files():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "store_probe.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "store_probe.py",
+              ROOT / "checkpoint_probe.py"]
     return files
 
 
@@ -399,6 +401,66 @@ def test_rllib_trains_with_jax_and_ray_tpu_unimportable():
                         "rewards": rng.normal(size=8).astype("f4"),
                         "dones": np.zeros(8, "f4")})
         assert all(math.isfinite(v) for v in m.values()), m
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """)
+
+
+def test_train_and_tune_run_with_jax_and_ray_tpu_unimportable(tmp_path):
+    """A two-worker ``TorchTrainer.fit`` (a gloo group, a checkpoint) and
+    a ``Tuner.fit`` over a function trainable and a ``TorchTrainer``,
+    with the JAX packages unimportable in the driver and the workers."""
+    _run(f"""
+        import sys
+        for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu",
+                     "ml_dtypes"):
+            sys.modules[name] = None      # any import of them now fails
+        import ray_tpu_torch
+        from ray_tpu_torch import tune
+        from ray_tpu_torch.train import (Checkpoint, RunConfig,
+                                         ScalingConfig, TorchTrainer)
+        from ray_tpu_torch.tune import TuneConfig, Tuner
+
+        def train_func(config):
+            import sys
+            import torch
+            import torch.distributed as dist
+            import ray_tpu_torch.train as train
+            x = torch.ones(()) * config.get("k", 1.0)
+            if dist.is_initialized():
+                dist.all_reduce(x)
+            seen = sorted({{m.split(".")[0] for m in sys.modules}}
+                          & {{"jax", "jaxlib", "ray_tpu", "ml_dtypes"}})
+            rank = train.get_context().get_world_rank()
+            train.report({{"x": float(x), "seen": seen}},
+                         checkpoint=(Checkpoint.from_torch({{"x": x}})
+                                     if rank == 0 else None))
+
+        ray_tpu_torch.init(num_cpus=6, _num_initial_workers=0)
+        try:
+            result = TorchTrainer(
+                train_func, scaling_config=ScalingConfig(num_workers=2),
+                run_config=RunConfig(name="iso",
+                                     storage_path={str(tmp_path)!r})).fit()
+            assert result.error is None, result.error
+            assert result.metrics == {{"x": 2.0, "seen": []}}, result.metrics
+            assert float(result.checkpoint.to_torch()["x"]) == 2.0
+            grid = Tuner(
+                TorchTrainer(train_func,
+                             scaling_config=ScalingConfig(num_workers=1)),
+                param_space={{"train_loop_config": {{
+                    "k": tune.grid_search([1.0, 3.0])}}}},
+                tune_config=TuneConfig(metric="x", mode="max"),
+                run_config=RunConfig(name="iso-tune",
+                                     storage_path={str(tmp_path)!r})).fit()
+            assert grid.num_errors == 0, grid.errors
+            assert grid.get_best_result().metrics["x"] == 3.0
+            assert all(r.metrics["seen"] == [] for r in grid)
+        finally:
+            ray_tpu_torch.shutdown()
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
                   and sys.modules[m] is not None]

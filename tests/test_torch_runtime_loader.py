@@ -10,7 +10,10 @@ Each ``tests/test_torch_runtime_<name>.py`` file loads
 ``tests/test_torch_rllib_<name>.py`` that loads bodies
 ``tests/rllib/test_<name>.py`` (``"rllib/test_<name>.py"``), as
 ``tests/test_torch_autoscaler_slices.py`` and ``tests/test_torch_elastic.py``
-load ``"autoscaler/test_slices.py"`` and ``"parallel/test_elastic.py"``:
+load ``"autoscaler/test_slices.py"`` and ``"parallel/test_elastic.py"``,
+and ``tests/test_torch_train_trainer.py`` and ``tests/test_torch_tune.py``
+load ``"train/test_trainer.py"``, ``"tune/test_tune.py"`` and
+``"tune/test_callbacks.py"``:
 the source is
 read, ``ray_tpu`` is rewritten to ``ray_tpu_torch`` on word boundaries
 and ``RAY_TPU_<NAME>`` environment variables to ``RAY_TPU_TORCH_<NAME>``,
@@ -233,7 +236,8 @@ FIXTURES = {"ray_start_regular": ray_start_regular,
     f"serve/{p.name}" for p in JAX_SERVE.glob("test_*.py")) + sorted(
     f"rlhf/{p.name}" for p in JAX_RLHF.glob("test_*.py")) + sorted(
     f"rllib/{p.name}" for p in JAX_RLLIB.glob("test_*.py")) + [
-    "autoscaler/test_slices.py", "parallel/test_elastic.py"])
+    "autoscaler/test_slices.py", "parallel/test_elastic.py",
+    "train/test_trainer.py", "tune/test_tune.py", "tune/test_callbacks.py"])
 def test_rewrite_leaves_no_jax_package_import(filename):
     """After the rewrite no import names the JAX package."""
     tree = ast.parse(port_source(filename))
