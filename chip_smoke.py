@@ -207,21 +207,21 @@ RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
 10. Where the time goes in a train step: one profiler window, device time
     by kind (flash forward, flash backward, matmul, other) and the idle
     share.
-P1. Sharding, on a runtime of its own that M1-TN1 share: four rank
+P1. Sharding, on a runtime of its own that M1-TN2 share: four rank
     actors (``num_gpus=0.25`` each, all on this card) joined into one
     gloo group through
     ``init_torch_distributed``, each building ``MeshSpec(fsdp=2, tp=2)``
     (``__graft_entry__._factor_mesh(4)``) and ``make_train_step`` at
-    GPT-J-6B width cut to 2 layers under ``FSDP_RULES``, remat
+    GPT-J-6B width cut to P1_LAYERS layer under ``FSDP_RULES``, remat
     ``"dots"``, lr 1e-4, global batch 2 x 2048 (one row a data rank),
     one warm-up and 1 timed step. Losses finite, equal on every rank and
-    falling; each rank launched each flash kernel 2 x steps (at 8 heads,
+    falling; each rank launched each flash kernel 1 x steps (at 8 heads,
     its tp half); each rank's shard shapes are ``FSDP_RULES``'; leaves
     replicated over tp bit-identical across each tp pair. Step wall,
     tokens/s, MFU, each rank's peak memory, and the wall split into
     compute and collectives (``CollectiveClock`` wraps the collective
     layer's one entry into torch.distributed in each rank).
-P2. The sharded step against the one-device step at 2 layers, 1 x 2048 a
+P2. The sharded step against the one-device step at 1 layer, 1 x 2048 a
     data rank, same weights (the sharded init is a slice of the
     one-device init) and batch: loss and gradients (each rank's shards
     against the slices of the one-device gradients; global and worst-leaf
@@ -313,7 +313,7 @@ EL1. ``ElasticTrainer(ParallelPlan(pp=2, dp=2, n_microbatches=4),
     maintenance notice (the slice drains and is released), step 3
     folding live to pp=2 x dp=1 (0 steps lost), step 4, a stage actor
     killed while step 5 runs (recovered on the same grid from the fold's
-    snapshot, steps 3-4 replayed: 3 lost), step 6. Every loss within
+    snapshot, steps 3-4 replayed: 3 lost). Every loss within
     P2's loss bound of the one-device plan's; the two recoveries'
     triggers, plans, steps lost and seconds; SLICE_DRAIN, SLICE_DOWN
     and the four ELASTIC_* events; each program's flash launches.
@@ -364,14 +364,14 @@ TR1. ``TorchTrainer`` on the same runtime: two workers (``GPU`` 0.5
     ``TorchConfig(backend="gloo")``) build ``make_train_step`` at
     GPT-J-6B width cut to TR_LAYERS layers over ``MeshSpec(fsdp=2)``,
     global batch 2 x 2048 seeded by the step (tokens from an eighth of
-    the vocabulary), steps 0-3. After step 1 rank 0 reports the
+    the vocabulary), steps 0-2. After step 0 rank 0 reports the
     gathered params and Adam moments through ``Checkpoint.from_torch``
     (``num_to_keep=1``); on the first attempt rank 1 writes its death
-    time and exits after the step-3 update; the trainer restarts the
-    gang from the step-1 checkpoint (``max_failures=1``) and steps 2-3
+    time and exits after the step-2 update; the trainer restarts the
+    gang from the step-0 checkpoint (``max_failures=1``) and steps 1-2
     run again. No error, one restart, the re-run steps' losses within
-    TR_RESUME_REL of the killed attempt's (step 2's reads the restored
-    params, step 3's the restored Adam state through step 2's update),
+    TR_RESUME_REL of the killed attempt's (step 1's reads the restored
+    params, step 2's the restored Adam state through step 1's update),
     losses equal on both ranks and falling,
     every worker on ``cuda:0``, each flash kernel launched TR_LAYERS x
     the attempt's steps on each rank of each attempt, the final
@@ -388,6 +388,37 @@ TN1. ``Tuner`` over a ``TorchTrainer`` of one worker (``GPU`` 0.5)
     ``cuda:0`` with each flash kernel launched TN_LAYERS x TN_STEPS
     times. Fit wall, each trial's wall and first step, whether the
     trials overlapped in time (the ``tn1`` line).
+D1. ``ray_tpu_torch.data`` into a ``TorchTrainer`` on the same runtime:
+    ``range(6, parallelism=3)`` -> ``map_batches`` (each row's 2048
+    tokens ``tr_batch``'s for the row's id, the ``id`` kept) ->
+    ``random_shuffle(seed=...)``, passed as ``datasets={"train": ...}``
+    to two workers (``GPU`` 0.5 each, gloo) at GPT-J-6B width and
+    D1_LAYERS layer over ``MeshSpec(fsdp=2)``; each worker steps on one
+    row of its ``streaming_split`` shard at a time
+    (``iter_batches(batch_size=1)``), its rows of the global batch. The
+    fit returns within D1_FIT_S with no error, every id consumed once and
+    3 a rank, each rank's row bit-equal to the one rebuilt from its id,
+    the losses equal on both ranks, finite and falling, step 0's loss
+    within P2_LOSS_REL_BOUND of a one-device step from the same initial
+    state on the two ranks' rows in rank order, each flash kernel
+    launched D1_LAYERS x 3 times a rank on ``cuda:0``, the store's live
+    GB back within 0.1 GB. Fit wall, the pipeline's wall to the first
+    batch, each step's wall, the rows' bytes (the ``d1`` line).
+TN2. ``PopulationBasedTraining`` on the same runtime: two trials of a
+    class ``tune.Trainable`` (``GPU`` 0.5 each) at lr TN2_LRS, each
+    holding a one-device GPT-J-6B train state at TN2_LAYERS layer;
+    synchronous rounds every 2 iterations, the bottom half exploiting
+    the top half (the whole state, params and Adam moments, through
+    ``Checkpoint.from_torch``), its lr moved to a neighbour in
+    TN2_MUTATIONS; a trial stops once its state has taken TN2_STEPS
+    steps; no save at a trial's end. At least one exploit, the target's
+    state after the restore bit-equal (checksums on the card) to what
+    the source saved, the target's lr a neighbour of the source's, its
+    next loss bit-equal to the source's from the same state and batch,
+    the restore's peak within one state and TN2_LOAD_SLACK_GB, each
+    flash kernel launched TN2_LAYERS x the steps of each trial actor.
+    Fit wall, each save's and restore's seconds and GB, each trial's
+    losses, step walls and peak GB (the ``tn2`` line).
 
 Before them the script's ``phase walls`` line (the build's wall, each
 phase's and the total; around each phase on the shared runtime the
@@ -403,9 +434,9 @@ learner's ``rlhf_learner_launches``, each P1 rank's
 ``ring_launches``, each PL1 and PL2 stage's ``pipeline_launches``,
 each PL4 rank's ``gpipe_launches``, each PL5 and PL6 rank's
 ``mpmd3d_launches``, each rank of each program EL1 built
-``elastic_launches``, and each TR1 rank's and each TN1 trial's
-``trainer_launches``); the last line is ``{"ok": true, "device":
-{...}}``.
+``elastic_launches``, and each TR1 rank's, each TN1 trial's, each D1
+rank's and each TN2 trial actor's ``trainer_launches``); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3617,9 +3648,9 @@ def training_phases(dev, card: str, seed: int):
 # driven at world size 1 (P3).
 SHARD_MESH = {"fsdp": 2, "tp": 2}   # __graft_entry__._factor_mesh(4)
 SHARD_BATCH = 2                     # global rows: 1 x 2048 a data rank
-P1_LAYERS = 2                       # 4 until the 900 s budget
+P1_LAYERS = 1                       # 4, then 2, until the 900 s budget
 P1_TIMED_STEPS = 1                  # 3, then 2, until the 900 s budget
-P2_LAYERS = 2
+P2_LAYERS = 1                       # 2 until the 900 s budget
 P2_STEPS = 2                        # 3 until the 900 s budget
 P3_BACKEND = "nccl"
 # P2's bounds: the sharded step sums bf16 partial products across the
@@ -5005,7 +5036,7 @@ PL5_LAYERS = 2                     # one a stage
 PL6_LAYERS = 4                     # two a stage
 PL6_TIMED_STEPS = 1                # 2 before the 900 s budget
 EL1_LAYERS = 2
-EL1_STEPS = 6
+EL1_STEPS = 5                      # 6 until the 900 s budget
 EL1_SNAPSHOT_INTERVAL = 8
 # PL5's control seeds each rank's backward with the microbatch's n_i / N,
 # without the rank's share n_loc / n_mb of its tokens (1/2 here): the
@@ -5021,7 +5052,7 @@ EL1_LOSS_REL = P2_LOSS_REL_BOUND
 #: snapshot in the store); the after value is read once the runtime's
 #: free grace window and STORE_WAIT_S have passed
 STORE_BACK_GB = 0.1
-STORE_BACK_PHASES = ("EL1",)
+STORE_BACK_PHASES = ("EL1", "D1")
 STORE_WAIT_S = 3.0
 
 
@@ -5261,11 +5292,11 @@ def phase_el1(dev, card: str, seed: int):
     slice, and step 3 folds live to pp=2 x dp=1 (0 steps lost); step 4;
     a stage actor killed while step 5 runs: the trainer recovers on the
     same grid from the fold's snapshot and replays steps 3-4 (3 steps
-    lost); step 6. Every loss within EL1_LOSS_REL of the one-device
+    lost). Every loss within EL1_LOSS_REL of the one-device
     plan's at its step; the two recoveries' triggers, plans, steps lost
     and seconds; SLICE_DRAIN, SLICE_DOWN and the four ELASTIC_* events;
-    each program's flash launches (8 a rank in the first, 16 in the
-    last, which replays 3-4 and runs 5-6)."""
+    each program's flash launches (8 a rank in the first, 12 in the
+    last, which replays 3-4 and runs 5)."""
     from ray_tpu_torch.autoscaler import (FakeSliceProvider, SliceManager,
                                           SliceTypeConfig)
     from ray_tpu_torch.core.global_state import try_global_worker
@@ -5368,7 +5399,8 @@ def phase_el1(dev, card: str, seed: int):
     check(res["slice_state"] == "RELEASED",
           f"EL1: the drained slice is {res['slice_state']}")
     check(len(launches) == 3, f"EL1 built {len(launches)} programs, not 3")
-    want = {0: 2 * MESH_MICROBATCHES, 2: 4 * MESH_MICROBATCHES}
+    want = {0: 2 * MESH_MICROBATCHES,
+            2: (EL1_STEPS - 2) * MESH_MICROBATCHES}
     for p, counts in enumerate(launches):
         for j, c in enumerate(counts):
             if p == 1 and c is None:
@@ -6530,11 +6562,11 @@ def rllib_phases(dev, card: str, seed: int):
 
 
 # -------------------------------------------- the trainer and the tuner
-TR_LAYERS = 2          # P1's depth: 0.81 B parameters, about 13 GB of state
-TR_STEPS = 4
+TR_LAYERS = 1          # TN1's depth: 0.61 B parameters, about 9.8 GB of state
+TR_STEPS = 3            # 4 until the 900 s budget
 TR_ROWS = 2            # global batch 2 x 2048, one row a rank (fsdp 2)
-TR_CKPT_STEP = 1       # rank 0 reports the gathered state after this step
-TR_KILL_STEP = 3       # rank 1 dies after this step's update, once
+TR_CKPT_STEP = 0       # rank 0 reports the gathered state after this step
+TR_KILL_STEP = 2       # rank 1 dies after this step's update, once
 TR_LR = 1e-4
 TR_RESUME_REL = 1e-5   # a re-run step's loss against the killed attempt's
 TN_LAYERS = 1
@@ -6588,11 +6620,14 @@ def dir_gb(path: str) -> float:
 
 
 def tr_worker(config):
-    """A ``TorchTrainer`` worker of TR1 and TN1: GPT-J-6B width at
+    """A ``TorchTrainer`` worker of TR1, TN1 and D1: GPT-J-6B width at
     ``layers``, ``make_train_step`` over ``MeshSpec(fsdp=world)`` on the
     gang's process group (one device for one worker), from the trainer's
     checkpoint where it has one; each step's loss gathered from every
-    rank, logged and reported. With ``kill``: after step TR_CKPT_STEP
+    rank, logged and reported. Its rows are ``tr_batch``'s, or with
+    ``data`` (D1) one row a step from the worker's shard of the
+    trainer's ``"train"`` dataset (:func:`shard_batches`). With
+    ``kill``: after step TR_CKPT_STEP
     the gathered params and moments go to rank 0's report through
     ``Checkpoint.from_torch``, and on the first attempt rank 1 dies
     right after its step-TR_KILL_STEP update (the last step's)."""
@@ -6636,12 +6671,17 @@ def tr_worker(config):
     killed = os.path.join(config["dir"], "killed.json")
     attempt = int(os.path.exists(killed))
     reset_flash_counts()
-    for step in range(int(state["step"]), config["steps"]):
-        batch = tr_batch(cfg, config["seed"], step, config["rows"])
+    if config.get("data"):
+        batches = shard_batches(train.get_dataset_shard("train"), world, dev)
+    else:
+        batches = ((step, bundle.local_batch(tr_batch(
+            cfg, config["seed"], step, config["rows"])), {})
+            for step in range(int(state["step"]), config["steps"]))
+    for step, batch, row in batches:
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = bundle.step(state, batch)
+        state, m = bundle.step_fn(state, batch)
         loss = m["loss"].item()
         if cuda:
             torch.cuda.synchronize()
@@ -6658,7 +6698,7 @@ def tr_worker(config):
             "current": f"cuda:{torch.cuda.current_device()}" if cuda
             else "cpu", "pid": os.getpid(),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
-            else 0.0})
+            else 0.0, **row})
         if config["kill"] and step == TR_KILL_STEP and rank == 1 \
                 and attempt == 0:
             with open(killed, "w") as f:
@@ -6710,11 +6750,11 @@ def check_tr_ranks(name: str, dev, logs, layers: int):
 def phase_tr1(dev, card: str, seed: int):
     """TR1: a ``TorchTrainer`` of two workers (half the card each, gloo)
     at GPT-J-6B width and TR_LAYERS layers over ``MeshSpec(fsdp=2)``,
-    steps 0-3 on 2 x 2048; the gathered state reported after step 1
-    (``num_to_keep=1``); rank 1 killed after its first step-3 update;
-    the gang restarted from the step-1 checkpoint (``max_failures=1``).
-    Checks: no error, one restart, the re-run steps 2 and 3's losses
-    within TR_RESUME_REL of the killed attempt's (step 3's after an
+    steps 0-2 on 2 x 2048; the gathered state reported after step 0
+    (``num_to_keep=1``); rank 1 killed after its first step-2 update;
+    the gang restarted from the step-0 checkpoint (``max_failures=1``).
+    Checks: no error, one restart, the re-run steps 1 and 2's losses
+    within TR_RESUME_REL of the killed attempt's (step 2's after an
     update from the restored Adam moments and count), losses equal on
     both ranks and falling, every worker on ``cuda:0``, the flash
     launches, the final checkpoint loading back with its step."""
@@ -6907,6 +6947,490 @@ def train_tune_phases(dev, card: str, seed: int):
             for name, phase in (("TR1", phase_tr1), ("TN1", phase_tn1))}
 
 
+# ------------------------------ a dataset into a trainer, PBT on the card
+D1_LAYERS = 1          # TN1's depth
+D1_ROWS = 6            # three steps a rank: fsdp 2, one row a rank a step
+D1_BLOCKS = 3
+D1_LR = 1e-4
+D1_FIT_S = 600.0       # the fit (pipeline included) must return within this
+TN2_LAYERS = 1
+TN2_STEPS = 3          # each trial stops once its state has taken 3 steps
+TN2_MUTATIONS = (1e-4, 2e-4, 3e-4)
+TN2_LRS = (1e-4, 3e-4)
+#: a restore frees the trial's state before it loads another: the load's
+#: peak stays within one state and this much more
+TN2_LOAD_SLACK_GB = 1.0
+TN2_FIT_S = 900.0
+
+
+def within(seconds: float, what: str, fn):
+    """``fn()`` on a daemon thread, failing with its own message if it
+    has not returned within ``seconds`` (the script must not hang)."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:   # noqa: BLE001 -- re-raised below
+            box["err"] = e
+    t = threading.Thread(target=run, daemon=True, name=what)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        raise SmokeFailure(f"{what} did not return within {seconds:.0f} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def d1_rows(batch, layers: int, seed: int):
+    """``map_batches`` body of D1's dataset: each row's ``input_ids`` are
+    ``tr_batch``'s for the row's id as the step, its ``id`` kept."""
+    cfg = shard_model(layers)
+    ids = batch["id"]
+    return {"id": ids, "input_ids": np.stack([
+        tr_batch(cfg, seed, int(i), 1)["input_ids"][0] for i in ids])}
+
+
+def d1_dataset(seed: int):
+    """D1's pipeline: ``range`` -> ``map_batches`` -> ``random_shuffle``."""
+    import functools
+
+    from ray_tpu_torch import data
+    return (data.range(D1_ROWS, parallelism=D1_BLOCKS)
+            .map_batches(functools.partial(d1_rows, layers=D1_LAYERS,
+                                           seed=seed))
+            .random_shuffle(seed=seed))
+
+
+def shard_batches(shard, world: int, dev):
+    """This rank's steps from its dataset shard, one row a step, as
+    (step, the row on the device with its loss mask, what the log keeps:
+    the row's id, a digest of its tokens, its bytes, and at step 0 the
+    wall from the iterator's creation to the first batch). The ranks
+    agree at each step that every one of them has a row, and all fail
+    with their own message if some have one and others do not (a sharded
+    step would wait for the missing rank for good)."""
+    import hashlib
+
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    it = iter(shard.iter_batches(batch_size=1, batch_format="numpy"))
+    step = 0
+    while True:
+        batch = next(it, None)
+        first_s = time.perf_counter() - t0
+        have = [batch is not None]
+        if world > 1:
+            have = [None] * world
+            dist.all_gather_object(have, batch is not None)
+        if not any(have):
+            return
+        if not all(have):
+            raise RuntimeError(
+                f"the dataset's shards ran out of step at step {step}: "
+                f"ranks holding a row {have}")
+        ids = batch["input_ids"]
+        rec = {"ids": [int(i) for i in batch["id"]],
+               "sha1": hashlib.sha1(np.ascontiguousarray(ids)).hexdigest(),
+               "dtype": str(ids.dtype), "shape": list(ids.shape),
+               "row_bytes": int(ids.nbytes + batch["id"].nbytes)}
+        if step == 0:
+            rec["first_batch_s"] = first_s
+        t = torch.tensor(ids, device=dev)   # the batch views the store
+        yield step, {"input_ids": t, "loss_mask": torch.ones(
+            t.shape, dtype=torch.float32, device=dev)}, rec
+        step += 1
+
+
+def phase_d1(dev, card: str, seed: int):
+    """D1: ``ray_tpu_torch.data`` into a ``TorchTrainer``: D1_ROWS rows
+    through ``range`` -> ``map_batches`` (each row's tokens built from
+    its id) -> ``random_shuffle``, streamed as ``datasets={"train": ds}``
+    into two workers (half the card each, gloo) at GPT-J-6B width and
+    D1_LAYERS layer over ``MeshSpec(fsdp=2)``; each worker steps on one
+    row of its shard at a time. Checks: the fit returns within D1_FIT_S
+    with no error, every id consumed once and 3 rows a rank, each rank's
+    row bit-equal to the one rebuilt here from its id, losses equal on
+    both ranks, finite and falling, step 0's loss within
+    P2_LOSS_REL_BOUND of a one-device step from the same initial state
+    on the two ranks' rows in rank order, the flash launches on
+    ``cuda:0``; the store's live GB back after the fit (on_own_runtime)."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.models import make_train_step
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, \
+        TorchTrainer
+    root = tempfile.mkdtemp(prefix="d1_")
+    try:
+        config = {"layers": D1_LAYERS, "lr": D1_LR, "seed": seed,
+                  "device": str(dev), "dir": root, "kill": False,
+                  "data": True}
+        trainer = TorchTrainer(
+            tr_worker, train_loop_config=config,
+            torch_config=TorchConfig(backend="gloo"),
+            scaling_config=ScalingConfig(
+                num_workers=2, use_gpu=True,
+                resources_per_worker={"GPU": 0.5}),
+            run_config=RunConfig(name="d1",
+                                 storage_path=os.path.join(root, "runs")),
+            datasets={"train": d1_dataset(seed)})
+        t0 = time.perf_counter()
+        result = within(D1_FIT_S, "D1's fit", trainer.fit)
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"D1 fit failed: {result.error!r}")
+        logs = tr_logs(root, D1_LR, 2)
+        steps = [[x for x in lines if x["kind"] == "step"] for lines in logs]
+        ids = [[i for x in st for i in x["ids"]] for st in steps]
+        check(sorted(i for r in ids for i in r) == list(range(D1_ROWS))
+              and [len(r) for r in ids] == [D1_ROWS // 2] * 2,
+              f"D1 ranks consumed ids {ids}, not each of {D1_ROWS} once "
+              f"and {D1_ROWS // 2} a rank")
+        cfg = shard_model(D1_LAYERS)
+        for r, st in enumerate(steps):
+            for x in st:
+                want = tr_batch(cfg, seed, x["ids"][0], 1)["input_ids"]
+                check(x["sha1"] == hashlib.sha1(want).hexdigest()
+                      and x["dtype"] == str(want.dtype)
+                      and x["shape"] == list(want.shape),
+                      f"D1 rank {r} step {x['step']}: row {x['ids']} is "
+                      f"not the one its id builds")
+        losses = [x["losses"] for x in steps[0]]
+        check([x["losses"] for x in steps[1]] == losses
+              and all(ls[0] == ls[1] for ls in losses),
+              f"D1 losses differ between ranks: {losses}")
+        first, last = losses[0][0], losses[-1][0]
+        check(all(math.isfinite(ls[0]) for ls in losses) and last < first,
+              f"D1 losses not finite and falling: {losses}")
+        check_tr_ranks("D1", dev, logs, D1_LAYERS)
+        # step 0 on one device from the same initial state, on the rows
+        # the two ranks took at step 0, in rank order
+        bundle = make_train_step(cfg, learning_rate=D1_LR,
+                                 remat_policy="dots", ce_chunk_size=512,
+                                 device=dev)
+        state = bundle.init(seed=seed)
+        batch = np.concatenate([tr_batch(cfg, seed, st[0]["ids"][0], 1)[
+            "input_ids"] for st in steps])
+        _, m = bundle.step(state, {"input_ids": batch})
+        one = m["loss"].item()
+        del state, bundle, m
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rel = abs(first - one) / abs(one)
+        check(rel <= P2_LOSS_REL_BOUND,
+              f"D1 step 0 loss {first} against one device's {one}: rel "
+              f"{rel} > {P2_LOSS_REL_BOUND}")
+        S = cfg.max_seq_len
+        out = {"card": card, "config": f"gptj-6b n_layers={D1_LAYERS}",
+               "params": cfg.num_params, "mesh": {"fsdp": 2},
+               "backend": "gloo", "gpus_a_worker": 0.5,
+               "rows": D1_ROWS, "blocks": D1_BLOCKS, "fit_s": fit_s,
+               "ids_a_rank": ids,
+               "first_batch_s": [st[0]["first_batch_s"] for st in steps],
+               "rows_bytes": sum(x["row_bytes"] for st in steps
+                                 for x in st),
+               "steps": [{"step": x["step"], "loss": x["losses"][0],
+                          "wall_s": max(st[x["step"]]["wall_s"]
+                                        for st in steps),
+                          "tokens_per_s": 2 * S / max(
+                              st[x["step"]]["wall_s"] for st in steps)}
+                         for x in steps[0]],
+               "one_device_loss": one, "loss_rel": rel,
+               "peak_gb_a_rank": [max(x["peak_gb"] for x in st)
+                                  for st in steps],
+               "launches": [st[-1]["launches"] for st in steps],
+               "devices": sorted({x["current"] for st in steps
+                                  for x in st})}
+        print("d1 " + json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def state_sums(state):
+    """Two checksums of each leaf's bits, taken on the leaf's device: the
+    sum of its 32-bit words and their sum weighted by position (mod
+    65521, plus one), both in int64, by ``/``-joined path."""
+    from ray_tpu_torch.models.training import _get, _paths
+    out = {}
+    chunk = 1 << 24
+    for path in _paths(state):
+        x = _get(state, path).detach().reshape(-1).view(torch.int32)
+        w = (torch.arange(min(chunk, x.numel()), device=x.device,
+                          dtype=torch.int64) % 65521) + 1
+        s = torch.zeros((), dtype=torch.int64, device=x.device)
+        p = torch.zeros((), dtype=torch.int64, device=x.device)
+        for c in x.split(chunk):
+            c = c.to(torch.int64)
+            s += c.sum()
+            p += (c * w[:c.numel()]).sum()
+        out["/".join(path)] = [int(s), int(p)]
+    return out
+
+
+def tn2_trainable():
+    """TN2's trial: a ``tune.Trainable`` holding a one-device GPT-J-6B
+    train state at TN2_LAYERS layer (built at its first step unless a
+    restore brings one); ``step`` trains on ``tr_batch`` of the state's
+    step and returns the loss (taken before the update), ``save_checkpoint``
+    writes the whole state (params and Adam moments) through
+    ``Checkpoint.from_torch`` with the checksums of its bits,
+    ``load_checkpoint`` frees the state and reads the saved one onto the
+    device, and ``reset_config`` sets the optimizer's learning rate in
+    place. Each call is logged to the trial's lines in ``config["dir"]``."""
+    from ray_tpu_torch import tune
+
+    class GPTJTrial(tune.Trainable):
+        def setup(self, config):
+            from ray_tpu_torch.models import make_train_step
+            from ray_tpu_torch.models.training import default_optimizer
+            from ray_tpu_torch.tune._trial_context import get_trial_dir
+            self.dev = torch.device(config["device"])
+            self.cuda = self.dev.type == "cuda"
+            if self.cuda:
+                torch.cuda.set_device(self.dev)
+                torch.cuda.reset_peak_memory_stats()
+            self.cfg = shard_model(config["layers"])
+            self.opt = default_optimizer(config["lr"])
+            self.bundle = make_train_step(
+                self.cfg, optimizer=self.opt, remat_policy="dots",
+                ce_chunk_size=512, device=self.dev)
+            self.state = None
+            self.trial = os.path.basename(get_trial_dir() or "trial")
+            self.steps_here = 0
+            reset_flash_counts()
+            self.log({"kind": "setup"})
+
+        def log(self, rec):
+            rec = dict(rec, trial=self.trial, pid=os.getpid(),
+                       lr=self.opt.learning_rate, t=time.time(),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9
+                       if self.cuda else 0.0)
+            path = os.path.join(self.config["dir"], f"{self.trial}.jsonl")
+            with open(path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+        def sync(self):
+            if self.cuda:
+                torch.cuda.synchronize()
+
+        def step(self):
+            if self.state is None:
+                self.state = self.bundle.init(seed=self.config["seed"])
+            k = int(self.state["step"])
+            batch = self.bundle.local_batch(
+                tr_batch(self.cfg, self.config["seed"], k, 1))
+            self.sync()
+            t0 = time.perf_counter()
+            self.state, m = self.bundle.step_fn(self.state, batch)
+            loss = m["loss"].item()
+            self.sync()
+            self.steps_here += 1
+            self.log({"kind": "step", "state_step": k, "loss": loss,
+                      "wall_s": time.perf_counter() - t0,
+                      "steps_here": self.steps_here,
+                      "launches": flash_counts(),
+                      "device": device_name(self.dev),
+                      "current": f"cuda:{torch.cuda.current_device()}"
+                      if self.cuda else "cpu"})
+            return {"loss": loss, "step": k + 1}
+
+        def save_checkpoint(self, checkpoint_dir):
+            from ray_tpu_torch.train import Checkpoint
+            t0 = time.perf_counter()
+            sums = state_sums(self.state)
+            ck = Checkpoint.from_torch(self.state)
+            for name in os.listdir(ck.path):
+                os.replace(os.path.join(ck.path, name),
+                           os.path.join(checkpoint_dir, name))
+            os.rmdir(ck.path)
+            self.log({"kind": "save", "dir": checkpoint_dir,
+                      "state_step": int(self.state["step"]), "sums": sums,
+                      "save_s": time.perf_counter() - t0,
+                      "gb": dir_gb(checkpoint_dir)})
+            return checkpoint_dir
+
+        def load_checkpoint(self, checkpoint_dir):
+            from ray_tpu_torch.models.training import tree_map
+            from ray_tpu_torch.train import Checkpoint
+            t0 = time.perf_counter()
+            self.state = None           # one state at a time on the card
+            gc.collect()
+            if self.cuda:
+                torch.cuda.reset_peak_memory_stats()
+            tree = Checkpoint(checkpoint_dir).to_torch()
+            self.state = tree_map(lambda t: t.to(self.dev), tree)
+            del tree
+            self.sync()
+            load_s = time.perf_counter() - t0
+            self.log({"kind": "load", "dir": checkpoint_dir,
+                      "state_step": int(self.state["step"]),
+                      "sums": state_sums(self.state), "load_s": load_s,
+                      "load_peak_gb": torch.cuda.max_memory_allocated()
+                      / 1e9 if self.cuda else 0.0})
+
+        def reset_config(self, new_config):
+            self.opt.learning_rate = new_config["lr"]
+            self.log({"kind": "reset"})
+            return True
+
+    return GPTJTrial
+
+
+def tn2_logs(root: str):
+    out = {}
+    for name in sorted(os.listdir(root)):
+        if name.endswith(".jsonl"):
+            with open(os.path.join(root, name)) as f:
+                out[name[:-len(".jsonl")]] = [json.loads(x) for x in f]
+    return out
+
+
+def phase_tn2(dev, card: str, seed: int):
+    """TN2: ``PopulationBasedTraining`` over two trials of a class
+    ``Trainable`` (half the card each) at lr TN2_LRS, each holding a
+    GPT-J-6B train state at TN2_LAYERS layer on the card; synchronous
+    rounds (as the JAX package's own PBT test: the exploit is then the
+    same under any interleaving) every 2 iterations, the bottom half
+    cloning the top half's state through a checkpoint and moving its lr
+    to a neighbour in TN2_MUTATIONS; each trial stops once its state has
+    taken TN2_STEPS steps; no save at a trial's end. Checks: no error,
+    at least one exploit, the target's params and moments after the
+    restore bit-equal (checksums on the card) to what the source saved,
+    the target's lr a neighbour of the source's, the target's next loss
+    bit-equal to the source's from the same state on the same batch, the
+    restore's peak within one state (TN2_LOAD_SLACK_GB), every step on
+    ``cuda:0`` and each flash kernel launched TN2_LAYERS x the steps each
+    trial actor took."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import CheckpointConfig, RunConfig
+    from ray_tpu_torch.tune import TuneConfig, Tuner
+    from ray_tpu_torch.tune.schedulers import PopulationBasedTraining
+    root = tempfile.mkdtemp(prefix="tn2_")
+    logs_dir = os.path.join(root, "logs")
+    os.makedirs(logs_dir)
+    try:
+        pbt = PopulationBasedTraining(
+            metric="loss", mode="min", perturbation_interval=2,
+            quantile_fraction=0.5,
+            hyperparam_mutations={"lr": list(TN2_MUTATIONS)}, synch=True,
+            seed=0)
+        trial_cls = tune.with_resources(tn2_trainable(),
+                                        {"CPU": 1, "GPU": 0.5})
+        tuner = Tuner(
+            trial_cls,
+            param_space={"lr": tune.grid_search(list(TN2_LRS)),
+                         "layers": TN2_LAYERS, "seed": seed,
+                         "device": str(dev), "dir": logs_dir},
+            tune_config=TuneConfig(metric="loss", mode="min",
+                                   scheduler=pbt),
+            run_config=RunConfig(
+                name="tn2", storage_path=os.path.join(root, "runs"),
+                stop={"step": TN2_STEPS},
+                checkpoint_config=CheckpointConfig(checkpoint_at_end=False)))
+        t0 = time.perf_counter()
+        grid = within(TN2_FIT_S, "TN2's fit", tuner.fit)
+        fit_s = time.perf_counter() - t0
+        check(grid.num_errors == 0, f"TN2 trials failed: {grid.errors}")
+        check(pbt.perturbation_count >= 1,
+              f"TN2 made {pbt.perturbation_count} exploits")
+        logs = tn2_logs(logs_dir)
+        saves = {x["dir"]: x for lines in logs.values() for x in lines
+                 if x["kind"] == "save"}
+        exploits = []
+        for trial, lines in logs.items():
+            for i, x in enumerate(lines):
+                if x["kind"] != "load" or x["dir"] not in saves \
+                        or saves[x["dir"]]["trial"] == trial:
+                    continue
+                src = saves[x["dir"]]
+                after = [y for y in lines[i + 1:] if y["kind"] == "step"
+                         and y["pid"] == x["pid"]]
+                same = [y for y in logs[src["trial"]]
+                        if y["kind"] == "step"
+                        and y["state_step"] == src["state_step"]]
+                check(x["sums"] == src["sums"],
+                      f"TN2 {trial}'s state after the restore differs from "
+                      f"what {src['trial']} saved")
+                check(x["state_step"] == src["state_step"] and after
+                      and same, f"TN2 {trial}: no step after the restore of "
+                      f"{src['trial']}'s step-{src['state_step']} state, "
+                      f"or none of the source's from it")
+                j = TN2_MUTATIONS.index(src["lr"])
+                near = {TN2_MUTATIONS[max(0, min(len(TN2_MUTATIONS) - 1,
+                                                 j + d))] for d in (-1, 1)}
+                check(after[0]["lr"] in near,
+                      f"TN2 {trial}'s lr {after[0]['lr']} is not a "
+                      f"neighbour of {src['trial']}'s {src['lr']}")
+                check(after[0]["loss"] == same[0]["loss"],
+                      f"TN2 {trial}'s loss {after[0]['loss']} from the "
+                      f"cloned state is not {src['trial']}'s "
+                      f"{same[0]['loss']}")
+                one_state = src["gb"]
+                check(x["load_peak_gb"] <= one_state + TN2_LOAD_SLACK_GB,
+                      f"TN2 {trial}'s restore peaked at {x['load_peak_gb']}"
+                      f" GB, over one {one_state} GB state")
+                exploits.append({
+                    "target": trial, "source": src["trial"],
+                    "state_step": src["state_step"],
+                    "lr": [src["lr"], after[0]["lr"]],
+                    "loss": [same[0]["loss"], after[0]["loss"]],
+                    "save_s": src["save_s"], "load_s": x["load_s"],
+                    "gb": src["gb"], "load_peak_gb": x["load_peak_gb"]})
+        check(len(exploits) >= 1, "TN2: no trial restored another's state")
+        want = "cuda:0" if dev.type == "cuda" else "cpu"
+        trials = {}
+        for trial, lines in logs.items():
+            st = [x for x in lines if x["kind"] == "step"]
+            for pid in sorted({x["pid"] for x in st}):
+                mine = [x for x in st if x["pid"] == pid]
+                for n, c in mine[-1]["launches"].items():
+                    check(c == TN2_LAYERS * mine[-1]["steps_here"],
+                          f"TN2 {trial} actor {pid}: {n} launched {c} "
+                          f"times, not {TN2_LAYERS} x "
+                          f"{mine[-1]['steps_here']}")
+            check(all(x["current"] == want for x in st),
+                  f"TN2 {trial} stepped on "
+                  f"{sorted({x['current'] for x in st})}, not {want}")
+            trials[trial] = {
+                "losses": [x["loss"] for x in st],
+                "state_steps": [x["state_step"] for x in st],
+                "lrs": [x["lr"] for x in st],
+                "step_walls_s": [x["wall_s"] for x in st],
+                "actors": len({x["pid"] for x in lines}),
+                "saves_s": [x["save_s"] for x in lines
+                            if x["kind"] == "save"],
+                "loads_s": [x["load_s"] for x in lines
+                            if x["kind"] == "load"],
+                "launches": [[x for x in st if x["pid"] == pid][-1][
+                    "launches"] for pid in sorted({x["pid"] for x in st})],
+                "peak_gb": max(x["peak_gb"] for x in lines)}
+        cfg = shard_model(TN2_LAYERS)
+        out = {"card": card, "config": f"gptj-6b n_layers={TN2_LAYERS}",
+               "params": cfg.num_params,
+               "batch": [1, cfg.max_seq_len], "gpus_a_trial": 0.5,
+               "fit_s": fit_s, "exploits": exploits,
+               "perturbations": pbt.perturbation_count, "trials": trials}
+        print("tn2 " + json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def data_tune_phases(dev, card: str, seed: int):
+    """D1 and TN2 after TN1, on the caller's runtime where it shares one,
+    else each on a runtime of its own."""
+    return {name: on_own_runtime(name, dev, phase, card, seed)
+            for name, phase in (("D1", phase_d1), ("TN2", phase_tn2))}
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6952,7 +7476,7 @@ def main(argv=None) -> int:
             "RL1": rl["RL1"]["flash_launches"][rec["name"]],
             "RL2": [n[rec["name"]] for n in rl["RL2"]["learner_launches"]]}
     kernels.extend(flash)
-    # P1-TN1 on one runtime: each later phase's actors fork from the
+    # P1-TN2 on one runtime: each later phase's actors fork from the
     # zygote P1's first spawn booted
     with runtime():
         sharded = sharding_phases(dev, card, args.seed)
@@ -6961,6 +7485,7 @@ def main(argv=None) -> int:
         mesh = mesh_elastic_phases(dev, card, args.seed)
         rllib_phases(dev, card, args.seed)
         trained = train_tune_phases(dev, card, args.seed)
+        trained.update(data_tune_phases(dev, card, args.seed))
     for rec in flash:
         rec["sharded_launches"] = [r["launches"][rec["name"]]
                                    for r in sharded["P1"]["ranks"]]
@@ -6983,7 +7508,10 @@ def main(argv=None) -> int:
         rec["trainer_launches"] = {
             "TR1": [c[rec["name"]] for c in trained["TR1"]["launches"]],
             "TN1": [t["launches"][rec["name"]]
-                    for t in trained["TN1"]["trials"]]}
+                    for t in trained["TN1"]["trials"]],
+            "D1": [c[rec["name"]] for c in trained["D1"]["launches"]],
+            "TN2": {name: [c[rec["name"]] for c in t["launches"]]
+                    for name, t in trained["TN2"]["trials"].items()}}
 
     total = time.perf_counter() - t_start
     print(f"total wall: {total:.1f} s", flush=True)

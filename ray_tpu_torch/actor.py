@@ -72,9 +72,10 @@ class ActorClass:
                 module=getattr(self._cls, "__module__", "") or "",
                 qualname=self._cls.__qualname__, function_hash=h)
         key = self._descriptor.key()
-        if id(w) not in self._exported_sessions:
+        sid = w.worker_id.binary()  # not id(w): see RemoteFunction
+        if sid not in self._exported_sessions:
             w.export_function(key, self._pickled)
-            self._exported_sessions.add(id(w))
+            self._exported_sessions.add(sid)
         return self._descriptor
 
     def remote(self, *args, **kwargs) -> "ActorHandle":

@@ -105,7 +105,10 @@ class RemoteFunction:
                 qualname=getattr(self._function, "__qualname__", self.__name__),
                 function_hash=h)
         key = self._descriptor.key()
-        sid = id(w)
+        # keyed by the runtime's random worker id, not id(w): a runtime
+        # collected after shutdown can leave its address to the next
+        # one, which would then never receive the export
+        sid = w.worker_id.binary()
         if sid not in self._exported_sessions:
             w.export_function(key, self._pickled)
             self._exported_sessions.add(sid)

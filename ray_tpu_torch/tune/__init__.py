@@ -2,11 +2,8 @@
 ``ray_tpu/tune/`` (reference: ``python/ray/tune/``).
 
 Public surface mirrors ``ray.tune``: Tuner/TuneConfig/ResultGrid, the
-search-space DSL, the default searcher and ``ConcurrencyLimiter``, the
-FIFO and ASHA schedulers, Trainable (class and function APIs),
-``tune.report`` and the classic ``tune.run``. The other schedulers and
-the searchers over third-party packages wait for ROADMAP Queue 1 item 11
-(``tune.schedulers`` and ``tune.search`` name them and raise).
+search-space DSL, searchers, trial schedulers, Trainable (class and
+function APIs), ``tune.report``, and the classic ``tune.run``.
 """
 
 from ray_tpu_torch.tune.placement_groups import PlacementGroupFactory

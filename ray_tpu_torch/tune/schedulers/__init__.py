@@ -1,29 +1,28 @@
-"""Trial schedulers, the port of ``ray_tpu/tune/schedulers/``: FIFO and
-ASHA. The others wait for the port of tune's other schedulers (ROADMAP
-Queue 1 item 11); their names raise on access."""
+"""Trial schedulers, the port of ``ray_tpu/tune/schedulers/``."""
 
-from ray_tpu_torch.tune.schedulers.async_hyperband import (
-    ASHAScheduler, AsyncHyperBandScheduler)
 from ray_tpu_torch.tune.schedulers.trial_scheduler import (
     FIFOScheduler, TrialScheduler)
-
-#: schedulers of the JAX package that wait for item 11
-_LATER = ("DistributeResources", "HyperBandForBOHB", "HyperBandScheduler",
-          "MedianStoppingRule", "PB2", "PopulationBasedTraining",
-          "ResourceChangingScheduler", "TuneBOHB")
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"tune.schedulers.{name} waits for the port of tune's other "
-            f"schedulers (ROADMAP Queue 1 item 11)")
-    raise AttributeError(name)
-
+from ray_tpu_torch.tune.schedulers.async_hyperband import (
+    ASHAScheduler, AsyncHyperBandScheduler)
+from ray_tpu_torch.tune.schedulers.bohb import HyperBandForBOHB, TuneBOHB
+from ray_tpu_torch.tune.schedulers.hyperband import HyperBandScheduler
+from ray_tpu_torch.tune.schedulers.median_stopping import MedianStoppingRule
+from ray_tpu_torch.tune.schedulers.pb2 import PB2
+from ray_tpu_torch.tune.schedulers.pbt import PopulationBasedTraining
+from ray_tpu_torch.tune.schedulers.resource_changing import (
+    DistributeResources, ResourceChangingScheduler)
 
 __all__ = [
     "ASHAScheduler",
     "AsyncHyperBandScheduler",
+    "DistributeResources",
     "FIFOScheduler",
+    "HyperBandForBOHB",
+    "HyperBandScheduler",
+    "MedianStoppingRule",
+    "PB2",
+    "PopulationBasedTraining",
+    "ResourceChangingScheduler",
     "TrialScheduler",
+    "TuneBOHB",
 ]

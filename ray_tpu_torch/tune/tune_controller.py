@@ -7,9 +7,8 @@ and restart failed trials. One trial = one ``_TrialActor`` wrapping the
 user Trainable; resources come from ``default_resource_request``
 (placement-group factory) or a flat CPU bundle, and a trial's ``GPU``
 request is its actor's ``num_gpus``. The port of
-``ray_tpu/tune/tune_controller.py`` less the hooks of the schedulers
-that wait (PBT's ``exploit_trial``, the resource-changing scheduler's
-``reallocate_trial``: ROADMAP Queue 1 item 11).
+``ray_tpu/tune/tune_controller.py``, with PBT's ``exploit_trial`` and
+the resource-changing scheduler's ``reallocate_trial``.
 """
 
 from __future__ import annotations
@@ -160,6 +159,19 @@ class TuneController:
         trial actor runs outside it (reference tuner semantics)."""
         factory = self._resource_request(config)
         opts: Dict[str, Any] = {"num_cpus": 1.0}
+        override = getattr(trial, "resource_override", None)
+        if override:
+            # ResourceChangingScheduler reallocation (reference:
+            # resource_changing_scheduler.py swaps the trial's
+            # PlacementGroupFactory): the override wins over the
+            # trainable's static request
+            opts["num_cpus"] = float(override.get("CPU", 1.0))
+            if override.get("GPU"):
+                opts["num_gpus"] = float(override["GPU"])
+            actor_cls = ray_tpu_torch.remote(**opts)(_TrialActor)
+            return actor_cls.remote(
+                self.trainable_cls, config, pg,
+                self._trial_storage(trial).trial_dir)
         if factory is not None and pg is not None \
                 and not factory.head_bundle_is_empty:
             head = factory.bundles[0]
@@ -177,7 +189,11 @@ class TuneController:
             self._trial_storage(trial).trial_dir)
 
     def _start_trial(self, trial: Trial) -> None:
-        factory = self._resource_request(trial.config)
+        # a reallocation override replaces the trainable's static
+        # request wholesale — reserving the factory's placement group
+        # AND the override's CPUs would double-book the cluster
+        factory = None if getattr(trial, "resource_override", None) \
+            else self._resource_request(trial.config)
         pg = factory() if factory is not None else None
         trial.local_dir = self._trial_storage(trial).trial_dir
         first_start = trial.actor is None and trial.status == PENDING \
@@ -256,6 +272,65 @@ class TuneController:
             "on_trial_error" if status == ERROR else "on_trial_complete",
             self._cb_iteration, self.trials, trial)
         self._snapshot()
+
+    # -- ResourceChangingScheduler hook -------------------------------
+    def reallocate_trial(self, trial: Trial,
+                         resources: Dict[str, float]) -> bool:
+        """Restart the trial's actor under a new resource allocation,
+        restoring from a fresh checkpoint (reference:
+        resource_changing_scheduler.py pauses the trial with a new
+        PlacementGroupFactory). Returns True when the restart cycle was
+        performed — the scheduler then returns NOOP so the normal
+        decision path doesn't double-submit."""
+        if trial.actor is None:
+            trial.resource_override = dict(resources)
+            return False
+        if self._save_trial_checkpoint(trial) is None:
+            return False
+        trial.resource_override = dict(resources)
+        trial.restore_pending = trial.checkpoint
+        self._release_trial_resources(trial)
+        trial.status = PENDING
+        self._start_trial(trial)
+        return True
+
+    # -- PBT hook -----------------------------------------------------
+    def exploit_trial(self, target: Trial, source: Trial,
+                      new_config: Dict) -> None:
+        """Clone source's state into target with a mutated config."""
+        src_ckpt = self._save_trial_checkpoint(source)
+        if src_ckpt is None:
+            return
+        if target.actor is None:
+            # Paused target (synch PBT rounds run while the cohort is
+            # parked): stage config + checkpoint; _start_trial applies
+            # both when the trial resumes. The exploit checkpoint also
+            # becomes the trial's own latest checkpoint — otherwise a
+            # post-resume failure-retry would restore pre-exploit
+            # weights under the post-exploit config.
+            target.config = new_config
+            target.checkpoint = src_ckpt
+            target.restore_pending = src_ckpt
+            return
+        try:
+            ok = ray_tpu_torch.get(target.actor.reset.remote(new_config))
+        except (TaskError, ActorError, ActorDiedError):
+            ok = False
+        if not ok:
+            try:
+                ray_tpu_torch.kill(target.actor)
+            except Exception:
+                pass
+            target.actor = self._create_actor(
+                target, new_config, getattr(target, "_pg", None))
+        try:
+            ray_tpu_torch.get(target.actor.restore.remote(src_ckpt))
+        except (TaskError, ActorError, ActorDiedError):
+            # A dead target must not unwind the whole experiment; its
+            # next train() future will fail and go through the normal
+            # max_failures machinery.
+            return
+        target.config = new_config
 
     # -- stopping criteria -------------------------------------------
     def _should_stop(self, result: Dict) -> bool:

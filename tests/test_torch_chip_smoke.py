@@ -700,10 +700,12 @@ def test_rllib_phases_on_the_cpu(monkeypatch):
 
 
 def test_trainer_and_tuner_phases_on_the_cpu(monkeypatch):
-    """TR1 and TN1 at gptj-tiny width (bf16, the phases' depths) on the
+    """TR1 and TN1 at gptj-tiny width (bf16; TN1 at its depth, TR1 at 2
+    layers: the card's TR1 runs at TR_LAYERS = 1, where gptj-tiny's loss
+    does not fall within its steps at TR_LR) on the
     CPU, on one runtime as after RLL3 on the card: TR1's two workers (half
     a GPU each) train over fsdp 2, report the gathered state after step
-    1, lose rank 1 after its first step-3 update and resume from the
+    0, lose rank 1 after its first step-2 update and resume from the
     checkpoint: one restart, the re-run steps' losses equal to the killed
     attempt's, losses equal on both ranks and falling, the checkpoint loading
     back with its step; TN1's two trials of one worker each, the best the
@@ -719,6 +721,7 @@ def test_trainer_and_tuner_phases_on_the_cpu(monkeypatch):
     monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
     monkeypatch.setattr(chip_smoke, "shard_model", lambda n: dataclasses.replace(
         get_config("gptj-tiny"), n_layers=n, dtype=torch.bfloat16))
+    monkeypatch.setattr(chip_smoke, "TR_LAYERS", 2)
     failed = []
     monkeypatch.setattr(chip_smoke, "check",
                         lambda ok, what: ok or failed.append(what))
@@ -730,9 +733,9 @@ def test_trainer_and_tuner_phases_on_the_cpu(monkeypatch):
         cloudpickle.unregister_pickle_by_value(chip_smoke)
     tr1, tn1 = out["TR1"], out["TN1"]
     assert [(s["attempt"], s["step"]) for s in tr1["steps"]] == [
-        (0, 0), (0, 1), (0, 2), (0, 3), (1, 2), (1, 3)]
+        (0, 0), (0, 1), (0, 2), (1, 1), (1, 2)]
     assert tr1["rerun_losses"] == tr1["killed_losses"]
-    assert sorted(tr1["rerun_losses"]) == [2, 3]
+    assert sorted(tr1["rerun_losses"]) == [1, 2]
     assert tr1["steps"][-1]["loss"] < tr1["steps"][0]["loss"]
     assert tr1["devices"] == ["cpu"]
     assert tr1["checkpoint"]["gb"] > 0
@@ -743,4 +746,51 @@ def test_trainer_and_tuner_phases_on_the_cpu(monkeypatch):
     assert all(len(t["losses"]) == chip_smoke.TN_STEPS
                for t in tn1["trials"])
     assert len(failed) == 4 * (2 * 2 + 2) \
+        and all("launched" in f for f in failed), failed
+
+
+def test_data_and_pbt_phases_on_the_cpu(monkeypatch):
+    """D1 and TN2 at gptj-tiny width (bf16, the phases' depths) on the
+    CPU, on one runtime as after TN1 on the card: D1's dataset (range ->
+    map_batches -> random_shuffle) streamed into two workers over fsdp 2,
+    every id consumed once and three a rank, each row the one its id
+    builds, losses equal on both ranks and falling, step 0 against one
+    device; TN2's PBT round cloning one trial's state into the other,
+    the clone's checksums and next loss equal to the source's. The flash
+    wrappers launch nothing on the CPU, so the launch checks (four
+    kernels for each D1 rank and each TN2 trial actor) are the only ones
+    that fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    from ray_tpu_torch.models import get_config
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(chip_smoke, "shard_model", lambda n: dataclasses.replace(
+        get_config("gptj-tiny"), n_layers=n, dtype=torch.bfloat16))
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        with chip_smoke.runtime():
+            out = chip_smoke.data_tune_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    d1, tn2 = out["D1"], out["TN2"]
+    assert sorted(i for r in d1["ids_a_rank"] for i in r) == list(range(6))
+    assert [len(r) for r in d1["ids_a_rank"]] == [3, 3]
+    assert [s["step"] for s in d1["steps"]] == [0, 1, 2]
+    assert d1["steps"][-1]["loss"] < d1["steps"][0]["loss"]
+    assert d1["loss_rel"] <= chip_smoke.P2_LOSS_REL_BOUND
+    assert d1["devices"] == ["cpu"] and d1["rows_bytes"] > 0
+    assert tn2["perturbations"] >= 1 and len(tn2["exploits"]) >= 1
+    x = tn2["exploits"][0]
+    assert x["loss"][0] == x["loss"][1] and x["target"] != x["source"]
+    actors = sum(t["actors"] for t in tn2["trials"].values())
+    assert actors == 3      # the trial that paused first restarts once
+    assert all(t["state_steps"][-1] == chip_smoke.TN2_STEPS - 1
+               for t in tn2["trials"].values())
+    assert len(failed) == 4 * (2 + actors) \
         and all("launched" in f for f in failed), failed

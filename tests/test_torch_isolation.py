@@ -2,9 +2,10 @@
 ``chip_smoke.py``, ``store_probe.py`` or ``checkpoint_probe.py``,
 imports JAX, the JAX package
 or ``ml_dtypes``, and the port imports, serves (speculative decode, a
-bf16 KV hand-off, tracing included), takes a train step and serves an
-``LLMServer`` through ``serve.run`` with all of them made
-unimportable."""
+bf16 KV hand-off, tracing included), takes a train step, serves an
+``LLMServer`` through ``serve.run``, trains rllib, runs trainers and
+tuners (PBT among them) and streams a ``ray_tpu_torch.data`` pipeline
+into a trainer with all of them made unimportable."""
 
 import ast
 import json
@@ -458,6 +459,94 @@ def test_train_and_tune_run_with_jax_and_ray_tpu_unimportable(tmp_path):
                                      storage_path={str(tmp_path)!r})).fit()
             assert grid.num_errors == 0, grid.errors
             assert grid.get_best_result().metrics["x"] == 3.0
+            assert all(r.metrics["seen"] == [] for r in grid)
+        finally:
+            ray_tpu_torch.shutdown()
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """)
+
+
+def test_data_and_pbt_run_with_jax_and_ray_tpu_unimportable(tmp_path):
+    """A ``Dataset`` (range -> map_batches -> random_shuffle) streamed
+    into a two-worker ``DataParallelTrainer``, and a PBT ``Tuner`` over a
+    class trainable that exploits once, with the JAX packages
+    unimportable in the driver and the workers."""
+    _run(f"""
+        import sys
+        for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu",
+                     "ml_dtypes"):
+            sys.modules[name] = None      # any import of them now fails
+        import ray_tpu_torch
+        from ray_tpu_torch import data, tune
+        from ray_tpu_torch.train import (DataParallelTrainer, RunConfig,
+                                         ScalingConfig)
+        from ray_tpu_torch.tune import TuneConfig, Tuner
+        from ray_tpu_torch.tune.schedulers import PopulationBasedTraining
+
+        def train_func():
+            import sys
+            import ray_tpu_torch.train as train
+            ids = [int(i) for b in train.get_dataset_shard("train")
+                   .iter_batches(batch_size=2) for i in b["id"]]
+            seen = sorted({{m.split(".")[0] for m in sys.modules}}
+                          & {{"jax", "jaxlib", "ray_tpu", "ml_dtypes"}})
+            train.report({{"ids": ids, "seen": seen}})
+
+        class Walker(tune.Trainable):
+            def setup(self, config):
+                self.value = 0.0
+
+            def step(self):
+                import sys
+                self.value += self.config["rate"]
+                bad = sorted({{m.split(".")[0] for m in sys.modules}}
+                             & {{"jax", "ray_tpu", "ml_dtypes"}})
+                return {{"score": self.value, "seen": bad}}
+
+            def save_checkpoint(self, d):
+                with open(d + "/v.txt", "w") as f:
+                    f.write(str(self.value))
+                return d
+
+            def load_checkpoint(self, d):
+                with open(d + "/v.txt") as f:
+                    self.value = float(f.read())
+
+            def reset_config(self, new_config):
+                return True
+
+        ray_tpu_torch.init(num_cpus=6, _num_initial_workers=0)
+        try:
+            ds = (data.range(12, parallelism=3)
+                  .map_batches(lambda b: {{"id": b["id"] * 2}})
+                  .random_shuffle(seed=0))
+            result = DataParallelTrainer(
+                train_func, scaling_config=ScalingConfig(num_workers=2),
+                run_config=RunConfig(name="iso-data",
+                                     storage_path={str(tmp_path)!r}),
+                datasets={{"train": ds}}).fit()
+            assert result.error is None, result.error
+            assert result.metrics["seen"] == [], result.metrics
+            assert 0 < len(result.metrics["ids"]) < 12
+            assert all(i % 2 == 0 for i in result.metrics["ids"])
+            pbt = PopulationBasedTraining(
+                metric="score", mode="max", perturbation_interval=2,
+                hyperparam_mutations={{"rate": [0.1, 1.0]}},
+                quantile_fraction=0.5, resample_probability=0.0,
+                synch=True, seed=0)
+            grid = Tuner(
+                Walker, param_space={{"rate": tune.grid_search([0.1, 1.0])}},
+                tune_config=TuneConfig(metric="score", mode="max",
+                                       scheduler=pbt),
+                run_config=RunConfig(name="iso-pbt",
+                                     storage_path={str(tmp_path)!r},
+                                     stop={{"training_iteration": 4}})).fit()
+            assert grid.num_errors == 0, grid.errors
+            assert pbt.perturbation_count >= 1
             assert all(r.metrics["seen"] == [] for r in grid)
         finally:
             ray_tpu_torch.shutdown()

@@ -12,8 +12,10 @@ Each ``tests/test_torch_runtime_<name>.py`` file loads
 ``tests/test_torch_autoscaler_slices.py`` and ``tests/test_torch_elastic.py``
 load ``"autoscaler/test_slices.py"`` and ``"parallel/test_elastic.py"``,
 and ``tests/test_torch_train_trainer.py`` and ``tests/test_torch_tune.py``
-load ``"train/test_trainer.py"``, ``"tune/test_tune.py"`` and
-``"tune/test_callbacks.py"``:
+load ``"train/test_trainer.py"``, ``"tune/test_tune.py"``,
+``"tune/test_callbacks.py"`` and ``"tune/test_new_schedulers.py"``, and
+each ``tests/test_torch_data_<name>.py`` that loads bodies
+``tests/data/test_<name>.py`` (``"data/test_<name>.py"``):
 the source is
 read, ``ray_tpu`` is rewritten to ``ray_tpu_torch`` on word boundaries
 and ``RAY_TPU_<NAME>`` environment variables to ``RAY_TPU_TORCH_<NAME>``,
@@ -237,7 +239,9 @@ FIXTURES = {"ray_start_regular": ray_start_regular,
     f"rlhf/{p.name}" for p in JAX_RLHF.glob("test_*.py")) + sorted(
     f"rllib/{p.name}" for p in JAX_RLLIB.glob("test_*.py")) + [
     "autoscaler/test_slices.py", "parallel/test_elastic.py",
-    "train/test_trainer.py", "tune/test_tune.py", "tune/test_callbacks.py"])
+    "train/test_trainer.py", "tune/test_tune.py", "tune/test_callbacks.py",
+    "tune/test_new_schedulers.py"] + sorted(
+    f"data/{p.name}" for p in (JAX_TESTS / "data").glob("test_*.py")))
 def test_rewrite_leaves_no_jax_package_import(filename):
     """After the rewrite no import names the JAX package."""
     tree = ast.parse(port_source(filename))
