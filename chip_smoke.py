@@ -121,7 +121,8 @@ S1. GPT-J-6B through ``serve.run`` and HTTP, on a runtime of its own:
    replica's paged launches equal 28 x (prefill chunks + decode steps).
    Tokens/s and TTFT p50/p99 beside phase 4's and R3's, the replica's
    ready time and peak memory.
-S2. The disaggregated pair, on a runtime of its own:
+S2. The disaggregated pair, on a runtime of its own that every later
+   phase shares (RL1, 7-10 and P1 onwards):
    ``deploy_disaggregated(model, engine, num_prefill=1, num_decode=1,
    route_prefix="/pd")`` at phase 4's knobs on the bf16 wire; phase 4's
    4 longest prompts over HTTP as ``{"prompt", "max_new_tokens": 48}``.
@@ -157,7 +158,9 @@ RL1. RLHF, anakin: ``RLHFTrainer`` with one local PPO learner and one
    kernel 1 x ``compute_gradients`` calls. Round,
    rollout, update and publish walls, wire bytes, pack/unpack host time,
    peak memory.
-RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
+RL2. RLHF, sebulba, on S2's runtime (its learners fork from the zygote
+   S2's first spawn booted; its store at least 6 f32 weight trees of
+   RL2's model): 2 remote learners (each
    ``{"num_cpus": 1}``, on the card through ``device=None`` in its
    worker) and 2 engines in the driver at 1 layer; 8 rollouts, one
    gradient round of 4 rows a learner, one round. Both learners used on
@@ -207,7 +210,7 @@ RL2. RLHF, sebulba, on a runtime of its own: 2 remote learners (each
 10. Where the time goes in a train step: one profiler window, device time
     by kind (flash forward, flash backward, matmul, other) and the idle
     share.
-P1. Sharding, on a runtime of its own that M1-TN2 share: four rank
+P1. Sharding, on the runtime S2-JC1 share: four rank
     actors (``num_gpus=0.25`` each, all on this card) joined into one
     gloo group through
     ``init_torch_distributed``, each building ``MeshSpec(fsdp=2, tp=2)``
@@ -419,6 +422,41 @@ TN2. ``PopulationBasedTraining`` on the same runtime: two trials of a
     flash kernel launched TN2_LAYERS x the steps of each trial actor.
     Fit wall, each save's and restore's seconds and GB, each trial's
     losses, step walls and peak GB (the ``tn2`` line).
+DG1. A compiled DAG on the same runtime: ``InputNode -> s0.forward ->
+    s1.loss`` over two stage actors (``GPU`` 0.5 each), each holding its
+    ``stage_slice_params`` slice of the seeded GPT-J-6B-width model at
+    DG_LAYERS layers (one a stage, bf16) on ``cuda:0``; stage 0 returns
+    ``(stage_forward(...), input_ids)``, stage 1 ``stage_loss``'s loss
+    and count, both under ``torch.inference_mode()``; the DAG's
+    ``channel_capacity`` is a hop's pickled size (1 x 2048 x 4096 bf16
+    and the ids). ``experimental_compile()``, then DG_ROWS rows of 2048
+    tokens seeded as ``tr_batch`` seeds them, all submitted before the
+    first ``get``. The channel pipeline was built (an RPC fallback
+    fails), each loss is bit-equal to the two stage functions run here
+    on ``cuda:0`` from the same seed and row, finite, and ``get`` gives
+    it as a CPU tensor; the flash forward launched DG_ROWS times a stage
+    on ``cuda:0`` and the backward kernels not at all; after
+    ``teardown()`` no channel file is left in ``/dev/shm``, both actors
+    are dead and the store's live GB is back within 0.1 GB. The first
+    execute's wall, each later one's, a hop's bytes (the ``dg1`` line).
+JC1. A job and a ``ray://`` client on the same runtime: a
+    ``ClientServer`` on port 0, the dashboard's address from the
+    session's ``dashboard.json``, then at once a job submitted through
+    ``JobSubmissionClient`` (its driver's ``init()`` finds the cluster
+    in its environment and runs one ``num_gpus=0.5`` task calling the
+    flash forward's wrapper at GPT-J-6B's attention shape, 1 x 2048 x 16
+    x 256 bf16 causal, on seeded inputs), a client process that creates
+    a ``num_gpus=0.5`` actor running the same kernel on the same inputs
+    and ``get``s the 16 MB output, and a second job (a 600 s sleep)
+    stopped once it runs. The first job SUCCEEDED and the second STOPPED
+    within JC_JOB_S, the stopped job's processes gone; the job's
+    checksum equals the driver's own launch's, the client's tensor is
+    bit-equal to the driver's output and a CPU tensor; each remote
+    process launched the kernel once on ``cuda:0``;
+    ``/api/cluster_status`` lists ``GPU`` 1.0; after the client
+    disconnects its actor is released and a ``num_gpus=1`` task runs.
+    Submit to SUCCEEDED, connect to first result and the phase's wall
+    (the ``jc1`` line). A task that finds no card fails the phase.
 
 Before them the script's ``phase walls`` line (the build's wall, each
 phase's and the total; around each phase on the shared runtime the
@@ -434,8 +472,10 @@ learner's ``rlhf_learner_launches``, each P1 rank's
 ``ring_launches``, each PL1 and PL2 stage's ``pipeline_launches``,
 each PL4 rank's ``gpipe_launches``, each PL5 and PL6 rank's
 ``mpmd3d_launches``, each rank of each program EL1 built
-``elastic_launches``, and each TR1 rank's, each TN1 trial's, each D1
-rank's and each TN2 trial actor's ``trainer_launches``); the last line
+``elastic_launches``, each TR1 rank's, each TN1 trial's, each D1
+rank's and each TN2 trial actor's ``trainer_launches``, each DG1
+stage's ``dag_launches``, and JC1's job task's ``job_launches`` and
+client actor's ``client_launches``); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -449,6 +489,7 @@ import gc
 import json
 import math
 import os
+import shlex
 import subprocess
 import sys
 import time
@@ -580,18 +621,19 @@ def walled(name: str, fn, *args, **kw):
 
 
 @contextlib.contextmanager
-def runtime():
+def runtime(object_store_memory=None):
     """The runtime the phases inside run on: the running one where a
     caller shares one across phases (their later programs' actors then
     fork from the zygote the first program booted), else a fresh one
-    (the card counted as ``GPU``, no initial worker), shut down after
-    them."""
+    (the card counted as ``GPU``, no initial worker, the store
+    ``object_store_memory`` bytes where given), shut down after them."""
     import ray_tpu_torch
     if ray_tpu_torch.is_initialized():
         yield
         return
     ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
-                       _num_initial_workers=0)
+                       _num_initial_workers=0,
+                       object_store_memory=object_store_memory)
     try:
         yield
     finally:
@@ -2503,11 +2545,14 @@ def phase_disagg(dev, card: str, cfg, seed: int, proxy: str, server,
 
 
 def serve_phases(dev, card: str, seed: int, server, actor_server,
-                 checksum):
-    """Phases S1-S2, after R3, each on a runtime of its own with an HTTP
-    proxy; ``serve.shutdown`` kills the replicas and the runtime is shut
-    down after each, and the card's free memory must come back. Returns
-    the two phases' records."""
+                 checksum, names=("S1", "S2")):
+    """Phases ``names`` of S1-S2, after R3, each with an HTTP proxy, on
+    the caller's runtime where it shares one (one phase a runtime: serve
+    does not start again on a runtime it was shut down on), else each on
+    a runtime of its own; ``serve.shutdown`` kills the replicas after
+    each (and the runtime is shut down where it is the phase's own), and
+    the card's free memory must come back. Returns the phases'
+    records."""
     import ray_tpu_torch
     from ray_tpu_torch import serve
     from ray_tpu_torch.models import get_config
@@ -2515,17 +2560,18 @@ def serve_phases(dev, card: str, seed: int, server, actor_server,
     torch.cuda.empty_cache()
     free0 = torch.cuda.mem_get_info()[0]
     out = {}
-    for name, phase in (("S1", phase_serve_http), ("S2", phase_disagg)):
+    phases = {"S1": phase_serve_http, "S2": phase_disagg}
+    for name in names:
+        phase = phases[name]
         t0 = time.perf_counter()
-        ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
-                           _num_initial_workers=3)
-        try:
-            serve.start(http_options={"port": 0})
-            out[name] = phase(dev, card, cfg, seed, serve.proxy_address(),
-                              server, actor_server, checksum)
-        finally:
-            serve.shutdown()
-            ray_tpu_torch.shutdown()
+        with runtime():
+            try:
+                serve.start(http_options={"port": 0})
+                out[name] = phase(dev, card, cfg, seed,
+                                  serve.proxy_address(), server,
+                                  actor_server, checksum)
+            finally:
+                serve.shutdown()
         deadline = time.monotonic() + 60
         while torch.cuda.mem_get_info()[0] < free0 - (1 << 30) \
                 and time.monotonic() < deadline:
@@ -2533,7 +2579,7 @@ def serve_phases(dev, card: str, seed: int, server, actor_server,
         free1 = torch.cuda.mem_get_info()[0]
         print(phase_wall(name, t0) + f"; card "
               f"memory free {free0 / 1e9:.2f} GB before, {free1 / 1e9:.2f}"
-              f" GB after serve.shutdown and the runtime's", flush=True)
+              f" GB after serve.shutdown", flush=True)
         check(free1 >= free0 - (1 << 30),
               f"{name}'s replicas' card memory did not come back")
     return out
@@ -2891,12 +2937,24 @@ def learner_after(inst):
             if dev.type == "cuda" else 0.0}
 
 
+def rl2_store_bytes() -> int:
+    """RL2's store: 6 f32 weight trees of its model."""
+    return 6 * 4 * rl_model(RL2_LAYERS).num_params
+
+
+def store_capacity() -> int:
+    """Bytes the running runtime's object store was given."""
+    from ray_tpu_torch import api
+    return api._head.node.store.capacity
+
+
 def phase_rl2(dev, card: str, seed: int):
     """RL2: sebulba, 2 remote learners (``{"num_cpus": 1}`` each, on the
     card through ``device=None`` in their workers), 2 engines in the
     driver, GPT-J-6B width at RL2_LAYERS layers, 8 rollouts, one
     gradient round of 4 rows a learner, one round, on a runtime whose
-    store holds 6 f32 weight trees. Two learners used on disjoint
+    store holds 6 f32 weight trees (its own, sized so), or on the
+    caller's where it shares one (its store at least that). Two learners used on disjoint
     shards, their weights bit-identical after the round, a publish, no
     sync stall, staleness <= 1, each learner's flash launches RL2_LAYERS
     x its ``compute_gradients``
@@ -2912,39 +2970,41 @@ def phase_rl2(dev, card: str, seed: int):
                    num_engines=2, rollouts_per_round=8, minibatch_size=8)
     payload = 4 * cfg.num_params
     shm = shutil.disk_usage("/dev/shm")
-    ray_tpu_torch.init(num_cpus=8, num_gpus=torch.cuda.device_count(),
-                       _num_initial_workers=3,
-                       object_store_memory=6 * payload)
-    trainer = None
-    try:
-        t0 = time.perf_counter()
-        trainer = RLHFTrainer(rc)
-        build_s = time.perf_counter() - t0
-        streams = watch_streams(trainer.rollout)
-        actors = trainer.learners._remote
-        ready = ray_tpu_torch.get([a.__ray_call__.remote(learner_ready)
-                                   for a in actors], timeout=ACTOR_TIMEOUT_S)
-        for info in ready:
-            check(info["device"] == device_name(dev),
-                  f"an RL2 learner runs on {info['device']!r}")
-        check(ready[0]["pid"] != ready[1]["pid"],
-              "the two RL2 learners share a process")
-        reset_launches()
-        t0 = time.perf_counter()
-        out = trainer.train_round()
-        wall = time.perf_counter() - t0
-        stats = [wait_idle(e) for e in trainer.rollout.engines]
-        paged = paged_flash_attention.kernel_launches
-        after = ray_tpu_torch.get([a.__ray_call__.remote(learner_after)
-                                   for a in actors], timeout=ACTOR_TIMEOUT_S)
-        shard_uids = [list(u) for u in trainer.learners.shard_uids]
-        round_walls = list(trainer.learners.round_walls)
-        pub = trainer.publisher.stats()
-        rec = round_record(out, wall, streams[0])
-    finally:
-        if trainer is not None:
-            trainer.shutdown()
-        ray_tpu_torch.shutdown()
+    with runtime(rl2_store_bytes()):
+        check(store_capacity() >= rl2_store_bytes(),
+              f"RL2's store holds {store_capacity()} B, under 6 f32 weight "
+              f"trees ({rl2_store_bytes()} B)")
+        trainer = None
+        try:
+            t0 = time.perf_counter()
+            trainer = RLHFTrainer(rc)
+            build_s = time.perf_counter() - t0
+            streams = watch_streams(trainer.rollout)
+            actors = trainer.learners._remote
+            ready = ray_tpu_torch.get(
+                [a.__ray_call__.remote(learner_ready) for a in actors],
+                timeout=ACTOR_TIMEOUT_S)
+            for info in ready:
+                check(info["device"] == device_name(dev),
+                      f"an RL2 learner runs on {info['device']!r}")
+            check(ready[0]["pid"] != ready[1]["pid"],
+                  "the two RL2 learners share a process")
+            reset_launches()
+            t0 = time.perf_counter()
+            out = trainer.train_round()
+            wall = time.perf_counter() - t0
+            stats = [wait_idle(e) for e in trainer.rollout.engines]
+            paged = paged_flash_attention.kernel_launches
+            after = ray_tpu_torch.get(
+                [a.__ray_call__.remote(learner_after) for a in actors],
+                timeout=ACTOR_TIMEOUT_S)
+            shard_uids = [list(u) for u in trainer.learners.shard_uids]
+            round_walls = list(trainer.learners.round_walls)
+            pub = trainer.publisher.stats()
+            rec = round_record(out, wall, streams[0])
+        finally:
+            if trainer is not None:
+                trainer.shutdown()
     engine_calls = sum(s["prefill_chunks"] + s["decode_steps"]
                        for s in stats)
     split = []
@@ -5052,7 +5112,7 @@ EL1_LOSS_REL = P2_LOSS_REL_BOUND
 #: snapshot in the store); the after value is read once the runtime's
 #: free grace window and STORE_WAIT_S have passed
 STORE_BACK_GB = 0.1
-STORE_BACK_PHASES = ("EL1", "D1")
+STORE_BACK_PHASES = ("EL1", "D1", "DG1")
 STORE_WAIT_S = 3.0
 
 
@@ -5559,6 +5619,51 @@ def tree_sha(tree) -> str:
     return h.hexdigest()
 
 
+def leaf_rows(tree):
+    """Each leaf of a weights tree (nested dicts and lists of numpy
+    arrays or tensors) as ``(path, shape, dtype, float64 sum)``, in path
+    order, the path ``/``-joined."""
+    from ray_tpu_torch.rllib.models import tree_get, tree_paths
+    rows = []
+    for path in tree_paths(tree):
+        leaf = tree_get(tree, path)
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().to("cpu", torch.float64).numpy()
+        a = np.asarray(leaf)
+        rows.append(("/".join(map(str, path)), tuple(a.shape), str(a.dtype),
+                     float(a.astype(np.float64).sum())))
+    return rows
+
+
+def same_trees(what: str, a, b, worker_ids) -> None:
+    """Fails with ``what`` unless the weight trees ``a`` and ``b`` are
+    bit-equal (sha256 over their leaves in path order). On a mismatch it
+    first prints both trees' leaf checksums, one line a leaf (its path,
+    shape, dtype and float64 sum in each, and whether the leaf's bytes
+    differ), and the learner actors' ``worker_ids``; the failure names
+    the leaves that differ."""
+    if tree_sha(a) == tree_sha(b):
+        return
+    from ray_tpu_torch.rllib.models import tree_get, tree_paths
+    ra, rb = dict((r[0], r[1:]) for r in leaf_rows(a)), \
+        dict((r[0], r[1:]) for r in leaf_rows(b))
+    pa = {"/".join(map(str, p)): p for p in tree_paths(a)}
+    pb = {"/".join(map(str, p)): p for p in tree_paths(b)}
+    differ = []
+    for name in sorted(set(ra) | set(rb)):
+        same = name in pa and name in pb and np.array_equal(
+            np.asarray(tree_get(a, pa[name])),
+            np.asarray(tree_get(b, pb[name])))
+        if not same:
+            differ.append(name)
+        print(f"{what}: leaf {name}: {ra.get(name)} against "
+              f"{rb.get(name)}{'' if same else ' DIFFERS'}", flush=True)
+    print(f"{what}: learner actors' worker ids {list(worker_ids)}",
+          flush=True)
+    check(False, f"{what}: leaves {differ} differ (learner worker ids "
+                 f"{list(worker_ids)})")
+
+
 class LearnerWatch:
     """Wraps a local learner's ``update_from_batch`` in the main path:
     every call's time from CUDA events around it (the host clock on the
@@ -5914,13 +6019,16 @@ def group_against_one(dev, seed: int):
         reps = ray_tpu_torch.get([a.get_weights.remote()
                                   for a in group._remote],
                                  timeout=ACTOR_TIMEOUT_S)
+        workers = ray_tpu_torch.get([a.__ray_call__.remote(
+            lambda self: ray_tpu_torch.get_runtime_context().get_worker_id())
+            for a in group._remote], timeout=ACTOR_TIMEOUT_S)
     finally:
         group.shutdown()
     shas = [tree_sha(w) for w in reps]
-    check(shas[0] == shas[1], f"RLL2 group replicas differ: {shas}")
+    same_trees("RLL2 group replicas differ", reps[0], reps[1], workers)
     one, ctl = make(dev), make(dev)
-    check(tree_sha(one.get_weights()) == tree_sha(before),
-          "RLL2: the group and one learner start from other weights")
+    same_trees("RLL2: the group and one learner start from other weights",
+               before, one.get_weights(), workers)
     one.update_from_batch(batch)
     ctl.update_from_batch({k: v[order[:half]] for k, v in batch.items()})
 
@@ -7431,6 +7539,394 @@ def data_tune_phases(dev, card: str, seed: int):
             for name, phase in (("D1", phase_d1), ("TN2", phase_tn2))}
 
 
+# ------------------------------------------------------------- DG1, JC1
+# dag/ over experimental/'s channels, the dashboard's job submission and
+# ray:// client mode, on the runtime S2-JC1 share: a compiled DAG of two
+# stage actors runs a GPT-J-6B-width forward through shared-memory
+# channels (DG1); a submitted job and a client in another process each
+# drive the flash forward on the card through the cluster (JC1).
+DG_LAYERS = 2          # one a stage
+DG_STAGES = 2
+DG_ROWS = 4
+JC_SHAPE = (1, 2048, 16, 256)   # GPT-J-6B's attention: B, S, H, D
+JC_GPUS = 0.5          # the job's task and the client's actor: half each
+JC_JOB_S = 180.0       # each job must reach its end status within this
+JC_STOP_S = 30.0
+ACTOR_GONE_S = 30.0
+
+
+class DagStage:
+    """One stage of DG1's DAG: its ``stage_slice_params`` slice of the
+    seeded model on ``device``. ``forward`` is stage 0's method, ``loss``
+    stage 1's."""
+
+    def __init__(self, layers: int, seed: int, stage: int, device: str):
+        from ray_tpu_torch.models import init_params
+        from ray_tpu_torch.models.transformer import stage_slice_params
+        self.cfg = shard_model(layers)
+        self.stage = stage
+        self.dev = torch.device(device)
+        self.params = stage_slice_params(
+            self.cfg, init_params(self.cfg, seed=seed, device=self.dev,
+                                  dtype=self.cfg.dtype), stage, DG_STAGES)
+        self.current = None
+        reset_flash_counts()
+
+    def forward(self, ids):
+        from ray_tpu_torch.models.transformer import stage_forward
+        t = torch.as_tensor(ids, device=self.dev)
+        with torch.inference_mode():
+            h = stage_forward(self.cfg, 0, DG_STAGES, self.params, t)
+        self.current = str(h.device)
+        return h, ids
+
+    def loss(self, hop):
+        from ray_tpu_torch.models.transformer import stage_forward, \
+            stage_loss
+        h, ids = hop
+        with torch.inference_mode():
+            h = stage_forward(self.cfg, 1, DG_STAGES, self.params,
+                              h.to(self.dev))
+            loss, n = stage_loss(self.cfg, self.params, h,
+                                 torch.as_tensor(ids, device=self.dev))
+        self.current = str(loss.device)
+        return loss, n
+
+    def launches(self):
+        return {"launches": flash_counts(), "current": self.current,
+                "device": device_name(self.dev), "pid": os.getpid()}
+
+
+def dg_reference(dev, cfg, seed: int, rows):
+    """The two stage functions run here on ``dev`` from ``seed`` on each
+    row: (loss, n) a row."""
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.models.transformer import stage_forward, \
+        stage_loss, stage_slice_params
+    params = init_params(cfg, seed=seed, device=dev, dtype=cfg.dtype)
+    parts = [stage_slice_params(cfg, params, s, DG_STAGES)
+             for s in range(DG_STAGES)]
+    out = []
+    with torch.inference_mode():
+        for ids in rows:
+            t = torch.as_tensor(ids, device=dev)
+            h = stage_forward(cfg, 0, DG_STAGES, parts[0], t)
+            h = stage_forward(cfg, 1, DG_STAGES, parts[1], h)
+            out.append(stage_loss(cfg, parts[1], h, t))
+    return out
+
+
+def actors_dead(handles, timeout_s: float = ACTOR_GONE_S) -> bool:
+    """Whether every actor of ``handles`` is DEAD in the controller's
+    table within ``timeout_s``."""
+    from ray_tpu_torch.core.global_state import global_worker
+    ids = {h._id.hex() for h in handles}
+    deadline = time.monotonic() + timeout_s
+    while True:
+        rows = global_worker().state_query("actors")
+        if all(r["state"] == "DEAD" for r in rows if r["actor_id"] in ids):
+            return True
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.2)
+
+
+def phase_dg1(dev, card: str, seed: int):
+    """DG1: the compiled two-stage DAG over the channels (see the module
+    docstring)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core.serialization import pickle_inband
+    from ray_tpu_torch.dag import InputNode
+    cfg = shard_model(DG_LAYERS)
+    rows = [tr_batch(cfg, seed, r, 1)["input_ids"] for r in range(DG_ROWS)]
+    hop_shape = (1, cfg.max_seq_len, cfg.d_model)
+    hop_bytes = len(pickle_inband(("ok", (torch.empty(
+        hop_shape, dtype=cfg.dtype), rows[0]))))
+    Stage = ray_tpu_torch.remote(num_gpus=0.5, max_concurrency=2)(DagStage)
+    with InputNode() as inp:
+        s0 = Stage.bind(DG_LAYERS, seed, 0, str(dev))
+        s1 = Stage.bind(DG_LAYERS, seed, 1, str(dev))
+        dag = s1.loss.bind(s0.forward.bind(inp))
+    t0 = time.perf_counter()
+    compiled = dag.experimental_compile()
+    compiled.channel_capacity = hop_bytes
+    submit_s, done_s = [], []
+    try:
+        refs = []
+        for ids in rows:
+            refs.append(compiled.execute(ids))
+            submit_s.append(time.perf_counter() - t0)
+        check(compiled._pipeline is not None,
+              "DG1: the compiled DAG took the RPC path, not its channels")
+        got = []
+        for r in refs:
+            got.append(within(ACTOR_TIMEOUT_S, "DG1's get",
+                              lambda r=r: ray_tpu_torch.get(r)))
+            done_s.append(time.perf_counter() - t0)
+        chans = [ch.path for ch in compiled._pipeline.chans]
+        actors = list(compiled._persistent_actors.values())
+        counts = ray_tpu_torch.get([a.__ray_call__.remote(
+            lambda self: self.launches()) for a in actors],
+            timeout=ACTOR_TIMEOUT_S)
+    finally:
+        compiled.teardown()
+    teardown_s = time.perf_counter() - t0 - done_s[-1]
+    left = [p for p in chans if os.path.exists(p)]
+    check(not left, f"DG1 left channel files {left}")
+    check(actors_dead(actors), "DG1's stage actors are not dead after "
+          "teardown")
+    ref = dg_reference(dev, cfg, seed, rows)
+    want = "cuda:0" if dev.type == "cuda" else "cpu"
+    for r, ((loss, n), (rl, rn)) in enumerate(zip(got, ref)):
+        check(isinstance(loss, torch.Tensor) and loss.device.type == "cpu"
+              and isinstance(n, torch.Tensor) and n.device.type == "cpu",
+              f"DG1 row {r}: get gave {type(loss)} on "
+              f"{getattr(loss, 'device', None)}, not a CPU tensor")
+        check(math.isfinite(float(loss)), f"DG1 row {r}: loss {loss}")
+        check(torch.equal(loss, rl.cpu()) and torch.equal(n, rn.cpu()),
+              f"DG1 row {r}: loss {float(loss)!r} (n {float(n)}) against "
+              f"the driver's {float(rl)!r} (n {float(rn)})")
+    # counts are in the order the stage actors were made: stage 0's first
+    for s, c in enumerate(counts):
+        check(c["current"] == want and c["device"] == device_name(dev),
+              f"DG1 stage actor {s} ran on {c['current']} ({c['device']}), "
+              f"not {want}")
+        for name, k in c["launches"].items():
+            n_want = DG_ROWS if name == "flash_fwd" else 0
+            check(k == n_want, f"DG1 stage actor {s}: {name} launched {k} "
+                               f"times, not {n_want}")
+    out = {"card": card, "config": f"gptj-6b n_layers={DG_LAYERS}",
+           "stages": DG_STAGES, "gpus_a_stage": 0.5, "rows": DG_ROWS,
+           "hop_shape": list(hop_shape), "hop_bytes": hop_bytes,
+           "hop_tensor_bytes": math.prod(hop_shape) * cfg.dtype.itemsize,
+           "submit_s": submit_s, "done_s": done_s,
+           "first_execute_s": done_s[0],
+           "later_execute_s": [b - a for a, b in zip(done_s, done_s[1:])],
+           "teardown_s": teardown_s,
+           "losses": [float(loss) for loss, _ in got],
+           "launches": [c["launches"] for c in counts],
+           "stage_pids": [c["pid"] for c in counts]}
+    print("dg1 " + json.dumps(out), flush=True)
+    return out
+
+
+def jc_flash(seed: int, device: str, shape):
+    """The flash forward's wrapper, causal, on bf16 q, k, v of ``shape``
+    (B, S, H, D) drawn from ``seed`` with numpy, on ``device``: the
+    output and this process's launch counts. A task asked for the card
+    that finds none raises (it never runs on the CPU)."""
+    import os
+
+    import numpy as np
+    import torch
+    from ray_tpu_torch.ops.flash_attention import (flash_delta, flash_dkdv,
+                                                   flash_dq, flash_fwd)
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device in this process "
+                           f"(CUDA_VISIBLE_DEVICES="
+                           f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.tensor(rng.standard_normal(shape, dtype=np.float32))
+               .to(device=dev, dtype=torch.bfloat16) for _ in range(3))
+    kernels = (flash_fwd, flash_delta, flash_dkdv, flash_dq)
+    for f in kernels:
+        f.kernel_launches = 0
+    o, _ = flash_fwd(q, k, v, causal=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return o, {"launches": {f.__name__: f.kernel_launches for f in kernels},
+               "current": str(o.device), "pid": os.getpid(),
+               "checksum": float(o.double().sum())}
+
+
+JC_JOB_SCRIPT = """
+import json
+import ray_tpu_torch
+
+{flash}
+
+ray_tpu_torch.init()
+task = ray_tpu_torch.remote(num_gpus={gpus})(jc_flash)
+o, rec = ray_tpu_torch.get(task.remote({seed}, {device!r}, {shape!r}),
+                           timeout=600)
+print("jc1-job " + json.dumps(rec), flush=True)
+ray_tpu_torch.shutdown()
+"""
+
+JC_CLIENT_SCRIPT = """
+import hashlib, json, time
+import torch
+import ray_tpu_torch
+
+{flash}
+
+t0 = time.perf_counter()
+ray_tpu_torch.init("ray://127.0.0.1:{port}")
+connect_s = time.perf_counter() - t0
+
+
+@ray_tpu_torch.remote(num_gpus={gpus})
+class JCActor:
+    def run(self, seed, device, shape):
+        return jc_flash(seed, device, shape)
+
+
+actor = JCActor.remote()
+o, rec = ray_tpu_torch.get(actor.run.remote({seed}, {device!r}, {shape!r}),
+                           timeout=600)
+rec.update(first_result_s=time.perf_counter() - t0, connect_s=connect_s,
+           got_type=type(o).__name__, got_device=str(o.device),
+           got_dtype=str(o.dtype), got_shape=list(o.shape),
+           sha256=hashlib.sha256(o.contiguous().view(torch.uint8).numpy()
+                                 .tobytes()).hexdigest())
+print("jc1-client " + json.dumps(rec), flush=True)
+ray_tpu_torch.shutdown()
+"""
+
+
+def tagged(text: str, tag: str):
+    """The JSON record after the last ``tag`` in ``text``, or None."""
+    for line in reversed(text.splitlines()):
+        if tag in line:
+            return json.loads(line.split(tag, 1)[1])
+    return None
+
+
+def group_gone(pgid: int) -> bool:
+    try:
+        os.killpg(pgid, 0)
+    except ProcessLookupError:
+        return True
+    except PermissionError:
+        return False
+    return False
+
+
+def phase_jc1(dev, card: str, seed: int):
+    """JC1: a submitted job and a ``ray://`` client on the card (see the
+    module docstring)."""
+    import hashlib
+    import inspect
+    import urllib.request
+
+    import ray_tpu_torch
+    from ray_tpu_torch import api
+    from ray_tpu_torch.job_submission import JobSubmissionClient, JobStatus
+    from ray_tpu_torch.util.client import ClientServer
+    t0 = time.perf_counter()
+    flash = inspect.getsource(jc_flash)
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    kw = dict(flash=flash, gpus=JC_GPUS, seed=seed, device=device,
+              shape=tuple(JC_SHAPE))
+    srv = ClientServer(host="127.0.0.1", port=0).start()
+    client_proc = None
+    try:
+        path = os.path.join(api._head.session_dir, "dashboard.json")
+        check(os.path.exists(path), f"JC1: no dashboard.json in the "
+                                    f"session ({path})")
+        with open(path) as f:
+            address = json.load(f)["address"]
+        jobs = JobSubmissionClient(address)
+        t_submit = time.perf_counter()
+        jid = jobs.submit_job(entrypoint=f"{sys.executable} -c "
+                              f"{shlex.quote(JC_JOB_SCRIPT.format(**kw))}")
+        client_proc = subprocess.Popen(
+            [sys.executable, "-c",
+             JC_CLIENT_SCRIPT.format(port=srv.port, **kw)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        sleeper = jobs.submit_job(
+            entrypoint=f"{sys.executable} -c 'import time; time.sleep(600)'")
+        jm = api._head.dashboard.job_manager
+        deadline = time.monotonic() + JC_STOP_S
+        while jobs.get_job_status(sleeper) != JobStatus.RUNNING \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        proc = jm._procs.get(sleeper)
+        pgid = proc.pid if proc is not None else None
+        check(jobs.stop_job(sleeper) is True, "JC1: stop_job refused")
+        stopped = jobs.wait_until_status(sleeper, timeout_s=JC_STOP_S)
+        stop_s = time.perf_counter() - t_submit
+        status = jobs.wait_until_status(jid, timeout_s=JC_JOB_S)
+        job_s = time.perf_counter() - t_submit
+        logs = jobs.get_job_logs(jid)
+        out_c, err_c = client_proc.communicate(timeout=JC_JOB_S)
+        client_s = time.perf_counter() - t_submit
+        check(status == JobStatus.SUCCEEDED,
+              f"JC1: the job ended {status}:\n{logs[-4000:]}")
+        check(stopped == JobStatus.STOPPED,
+              f"JC1: the sleeping job ended {stopped}, not STOPPED")
+        check(pgid is not None and group_gone(pgid),
+              f"JC1: the stopped job's processes ({pgid}) are not gone")
+        check(client_proc.returncode == 0,
+              f"JC1: the client exited {client_proc.returncode}:\n"
+              f"{out_c[-2000:]}\n{err_c[-4000:]}")
+        job = tagged(logs, "jc1-job ")
+        client = tagged(out_c, "jc1-client ")
+        check(job is not None and client is not None,
+              f"JC1: no record from the job or the client:\n{logs[-2000:]}"
+              f"\n{out_c[-2000:]}")
+        with urllib.request.urlopen(address + "/api/cluster_status",
+                                    timeout=30) as r:
+            status_rows = json.load(r)
+        gpus = [n["resources_total"].get("GPU") for n in status_rows["nodes"]]
+        check(gpus == [1.0], f"JC1: /api/cluster_status lists GPU {gpus}")
+    finally:
+        if client_proc is not None and client_proc.poll() is None:
+            client_proc.kill()
+            client_proc.wait()
+        srv.stop()
+    # the client's actor is released at its disconnect: a whole card's
+    # task then finds its GPU
+    need = ray_tpu_torch.remote(num_gpus=1.0)(lambda: os.getpid())
+    t1 = time.perf_counter()
+    whole = within(ACTOR_TIMEOUT_S, "JC1's num_gpus=1 task",
+                   lambda: ray_tpu_torch.get(need.remote()))
+    whole_s = time.perf_counter() - t1
+    ref, ref_rec = jc_flash(seed, str(dev), tuple(JC_SHAPE))
+    want = "cuda:0" if dev.type == "cuda" else "cpu"
+    check(job["checksum"] == ref_rec["checksum"],
+          f"JC1: the job's checksum {job['checksum']!r} against the "
+          f"driver's {ref_rec['checksum']!r}")
+    sha = hashlib.sha256(ref.cpu().contiguous().view(torch.uint8).numpy()
+                         .tobytes()).hexdigest()
+    check(client["sha256"] == sha and client["got_type"] == "Tensor"
+          and client["got_device"] == "cpu"
+          and client["got_dtype"] == str(ref.dtype)
+          and client["got_shape"] == list(ref.shape),
+          f"JC1: the client's tensor ({client['got_type']} on "
+          f"{client['got_device']}, {client['got_dtype']}, sha256 "
+          f"{client['sha256'][:16]}) is not the driver's (sha256 "
+          f"{sha[:16]})")
+    for who, rec in (("job task", job), ("client actor", client)):
+        check(rec["current"] == want,
+              f"JC1: the {who} ran on {rec['current']}, not {want}")
+        for name, k in rec["launches"].items():
+            n_want = 1 if name == "flash_fwd" else 0
+            check(k == n_want, f"JC1: the {who} launched {name} {k} times, "
+                               f"not {n_want}")
+    out = {"card": card, "shape": list(JC_SHAPE), "gpus_a_process": JC_GPUS,
+           "submit_to_succeeded_s": job_s, "submit_to_stopped_s": stop_s,
+           "client_exit_s": client_s,
+           "connect_s": client["connect_s"],
+           "connect_to_first_result_s": client["first_result_s"],
+           "whole_card_task_s": whole_s, "whole_card_task_pid": whole,
+           "checksum": ref_rec["checksum"], "sha256": sha,
+           "job_launches": job["launches"],
+           "client_launches": client["launches"],
+           "pids": {"job_task": job["pid"], "client_actor": client["pid"]},
+           "wall_s": time.perf_counter() - t0}
+    print("jc1 " + json.dumps(out), flush=True)
+    return out
+
+
+def dag_job_phases(dev, card: str, seed: int):
+    """DG1 and JC1 after TN2, on the caller's runtime where it shares
+    one, else each on a runtime of its own."""
+    return {name: on_own_runtime(name, dev, phase, card, seed)
+            for name, phase in (("DG1", phase_dg1), ("JC1", phase_jc1))}
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7461,24 +7957,29 @@ def main(argv=None) -> int:
           f" GB still allocated", flush=True)
     r3 = runtime_phases(dev, card, args.seed, server, checksum)
     paged["actor_launches"] = r3["paged_launches"]
-    served = serve_phases(dev, card, args.seed, server, r3, checksum)
-    paged["serve_launches"] = served["S1"]["paged_launches"]
-    paged["disagg_launches"] = served["S2"]["prefill_launches"] \
-        + served["S2"]["decode_launches"]
-    rl = rlhf_phases(dev, card, args.seed)
-    paged["rlhf_launches"] = {name: rl[name]["paged_launches"]
-                              for name in ("RL1", "RL2")}
-    t0 = time.perf_counter()
-    flash = training_phases(dev, card, args.seed)
-    print(phase_wall("7-10", t0, group=True), flush=True)
-    for rec in flash:
-        rec["rlhf_learner_launches"] = {
-            "RL1": rl["RL1"]["flash_launches"][rec["name"]],
-            "RL2": [n[rec["name"]] for n in rl["RL2"]["learner_launches"]]}
-    kernels.extend(flash)
-    # P1-TN2 on one runtime: each later phase's actors fork from the
-    # zygote P1's first spawn booted
+    served = serve_phases(dev, card, args.seed, server, r3, checksum,
+                          names=("S1",))
+    # S2-JC1 on one runtime: RL2's learners and every later phase's
+    # actors fork from the zygote S2's first spawn booted (the training
+    # phases 7-10 run in this process meanwhile)
     with runtime():
+        served.update(serve_phases(dev, card, args.seed, server, r3,
+                                   checksum, names=("S2",)))
+        rl = rlhf_phases(dev, card, args.seed)
+        paged["serve_launches"] = served["S1"]["paged_launches"]
+        paged["disagg_launches"] = served["S2"]["prefill_launches"] \
+            + served["S2"]["decode_launches"]
+        paged["rlhf_launches"] = {name: rl[name]["paged_launches"]
+                                  for name in ("RL1", "RL2")}
+        t0 = time.perf_counter()
+        flash = training_phases(dev, card, args.seed)
+        print(phase_wall("7-10", t0, group=True), flush=True)
+        for rec in flash:
+            rec["rlhf_learner_launches"] = {
+                "RL1": rl["RL1"]["flash_launches"][rec["name"]],
+                "RL2": [n[rec["name"]]
+                        for n in rl["RL2"]["learner_launches"]]}
+        kernels.extend(flash)
         sharded = sharding_phases(dev, card, args.seed)
         moe_ring = moe_ring_phases(dev, card, args.seed)
         pipes = pipeline_phases(dev, card, args.seed)
@@ -7486,6 +7987,7 @@ def main(argv=None) -> int:
         rllib_phases(dev, card, args.seed)
         trained = train_tune_phases(dev, card, args.seed)
         trained.update(data_tune_phases(dev, card, args.seed))
+        dag_job = dag_job_phases(dev, card, args.seed)
     for rec in flash:
         rec["sharded_launches"] = [r["launches"][rec["name"]]
                                    for r in sharded["P1"]["ranks"]]
@@ -7512,6 +8014,11 @@ def main(argv=None) -> int:
             "D1": [c[rec["name"]] for c in trained["D1"]["launches"]],
             "TN2": {name: [c[rec["name"]] for c in t["launches"]]
                     for name, t in trained["TN2"]["trials"].items()}}
+        rec["dag_launches"] = [c[rec["name"]]
+                               for c in dag_job["DG1"]["launches"]]
+        rec["job_launches"] = dag_job["JC1"]["job_launches"][rec["name"]]
+        rec["client_launches"] = \
+            dag_job["JC1"]["client_launches"][rec["name"]]
 
     total = time.perf_counter() - t_start
     print(f"total wall: {total:.1f} s", flush=True)

@@ -19,8 +19,7 @@ from ray_tpu_torch.core.global_state import global_worker
 from ray_tpu_torch.core.ids import ActorID, TaskID
 from ray_tpu_torch.core.task_spec import FunctionDescriptor, TaskSpec
 from ray_tpu_torch.remote_function import (
-    _DAG_NOT_PORTED, _prepare_env, make_scheduling_strategy,
-    resources_from_opts)
+    _prepare_env, make_scheduling_strategy, resources_from_opts)
 
 _ACTOR_DEFAULT_OPTS = dict(
     num_cpus=1.0, num_gpus=0.0, resources=None, max_restarts=0,
@@ -80,6 +79,14 @@ class ActorClass:
 
     def remote(self, *args, **kwargs) -> "ActorHandle":
         opts = self._opts
+        from ray_tpu_torch.remote_function import _client_route
+        client = _client_route()
+        if client is not None:
+            if getattr(self, "_client_cls", None) is None:
+                self._client_cls = client._wrap(
+                    self._cls,
+                    {k: v for k, v in opts.items() if v is not None})
+            return self._client_cls.remote(*args, **kwargs)
         # default-resource actors release their scheduling CPU once alive
         hold = any(opts.get(k) not in (None, _ACTOR_DEFAULT_OPTS.get(k))
                    for k in ("num_cpus", "num_gpus", "resources", "memory"))
@@ -117,7 +124,8 @@ class ActorClass:
                            max_task_retries=opts["max_task_retries"])
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(_DAG_NOT_PORTED)
+        from ray_tpu_torch.dag import ClassNode
+        return ClassNode(self, args, kwargs)
 
 
 class ActorMethod:
@@ -141,7 +149,8 @@ class ActorMethod:
             self._backpressure)
 
     def bind(self, *args, **kwargs):
-        raise NotImplementedError(_DAG_NOT_PORTED)
+        from ray_tpu_torch.dag import ClassMethodNode
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
 
 class ActorHandle:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import atexit
 import inspect
 import json
+import logging
 import os
 import time
 import uuid
@@ -27,6 +28,12 @@ from ray_tpu_torch.core.object_ref import ObjectRef
 
 _head = None  # _HeadProcess for the in-process controller+node
 _log_monitor = None
+_client = None  # ClientWorker when connected via ray:// (client mode)
+
+
+def _client_or_none():
+    return _client if _client is not None and _client.is_connected() \
+        else None
 
 
 class _HeadProcess:
@@ -42,8 +49,23 @@ class _HeadProcess:
                                 num_initial_workers=num_initial_workers,
                                 config=config)
         self.node.start()
+        self.dashboard = None
+        if config.dashboard_enabled:
+            try:
+                from ray_tpu_torch.dashboard.head import DashboardHead
+                self.dashboard = DashboardHead(
+                    session_dir, self.controller,
+                    port=config.dashboard_port)
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "dashboard failed to start; continuing without it")
 
     def stop(self):
+        try:
+            if self.dashboard is not None:
+                self.dashboard.stop()
+        except Exception:
+            pass
         try:
             self.node.stop()
         finally:
@@ -75,18 +97,27 @@ def init(address: Optional[str] = None,
          _session_dir: Optional[str] = None) -> Dict[str, Any]:
     """Start a cluster in-process (or connect to one via ``address``).
 
-    ``address="ray://host:port"`` (client mode, the reference's Ray
-    Client) is not ported yet and raises.
+    ``address="ray://host:port"`` enters client mode (reference: Ray
+    Client, ``python/ray/util/client/worker.py:81``): no local runtime is
+    started; the public API proxies to a remote cluster's client server.
     """
-    global _head
+    global _head, _client
     if address is None:
         # `ray-tpu submit` / external drivers point here via env var
         # (reference analog: RAY_ADDRESS).
         address = os.environ.get("RAY_TPU_TORCH_ADDRESS") or None
     if address and address.startswith("ray://"):
-        raise NotImplementedError(
-            "ray:// client mode is not ported yet (ROADMAP Queue 1 "
-            "item 11, util/client)")
+        if _client is not None and _client.is_connected():
+            if ignore_reinit_error:
+                return {}
+            raise RuntimeError("ray_tpu_torch.init() called twice "
+                               "(use ignore_reinit_error=True)")
+        from ray_tpu_torch.util.client import connect as _client_connect
+        _client = _client_connect(address)
+        atexit.register(_atexit_shutdown)
+        return {"client": True, "address": address,
+                **{k: v for k, v in _client.server_info.items()
+                   if k != "ok"}}
     if try_global_worker() is not None:
         if ignore_reinit_error:
             return {}
@@ -96,9 +127,6 @@ def init(address: Optional[str] = None,
     if object_store_memory:
         config.object_store_memory = int(object_store_memory)
     config.apply_system_config(_system_config or {})
-    if config.dashboard_enabled:
-        raise NotImplementedError(
-            "the dashboard is not ported yet (ROADMAP Queue 1 item 11)")
     set_config(config)
 
     from ray_tpu_torch.core.node import detect_resources
@@ -146,7 +174,13 @@ def _atexit_shutdown():
 
 
 def shutdown() -> None:
-    global _head, _log_monitor
+    global _head, _log_monitor, _client
+    if _client is not None:
+        try:
+            _client.disconnect()
+        except Exception:
+            pass
+        _client = None
     if _log_monitor is not None:
         try:
             _log_monitor.stop()
@@ -166,12 +200,15 @@ def shutdown() -> None:
 
 
 def is_initialized() -> bool:
-    return try_global_worker() is not None
+    return try_global_worker() is not None or _client_or_none() is not None
 
 
 def remote(*args, **options):
     """``@remote`` decorator for functions and classes (reference:
     ``worker.py:3137``)."""
+    c = _client_or_none()
+    if c is not None:
+        return c.remote(*args, **options)
     from ray_tpu_torch.actor import ActorClass
     from ray_tpu_torch.remote_function import RemoteFunction
 
@@ -189,18 +226,24 @@ def remote(*args, **options):
 
 def get(refs: Union[ObjectRef, Sequence[ObjectRef]],
         *, timeout: Optional[float] = None):
-    # a value that resolves in this process (the JAX package's compiled
-    # DAG refs; a stand-in ref in serve's router tests) is accepted, as
-    # a scalar or in a list
+    # a value that resolves in this process (a compiled DAG's channel
+    # result; a stand-in ref in serve's router tests) is accepted, as a
+    # scalar or in a list
     if hasattr(refs, "__dag_local_value__"):
         return refs.__dag_local_value__(timeout)
     if isinstance(refs, (list, tuple)) and any(
             hasattr(r, "__dag_local_value__") for r in refs):
         return [get(r, timeout=timeout) for r in refs]
+    c = _client_or_none()
+    if c is not None:
+        return c.get(refs, timeout=timeout)
     return global_worker().get(refs, timeout=timeout)
 
 
 def put(value: Any) -> ObjectRef:
+    c = _client_or_none()
+    if c is not None:
+        return c.put(value)
     return global_worker().put(value)
 
 
@@ -208,19 +251,32 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
          timeout: Optional[float] = None, fetch_local: bool = True):
     if isinstance(refs, ObjectRef):
         raise TypeError("wait() expects a list of ObjectRefs")
+    c = _client_or_none()
+    if c is not None:
+        return c.wait(refs, num_returns=num_returns, timeout=timeout,
+                      fetch_local=fetch_local)
     return global_worker().wait(refs, num_returns=num_returns,
                                 timeout=timeout, fetch_local=fetch_local)
 
 
 def kill(actor, *, no_restart: bool = True) -> None:
+    c = _client_or_none()
+    if c is not None:
+        return c.kill(actor, no_restart=no_restart)
     global_worker().kill_actor(actor._id, no_restart=no_restart)
 
 
 def cancel(ref: ObjectRef, *, force: bool = False) -> None:
+    c = _client_or_none()
+    if c is not None:
+        return c.cancel(ref, force=force)
     global_worker().cancel(ref, force=force)
 
 
 def get_actor(name: str, namespace: str = ""):
+    c = _client_or_none()
+    if c is not None:
+        return c.get_actor(name, namespace=namespace)
     from ray_tpu_torch.actor import ActorHandle
     from ray_tpu_torch.core import protocol as P
     w = global_worker()
@@ -230,14 +286,23 @@ def get_actor(name: str, namespace: str = ""):
 
 
 def nodes() -> List[dict]:
+    c = _client_or_none()
+    if c is not None:
+        return c.nodes()
     return global_worker().state_query("nodes")
 
 
 def cluster_resources() -> Dict[str, float]:
+    c = _client_or_none()
+    if c is not None:
+        return c.cluster_resources()
     return global_worker().state_query("cluster_resources")
 
 
 def available_resources() -> Dict[str, float]:
+    c = _client_or_none()
+    if c is not None:
+        return c.available_resources()
     return global_worker().state_query("available_resources")
 
 

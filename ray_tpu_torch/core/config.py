@@ -187,9 +187,7 @@ class Config:
     lease_backoff_cap_s: float = 10.0
 
     # --- dashboard / job REST (reference: dashboard/head.py) ---
-    #: Off in the port: the dashboard is not ported yet (ROADMAP Queue 1
-    #: item 11), and ``init`` raises when it is asked for.
-    dashboard_enabled: bool = False
+    dashboard_enabled: bool = True
     #: 0 picks an ephemeral port; the chosen address is written to
     #: <session_dir>/dashboard.json.
     dashboard_port: int = 0

@@ -97,8 +97,8 @@ class LogMonitor:
                 text = chunk[:cut].decode(errors="replace")
             self._offsets[path] = off + consumed
             for line in text.splitlines():
-                if "__ray_tpu_tqdm__:" in line:
-                    raise NotImplementedError(
-                        "tqdm_ray progress records are not ported yet "
-                        "(ROADMAP Queue 1 item 11, experimental/)")
+                if "__ray_tpu_torch_tqdm__:" in line:
+                    from ray_tpu_torch.experimental.tqdm_ray import render_record
+                    if render_record(line, self.out):
+                        continue
                 print(f"{prefix} {line}", file=self.out)

@@ -284,6 +284,22 @@ def _cloudpickle_dumps(value, buffers) -> bytes:
     return sink.getvalue()
 
 
+def pickle_inband(value, cloud: bool = False) -> bytes:
+    """``value`` as one self-contained pickle stream (plain pickle, or
+    cloudpickle with ``cloud=True``) whose tensors go through the store's
+    hook: a reader gets each as ``get`` gives it, a CPU tensor of the
+    sender's dtype, shape and bits. For the channels and the client wire,
+    which carry one flat blob and no out-of-band buffers."""
+    sink = io.BytesIO()
+    if cloud:
+        _TensorCloudPickler(sink, protocol=5).dump(value)
+    elif _torch() is None:
+        pickle.Pickler(sink, protocol=5).dump(value)
+    else:
+        _TensorPickler(sink, protocol=5).dump(value)
+    return sink.getvalue()
+
+
 def _reduce_tensor(t):
     import numpy as np
     torch = _torch()

@@ -16,6 +16,16 @@ import cloudpickle
 
 from ray_tpu_torch.core.global_state import global_worker
 from ray_tpu_torch.core.ids import TaskID
+
+
+def _client_route():
+    """The installed ray:// ClientWorker iff client mode is active AND
+    no local runtime exists (a local runtime always wins)."""
+    from ray_tpu_torch.core.global_state import try_global_worker
+    if try_global_worker() is not None:
+        return None
+    from ray_tpu_torch import api
+    return api._client_or_none()
 from ray_tpu_torch.core.task_spec import FunctionDescriptor, SchedulingStrategy, TaskSpec
 
 
@@ -27,9 +37,6 @@ def _prepare_env(w, env):
     from ray_tpu_torch.core.runtime_env import prepare_runtime_env
     return prepare_runtime_env(env, w.session_dir)
 
-
-#: ``.bind`` builds a DAG node; ``dag/`` is not ported yet.
-_DAG_NOT_PORTED = "the DAG API (.bind) is not ported yet (ROADMAP Queue 1 item 11, dag/)"
 
 _DEFAULT_OPTS = dict(
     num_cpus=1.0, num_gpus=0.0, resources=None, num_returns=1,
@@ -118,6 +125,15 @@ class RemoteFunction:
         return self._remote(args, kwargs, self._opts)
 
     def _remote(self, args, kwargs, opts):
+        client = _client_route()
+        if client is not None:
+            # decorated before ray_tpu_torch.init("ray://..."): route
+            # through the client at call time (reference: client-mode hooks)
+            if getattr(self, "_client_fn", None) is None:
+                self._client_fn = client._wrap(
+                    self._function,
+                    {k: v for k, v in opts.items() if v is not None})
+            return self._client_fn.remote(*args, **kwargs)
         w = global_worker()
         descriptor = self._ensure_exported(w)
         args_blob, arg_refs, _ = w.serialize_args(args, kwargs)
@@ -161,4 +177,5 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """DAG API entry (reference: python/ray/dag/function_node.py)."""
-        raise NotImplementedError(_DAG_NOT_PORTED)
+        from ray_tpu_torch.dag import FunctionNode
+        return FunctionNode(self, args, kwargs)

@@ -2,9 +2,8 @@
 
 Reference: ``python/ray/tune/callback.py`` (Callback hooks driven by
 the trial loop) and ``tune/logger/`` (``CSVLoggerCallback``,
-``JsonLoggerCallback``). Experiment-tracking adapters
-(wandb/mlflow/comet, ``air/integrations/``) wait for the port of the
-libraries (ROADMAP Queue 1 item 11).
+``JsonLoggerCallback``). The experiment-tracking adapters
+(wandb/mlflow/comet) are in ``air/integrations/``.
 """
 
 from __future__ import annotations

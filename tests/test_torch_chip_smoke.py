@@ -4,6 +4,7 @@ that it refuses to run without a card. The phases themselves need the
 card and run only there (``python3 chip_smoke.py``)."""
 
 import json
+import math
 
 import pytest
 import torch
@@ -794,3 +795,76 @@ def test_data_and_pbt_phases_on_the_cpu(monkeypatch):
                for t in tn2["trials"].values())
     assert len(failed) == 4 * (2 + actors) \
         and all("launched" in f for f in failed), failed
+
+
+def test_dag_and_job_phases_on_the_cpu(monkeypatch):
+    """DG1 and JC1 at gptj-tiny width (bf16, DG1's depth) on the CPU, on
+    one runtime as after TN2 on the card: the compiled DAG builds its
+    channel pipeline, each row's loss through the two stage actors is
+    bit-equal to the stage functions run in the driver and comes back a
+    CPU tensor, no channel file or actor is left; a job submitted
+    through the dashboard and a ``ray://`` client each run the flash
+    forward's wrapper (its plain version on the CPU) on the seeded
+    inputs and agree with the driver's, the sleeping job is stopped,
+    the cluster status lists the GPU, and a whole-GPU task runs once the
+    client has gone. The flash wrapper launches nothing on the CPU, so
+    the launch checks (DG1's two stage actors, JC1's job task and client
+    actor) are the only ones that fail here."""
+    import dataclasses
+
+    import cloudpickle
+
+    from ray_tpu_torch.models import get_config
+    _cpu_card(monkeypatch)
+    monkeypatch.setenv("RAY_TPU_TORCH_PLATFORM", "cpu")
+    monkeypatch.setattr(chip_smoke, "shard_model", lambda n: dataclasses.replace(
+        get_config("gptj-tiny"), n_layers=n, dtype=torch.bfloat16))
+    monkeypatch.setattr(chip_smoke, "JC_SHAPE", (1, 64, 2, 16))
+    failed = []
+    monkeypatch.setattr(chip_smoke, "check",
+                        lambda ok, what: ok or failed.append(what))
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        with chip_smoke.runtime():
+            out = chip_smoke.dag_job_phases(torch.device("cpu"), "cpu", 0)
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    dg1, jc1 = out["DG1"], out["JC1"]
+    assert len(dg1["losses"]) == chip_smoke.DG_ROWS
+    assert all(math.isfinite(x) for x in dg1["losses"])
+    assert dg1["hop_shape"] == [1, 128, 64]
+    assert dg1["hop_bytes"] > dg1["hop_tensor_bytes"] > 0
+    assert len(dg1["later_execute_s"]) == chip_smoke.DG_ROWS - 1
+    assert len(set(dg1["stage_pids"])) == 2
+    assert jc1["job_launches"]["flash_fwd"] == 0 \
+        and jc1["client_launches"]["flash_fwd"] == 0
+    assert jc1["submit_to_succeeded_s"] < chip_smoke.JC_JOB_S
+    assert len(failed) == 4 and all("launched" in f for f in failed), failed
+
+
+def test_a_group_mismatch_prints_leaf_checksums_and_names_the_leaf(capsys):
+    """RLL2's group check (``same_trees``): two weight trees that differ
+    in one leaf print a checksum line for every leaf of both (path,
+    shape, dtype, float64 sum; the differing one marked) and the
+    learner actors' worker ids, then fail naming that leaf; equal trees
+    pass silently."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    a = {"pi": {"w": rng.normal(size=(4, 3)).astype(np.float32),
+                "b": np.zeros(3, np.float32)},
+         "vf": [rng.normal(size=(3,)).astype(np.float32)]}
+    b = {"pi": {"w": a["pi"]["w"].copy(), "b": a["pi"]["b"].copy()},
+         "vf": [a["vf"][0].copy()]}
+    chip_smoke.same_trees("RLL2 trees", a, b, ["w0", "w1"])
+    assert capsys.readouterr().out == ""
+    b["vf"][0][1] += 1e-3
+    with pytest.raises(chip_smoke.SmokeFailure, match=r"\['vf/0'\] differ"):
+        chip_smoke.same_trees("RLL2 trees", a, b, ["w0", "w1"])
+    out = capsys.readouterr().out.splitlines()
+    leaves = [line for line in out if ": leaf " in line]
+    assert [line.split(": leaf ")[1].split(":")[0] for line in leaves] \
+        == ["pi/b", "pi/w", "vf/0"]
+    assert [line.endswith("DIFFERS") for line in leaves] \
+        == [False, False, True]
+    assert "(4, 3), 'float32'" in leaves[1]
+    assert any("worker ids ['w0', 'w1']" in line for line in out)

@@ -4,8 +4,10 @@ imports JAX, the JAX package
 or ``ml_dtypes``, and the port imports, serves (speculative decode, a
 bf16 KV hand-off, tracing included), takes a train step, serves an
 ``LLMServer`` through ``serve.run``, trains rllib, runs trainers and
-tuners (PBT among them) and streams a ``ray_tpu_torch.data`` pipeline
-into a trainer with all of them made unimportable."""
+tuners (PBT among them), streams a ``ray_tpu_torch.data`` pipeline
+into a trainer, compiles and runs a two-stage DAG, submits a job through
+the dashboard and drives a task through a ``ray://`` client with all of
+them made unimportable."""
 
 import ast
 import json
@@ -548,6 +550,80 @@ def test_data_and_pbt_run_with_jax_and_ray_tpu_unimportable(tmp_path):
             assert grid.num_errors == 0, grid.errors
             assert pbt.perturbation_count >= 1
             assert all(r.metrics["seen"] == [] for r in grid)
+        finally:
+            ray_tpu_torch.shutdown()
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """)
+
+
+def test_dag_job_and_client_run_with_jax_and_ray_tpu_unimportable():
+    """A compiled two-stage DAG over its channel pipeline, a job
+    submitted through the dashboard (its log read back) and a task
+    through a ``ray://`` client in another process, with the JAX
+    packages unimportable in the driver, the job and the client."""
+    _run("""
+        import json, os, shlex, subprocess, sys
+        BLOCK = ("jax", "jaxlib", "optax", "flax", "ray_tpu", "ml_dtypes")
+        for name in BLOCK:
+            sys.modules[name] = None      # any import of them now fails
+        import torch
+        import ray_tpu_torch
+        from ray_tpu_torch.dag import InputNode
+        from ray_tpu_torch.job_submission import JobSubmissionClient
+        from ray_tpu_torch.util.client import ClientServer
+        guard = "import sys\\nfor n in %r: sys.modules[n] = None\\n" % (
+            BLOCK,)
+        info = ray_tpu_torch.init(num_cpus=4, _num_initial_workers=2)
+        try:
+            @ray_tpu_torch.remote
+            class Stage:
+                def __init__(self, k):
+                    self.k = k
+
+                def run(self, t):
+                    return t * self.k
+
+            with InputNode() as inp:
+                dag = Stage.bind(3).run.bind(Stage.bind(2).run.bind(inp))
+            compiled = dag.experimental_compile()
+            try:
+                t = torch.arange(8, dtype=torch.bfloat16)
+                assert torch.equal(ray_tpu_torch.get(
+                    compiled.execute(t), timeout=120), t * 6)
+                assert compiled._pipeline is not None
+            finally:
+                compiled.teardown()
+
+            with open(os.path.join(info["session_dir"],
+                                   "dashboard.json")) as f:
+                client = JobSubmissionClient(json.load(f)["address"])
+            body = (guard + "import ray_tpu_torch\\nray_tpu_torch.init()\\n"
+                    "f = ray_tpu_torch.remote(lambda: 6 * 7)\\n"
+                    "print('answer:', ray_tpu_torch.get(f.remote(), "
+                    "timeout=120))\\nray_tpu_torch.shutdown()\\n")
+            jid = client.submit_job(
+                entrypoint=f"{sys.executable} -c {shlex.quote(body)}")
+            status = client.wait_until_status(jid, timeout_s=180)
+            logs = client.get_job_logs(jid)
+            assert status == "SUCCEEDED" and "answer: 42" in logs, logs
+
+            srv = ClientServer(port=0).start()
+            try:
+                code = (guard + "import ray_tpu_torch\\n"
+                        f"ray_tpu_torch.init('ray://127.0.0.1:{srv.port}')\\n"
+                        "f = ray_tpu_torch.remote(lambda x: x + 1)\\n"
+                        "print('client:', ray_tpu_torch.get(f.remote(41), "
+                        "timeout=120))\\nray_tpu_torch.shutdown()\\n")
+                proc = subprocess.run([sys.executable, "-c", code],
+                                      capture_output=True, text=True,
+                                      timeout=180)
+                assert "client: 42" in proc.stdout, proc.stdout + proc.stderr
+            finally:
+                srv.stop()
         finally:
             ray_tpu_torch.shutdown()
         leaked = [m for m in sys.modules

@@ -15,7 +15,11 @@ and ``tests/test_torch_train_trainer.py`` and ``tests/test_torch_tune.py``
 load ``"train/test_trainer.py"``, ``"tune/test_tune.py"``,
 ``"tune/test_callbacks.py"`` and ``"tune/test_new_schedulers.py"``, and
 each ``tests/test_torch_data_<name>.py`` that loads bodies
-``tests/data/test_<name>.py`` (``"data/test_<name>.py"``):
+``tests/data/test_<name>.py`` (``"data/test_<name>.py"``), as
+``tests/test_torch_dag.py``, ``tests/test_torch_dashboard.py``,
+``tests/test_torch_ray_client.py`` and ``tests/test_torch_experimental.py``
+load ``"dag/test_dag_workflow.py"``, ``"dashboard/test_*.py"``,
+``"util/test_ray_client.py"`` and ``"util/test_iter_misc.py"``:
 the source is
 read, ``ray_tpu`` is rewritten to ``ray_tpu_torch`` on word boundaries
 and ``RAY_TPU_<NAME>`` environment variables to ``RAY_TPU_TORCH_<NAME>``,
@@ -240,8 +244,10 @@ FIXTURES = {"ray_start_regular": ray_start_regular,
     f"rllib/{p.name}" for p in JAX_RLLIB.glob("test_*.py")) + [
     "autoscaler/test_slices.py", "parallel/test_elastic.py",
     "train/test_trainer.py", "tune/test_tune.py", "tune/test_callbacks.py",
-    "tune/test_new_schedulers.py"] + sorted(
-    f"data/{p.name}" for p in (JAX_TESTS / "data").glob("test_*.py")))
+    "tune/test_new_schedulers.py", "dag/test_dag_workflow.py",
+    "util/test_ray_client.py", "util/test_iter_misc.py"] + sorted(
+    f"data/{p.name}" for p in (JAX_TESTS / "data").glob("test_*.py")) + sorted(
+    f"dashboard/{p.name}" for p in (JAX_TESTS / "dashboard").glob("test_*.py")))
 def test_rewrite_leaves_no_jax_package_import(filename):
     """After the rewrite no import names the JAX package."""
     tree = ast.parse(port_source(filename))

@@ -6,19 +6,14 @@ import pytest
 from test_torch_runtime_loader import FIXTURES, load_core_tests
 
 #: bodies left out, each with its reason
-LEAVE_OUT = {
-    "test_dashboard_policy_round_trip":
-        "posts to the dashboard, which is not ported (ROADMAP Queue 1 "
-        "item 11); test_controller_policy_round_trip holds the same "
-        "store-to-router path through the serve controller's calls",
-}
+LEAVE_OUT = {}
 
 globals().update(FIXTURES)
 globals().update(load_core_tests("serve/test_admission.py", LEAVE_OUT))
 
 
 def test_controller_policy_round_trip(serve_session):
-    """The dashboard-free half of ``test_dashboard_policy_round_trip``:
+    """``test_dashboard_policy_round_trip`` without the dashboard:
     a policy stored on the serve controller (what the dashboard's POST
     calls) reaches a live router with admission enabled, which sheds by
     the new rules; a bad policy is refused without being stored."""

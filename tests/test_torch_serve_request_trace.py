@@ -17,10 +17,11 @@ _ENGINE = ("builds a JAX engine in-process; tests/test_torch_request_trace.py "
 #: bodies left out, each with its reason
 LEAVE_OUT = {
     "test_e2e_slo_watchdog_captures_slow_request_with_waterfall":
-        "reads the waterfall through the dashboard and the JAX "
-        "package's tools/trace.py, neither ported (ROADMAP Queue 1 item "
-        "11); test_e2e_slo_watchdog_captures_slow_request_in_the_store "
-        "holds the capture through the controller's store",
+        "renders through tools/trace.py's in-process source, which reads "
+        "the JAX package's runtime; "
+        "test_e2e_slo_watchdog_captures_slow_request_in_the_store holds "
+        "the capture through the controller's store, the dashboard's "
+        "routes and tools/trace.py against the port's dashboard",
     "test_engine_waterfall_has_six_phases": _ENGINE,
     "test_engine_unsampled_fast_request_ships_zero_spans": _ENGINE,
     "test_queue_wait_is_split_out_of_ttft": _ENGINE,
@@ -36,11 +37,18 @@ globals().update(load_core_tests("serve/test_request_trace.py", LEAVE_OUT))
 
 @pytest.mark.slow
 def test_e2e_slo_watchdog_captures_slow_request_in_the_store():
-    """The port's twin of the JAX e2e SLO body without the dashboard:
-    with 1-in-N sampling effectively off, a request queued behind long
-    decodes on a 1-slot replica trips the queue SLO and its waterfall
-    (six phases) reaches the controller's store, while a fast request
-    inside every budget ships nothing."""
+    """The port's twin of the JAX e2e SLO body: with 1-in-N sampling
+    effectively off, a request queued behind long decodes on a 1-slot
+    replica trips the queue SLO and its waterfall (six phases) reaches
+    the controller's store, the dashboard's ``/api/v0/requests`` routes
+    and ``tools/trace.py --dashboard``, while a fast request inside
+    every budget ships nothing (404 from the dashboard)."""
+    import json
+    import subprocess
+    import sys
+    import urllib.error
+    import urllib.request
+
     import ray_tpu_torch
     from ray_tpu_torch import serve
     from ray_tpu_torch.util.state import get_request_trace
@@ -79,6 +87,33 @@ def test_e2e_slo_watchdog_captures_slow_request_in_the_store():
         assert {RT.QUEUED, RT.ADMITTED, RT.PREFILL, RT.FIRST_TOKEN,
                 RT.DECODE, RT.DONE} <= phases
         assert get_request_trace(fast_rid) is None
+
+        info = ray_tpu_torch.api._head
+        with open(os.path.join(info.session_dir, "dashboard.json")) as f:
+            addr = json.load(f)["address"]
+        with urllib.request.urlopen(
+                addr + f"/api/v0/requests/{slow_rid}", timeout=10) as r:
+            via_http = json.loads(r.read())
+        assert via_http["request_id"] == slow_rid
+        assert {sp["phase"] for sp in via_http["spans"]} >= phases
+        with urllib.request.urlopen(addr + "/api/v0/requests",
+                                    timeout=10) as r:
+            assert any(row["request_id"] == slow_rid
+                       for row in json.loads(r.read())["rows"])
+        proc = subprocess.run(
+            [sys.executable, "tools/trace.py", slow_rid, "--dashboard",
+             addr], capture_output=True, text=True, timeout=60,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(
+                __file__))))
+        assert proc.returncode == 0, proc.stderr
+        for ph in (RT.QUEUED, RT.ADMITTED, RT.PREFILL, RT.FIRST_TOKEN,
+                   RT.DECODE, RT.DONE):
+            assert ph in proc.stdout, proc.stdout
+        assert "SLO TRIP [queue]" in proc.stdout
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(addr + f"/api/v0/requests/{fast_rid}",
+                                   timeout=10)
+        assert e.value.code == 404
     finally:
         serve.shutdown()
         ray_tpu_torch.shutdown()

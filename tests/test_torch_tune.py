@@ -7,23 +7,19 @@ trial's retry, ``with_parameters``/``with_resources`` through
 ``tune.run``, a ``DataParallelTrainer`` tuned over its trial's placement
 group, the callbacks and loggers, PB2, BOHB, HyperBand, the
 resource-changing scheduler and the optional searchers (driven through
-fakes of their packages, and gated where the packages are missing).
+fakes of their packages, and gated where the packages are missing), and
+the experiment-tracking integrations gated where wandb, mlflow and
+comet_ml are missing.
 
 ``DistributeResources`` splits ``GPU`` where the JAX package splits
-``TPU``: its body runs with the two names swapped. Left out:
-
-- ``test_integrations_are_gated``: ``air/integrations/`` waits for
-  ROADMAP Queue 1 item 11.
-
-The callbacks file's own 4-CPU runtime is left out too: its body runs on
-the 8-CPU runtime the others share.
+``TPU``: its body runs with the two names swapped. The callbacks file's
+own 4-CPU runtime is left out: its body runs on the 8-CPU runtime the
+others share.
 """
 
 from test_torch_runtime_loader import FIXTURES, load_core_tests, ray_session
 
 LEAVE_OUT_CALLBACKS = {
-    "test_integrations_are_gated":
-        "air/integrations/ waits for ROADMAP Queue 1 item 11",
     "ray_session": "the bodies share the loader's 8-CPU runtime",
 }
 #: the port's DistributeResources splits GPU where the JAX one splits TPU
