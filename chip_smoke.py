@@ -457,16 +457,74 @@ JC1. A job and a ``ray://`` client on the same runtime: a
     disconnects its actor is released and a ``num_gpus=1`` task runs.
     Submit to SUCCEEDED, connect to first result and the phase's wall
     (the ``jc1`` line). A task that finds no card fails the phase.
+AR1. Serving and training share the card on the same runtime, and the
+    slice arbiter moves the slice: a ``SliceManager`` over an in-memory
+    ``FakeSliceProvider`` with two slice types (a host each, ``GPU``
+    0.5), a ``SliceArbiter`` with no ``gauges_fn`` (it reads the live
+    metrics plane) at the JAX colocation test's policy (AR_POLICY); the
+    serve slice claimed ``kind="serve", priority=10`` holds one
+    ``serve.run`` ``LLMServer`` replica (no ``GPU`` reserved) at
+    GPT-J-6B width and AR_LAYERS layer with S1's knobs, the train slice
+    claimed ``kind="train", priority=0`` an ``ElasticTrainer(
+    ParallelPlan(dp=2))`` at AR_LAYERS layer, AR_ROWS x 2048, with the
+    slice manager and a ``slice_filter``, telemetry at its default
+    interval, beside the one-device ``ParallelPlan()`` from the same
+    weights. Two steps; phase 4's 16 prompts over HTTP, request 0 first,
+    held at ``gate_burst``'s gate while the arbiter (updated every
+    AR_TICK_S) sees the engine's own queue depth at or above 4 past
+    ``sustain_s`` and preempts the train slice; the gate opens; the
+    trainer folds to dp=1 at its next step; the burst drains, each
+    prompt is served alone, the slice is released and, the queue at or
+    below 1 past ``ebb_s``, a slice is returned; the next step regrows
+    to dp=2, then one more. Every loss within EL1_LOSS_REL of the
+    one-device plan's, the recoveries' triggers and plans, one
+    preemption (reason ``queue-depth``) and one return with their
+    ``ARBITER_*`` events, only the serve and the regrown train slice
+    UP, ``/api/v0/arbiter`` listing both claims, the trainer's rank 0
+    fleet row with ``train_tokens_per_s`` above 0 and the replica's with
+    a queue depth of at least 4 during the burst, the burst's streams
+    equal the single-request ones or leave them at a confirmed near
+    tie, the replica's paged launches AR_LAYERS a prefill chunk and
+    decode step, each flash kernel AR_LAYERS a step on each rank of
+    each dp=2 program and in the driver. Pressure to the drain notice,
+    the notice to the folded step, the return to the regrown step, the
+    burst's TTFT (the ``ar1`` line).
+WF1. A durable workflow on the card on the same runtime: q, k, v at
+    GPT-J-6B's attention shape drawn from the seed -> the flash forward
+    -> a reduce, each a ``num_gpus=0.5`` task; the reduce raises on its
+    first attempt (a marker file under the workflow's storage), the run
+    ends FAILED and ``workflow.resume`` runs the reduce only: the flash
+    step ran once (its launch log unchanged), the stored output
+    bit-equal to a straight ``workflow.run`` of the same DAG and to the
+    driver's own flash forward, ``get_status`` SUCCESSFUL, ``list_all``
+    listing it until ``delete``, a ``TimerListener`` event step
+    completing (the ``wf1`` line).
+CL1. The command line on the card's host, beside AR1 and WF1 on a
+    thread of its own (its clusters are runtimes of their own; AR1's
+    and WF1's times and its rates are taken under each other's load):
+    ``python -m ray_tpu_torch.scripts.cli`` ``up -y`` on a cluster YAML
+    for the local launcher (a head counting the card, whose slice
+    monitor brings up one one-host slice), ``submit`` of a script
+    running the flash forward in a ``num_gpus=0.5`` task,
+    ``job submit``/``job status``, ``status`` and ``list nodes`` (two
+    nodes alive, one a slice host), ``down -y``: then the head's process
+    group and every process of the cluster are gone, and none holds the
+    card; then ``microbenchmark`` at its default counts on a runtime of
+    its own, its PPO learner on the card where ``gymnasium`` is
+    installed (its JSON lines in the record, one a ``BASELINES`` key at
+    least) (the ``cl1`` line).
 
 Before them the script's ``phase walls`` line (the build's wall, each
-phase's and the total; around each phase on the shared runtime the
+phase's and the total, CL1's overlapping AR1's and WF1's, their group
+``AR1-CL1``; around each phase on the shared runtime the
 store's live GB, the driver's resident GB outside the store's segment
 and the segment's pages resident in the driver, EL1's store held to
 within 0.1 GB of its value before) and its total wall are printed. The second-to-last line
 is the ``{"kernels": [...]}`` record (the paged kernel's carries the
 verify shape's ``verify_*`` fields, R3's ``actor_launches``, S1's
 ``serve_launches``, S2's ``disagg_launches``, both replicas', and RL1's
-and RL2's ``rlhf_launches``; each flash kernel's carries RL1's and each RL2
+and RL2's ``rlhf_launches``, AR1's replica's ``arbiter_launches``;
+each flash kernel's carries RL1's and each RL2
 learner's ``rlhf_learner_launches``, each P1 rank's
 ``sharded_launches``, each M1 rank's ``moe_launches``, each M2 rank's
 ``ring_launches``, each PL1 and PL2 stage's ``pipeline_launches``,
@@ -474,8 +532,10 @@ each PL4 rank's ``gpipe_launches``, each PL5 and PL6 rank's
 ``mpmd3d_launches``, each rank of each program EL1 built
 ``elastic_launches``, each TR1 rank's, each TN1 trial's, each D1
 rank's and each TN2 trial actor's ``trainer_launches``, each DG1
-stage's ``dag_launches``, and JC1's job task's ``job_launches`` and
-client actor's ``client_launches``); the last line
+stage's ``dag_launches``, JC1's job task's ``job_launches`` and
+client actor's ``client_launches``, AR1's ranks' and driver's
+``arbiter_launches``, WF1's flash steps' ``workflow_launches`` and
+CL1's submitted task's ``cli_launches``); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -906,13 +966,16 @@ async def serve_all(engine, prompts, max_new: int):
     return streams, ttft
 
 
-def gate_burst(engine, n: int) -> None:
+def gate_burst(engine, n: int, hold=None) -> None:
     """Phase 4's burst, made exact for an engine stepping on its own
     thread: at the first step boundary after a request has its first
     token, the step thread waits until ``n`` requests are pending, so
     that one admission takes the whole burst however its requests arrive
-    (15 streaming actor calls reach R3's engine one at a time). The gate
-    opens once and removes itself."""
+    (15 streaming actor calls reach R3's engine one at a time). With
+    ``hold``, it then also waits while ``hold()`` is true, publishing the
+    engine's stats (its queue depth among them) every AR_TICK_S, and the
+    first step after it publishes again. The gate opens once and removes
+    itself."""
     inner = engine._step
 
     def step():
@@ -923,6 +986,12 @@ def gate_burst(engine, n: int) -> None:
             del engine._step               # the class's method again
             if not arrived:
                 raise SmokeFailure(f"a burst of {n} requests never arrived")
+            if hold is not None:
+                deadline = time.monotonic() + ACTOR_TIMEOUT_S
+                while hold() and time.monotonic() < deadline:
+                    engine._emit_stats(interval_s=0.0)
+                    time.sleep(AR_TICK_S)
+                engine._last_stats_emit = 0.0
         inner()
     engine._step = step
 
@@ -5112,7 +5181,7 @@ EL1_LOSS_REL = P2_LOSS_REL_BOUND
 #: snapshot in the store); the after value is read once the runtime's
 #: free grace window and STORE_WAIT_S have passed
 STORE_BACK_GB = 0.1
-STORE_BACK_PHASES = ("EL1", "D1", "DG1")
+STORE_BACK_PHASES = ("EL1", "D1", "DG1", "AR1", "WF1")
 STORE_WAIT_S = 3.0
 
 
@@ -7750,7 +7819,7 @@ ray_tpu_torch.init()
 task = ray_tpu_torch.remote(num_gpus={gpus})(jc_flash)
 o, rec = ray_tpu_torch.get(task.remote({seed}, {device!r}, {shape!r}),
                            timeout=600)
-print("jc1-job " + json.dumps(rec), flush=True)
+print({tag!r} + json.dumps(rec), flush=True)
 ray_tpu_torch.shutdown()
 """
 
@@ -7818,7 +7887,7 @@ def phase_jc1(dev, card: str, seed: int):
     flash = inspect.getsource(jc_flash)
     device = "cuda" if dev.type == "cuda" else "cpu"
     kw = dict(flash=flash, gpus=JC_GPUS, seed=seed, device=device,
-              shape=tuple(JC_SHAPE))
+              shape=tuple(JC_SHAPE), tag="jc1-job ")
     srv = ClientServer(host="127.0.0.1", port=0).start()
     client_proc = None
     try:
@@ -7927,6 +7996,820 @@ def dag_job_phases(dev, card: str, seed: int):
             for name, phase in (("DG1", phase_dg1), ("JC1", phase_jc1))}
 
 
+# ---------------------------------------------------- AR1, WF1 and CL1
+# The slice arbiter moving a card-resident trainer's slice for a serve
+# burst, a durable workflow around the flash forward, and the command
+# line's cluster round trip, on the runtime S2-JC1 share.
+AR_LAYERS = 1
+AR_ROWS = 2                # dp=2: one 2048-token row a rank
+AR_STEPS = (2, 1, 2)       # steps before the preemption, folded, regrown
+#: the JAX colocation test's policy; the gauges' window is the burst's
+#: TTFT's reach (the JAX default, 30 s, would keep the held burst's TTFT
+#: in the p99 for 30 s after it)
+AR_POLICY = dict(queue_high=4.0, queue_low=1.0, ttft_p99_high_ms=2000.0,
+                 ttft_p99_low_ms=1000.0, sustain_s=2.0, ebb_s=4.0,
+                 window_s=2.0)
+AR_TICK_S = 0.2            # the arbiter's update (and the gate's publish)
+AR_ACT_S = 120.0           # the preemption and the return within this
+AR_TELEMETRY_S = 0.5       # the trainer's telemetry interval (its default)
+AR_HOLD_KEY = b"chip_smoke:ar1:hold"
+
+
+def ar_held() -> bool:
+    """Whether AR1's driver still holds the burst at the gate (a key in
+    the runtime's internal KV)."""
+    from ray_tpu_torch.experimental import internal_kv
+    return internal_kv._internal_kv_exists(AR_HOLD_KEY)
+
+
+def ar_single_streams(engine, prompts, max_new: int):
+    """Each prompt served alone through ``engine``, one after another."""
+    return [list(engine.generate_sync(p, max_new, timeout_s=ACTOR_TIMEOUT_S))
+            for p in prompts]
+
+
+def rank_probe(rank, what: str):
+    """In a plan's rank actor: ``"reset"`` zeroes its flash launch counts;
+    ``"read"`` returns them with its pid."""
+    if what == "reset":
+        reset_flash_counts()
+        return None
+    return {"launches": flash_counts(), "pid": os.getpid()}
+
+
+def fleet_row(pid: int, window_s: float):
+    from ray_tpu_torch.util.state import fleet_metrics
+    rows = [r for r in fleet_metrics(window_s=window_s)["rows"]
+            if r["pid"] == pid]
+    return rows[0] if rows else None
+
+
+def phase_ar1(dev, card: str, seed: int):
+    """AR1: serving and training share the card, and the slice arbiter
+    moves the slice (see the module docstring)."""
+    import urllib.request
+
+    import ray_tpu_torch
+    from ray_tpu_torch import api, serve
+    from ray_tpu_torch.autoscaler import (ArbiterPolicy, FakeSliceProvider,
+                                          SliceArbiter, SliceManager,
+                                          SliceTypeConfig)
+    from ray_tpu_torch.core.global_state import try_global_worker
+    from ray_tpu_torch.experimental import internal_kv
+    from ray_tpu_torch.models import init_params
+    from ray_tpu_torch.parallel.elastic import ElasticTrainer
+    from ray_tpu_torch.parallel.plan import ParallelPlan
+    from ray_tpu_torch.serve import LLMServer
+    from ray_tpu_torch.util.state import list_task_events
+    t0 = time.perf_counter()
+    cfg = pipe_model(AR_LAYERS)
+    scfg = shard_model(AR_LAYERS)
+    batch = pipe_batch(cfg, seed, AR_ROWS)
+    prompts = make_requests(seed, scfg.vocab_size)
+    recorder = try_global_worker().recorder
+    controller = api._head.controller
+    provider = FakeSliceProvider(provider_config={"max_slices": 2})
+    mgr = SliceManager(
+        SliceHostController(recorder), provider,
+        [SliceTypeConfig("train-gpu", "1x1", {"CPU": 4, "GPU": 0.5}),
+         SliceTypeConfig("serve-gpu", "1x1", {"CPU": 2, "GPU": 0.5})],
+        idle_timeout_s=3600.0, drain_deadline_s=0.0)
+    arb = SliceArbiter(mgr, policy=ArbiterPolicy(**AR_POLICY))
+    train_sid = mgr.acquire_slice("train-gpu")
+    arb.claim(train_sid, owner="train-job", kind="train", priority=0)
+    serve_sid = mgr.acquire_slice("serve-gpu")
+    arb.claim(serve_sid, owner="serve-fleet", kind="serve", priority=10)
+    owned = {train_sid}
+    arb.register_on_return(
+        lambda info: owned.add(info["slice_id"])
+        if info["owner"] == "train-job" else None)
+    folded = {"done": False}
+
+    def pump():
+        """The manager's reconcile: the hosts of UP slices are busy, and
+        the preempted slice's until the trainer has folded off it."""
+        busy = set()
+        for sid, info in mgr.slices.items():
+            if info.state == "UP" or (sid == train_sid
+                                      and not folded["done"]):
+                busy |= set(provider.internal_ids(sid))
+        alive = {h for sid in provider.non_terminated_nodes()
+                 for h in provider.internal_ids(sid)}
+        mgr.update({"demand": [], "slice_demand": [], "busy_nodes": busy,
+                    "alive_nodes": alive})
+
+    ticks = []
+
+    def tick():
+        pump()
+        out = arb.update()
+        ticks.append(dict(out, t=time.perf_counter() - t0,
+                          gauges=dict(arb._last_gauges)))
+        return out
+
+    pump()
+    controller.slice_arbiter = arb
+    internal_kv._internal_kv_put(AR_HOLD_KEY, b"hold")
+    params = init_params(scfg, seed=seed, device=dev, dtype=scfg.dtype)
+    checksum = weights_checksum(params)
+    del params
+    res = {"card": card, "config": f"gptj-6b n_layers={AR_LAYERS}",
+           "plan": "dp=2", "batch": [AR_ROWS, cfg.max_seq_len],
+           "policy": AR_POLICY, "burst": len(prompts)}
+    trainer = ref = None
+    launches, threads = [], []
+    try:
+        import threading
+        serve.start(http_options={"port": 0})
+        t1 = time.perf_counter()
+        # the replica comes up while the trainer is built
+        failed = []
+
+        def deploy():
+            try:
+                serve.run(serve.deployment(LLMServer, name="ar1").bind(
+                    model=model_dict(scfg),
+                    engine=engine_dict(max_new_tokens=48), seed=seed),
+                    name="ar1", route_prefix="/ar1")
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                failed.append(e)
+        deployed = threading.Thread(target=deploy, daemon=True)
+        deployed.start()
+        # a notice's fold takes a live snapshot: the periodic ones serve
+        # a failure's replay, which EL1 runs, at EL1's interval
+        trainer = ElasticTrainer(
+            ParallelPlan(dp=2), cfg, learning_rate=1e-4, seed=seed,
+            snapshot_interval=EL1_SNAPSHOT_INTERVAL,
+            telemetry_interval_s=AR_TELEMETRY_S, slice_manager=mgr,
+            slice_filter=lambda sid: sid in owned, device=dev)
+        ref = ParallelPlan().build(cfg, learning_rate=1e-4, seed=seed,
+                                   telemetry_interval_s=0, device=dev)
+        res["build_s"] = time.perf_counter() - t1
+        deployed.join(ACTOR_TIMEOUT_S)
+        check(not deployed.is_alive(), "AR1: serve.run never returned")
+        if failed:
+            raise failed[0]
+        (replica,), (info,) = ready_replicas(["ar1"], dev, checksum, t1)
+        res["replica"] = info
+        url = serve.proxy_address() + "/ar1"
+        reset_flash_counts()
+
+        def watch(prog):
+            """A program's rank launches zeroed now, before its first
+            step, and read just before it shuts down (a program in this
+            process has no ranks)."""
+            actors = list(getattr(prog, "actors", []))
+            ray_tpu_torch.get([a.__ray_call__.remote(rank_probe, "reset")
+                               for a in actors], timeout=60)
+            inner = prog.shutdown
+
+            def shutdown():
+                launches.append([ray_tpu_torch.get(
+                    a.__ray_call__.remote(rank_probe, "read"), timeout=60)
+                    for a in actors])
+                inner()
+            prog.shutdown = shutdown
+            return prog
+
+        watch(trainer.program)
+        build = trainer._build
+        trainer._build = lambda plan: watch(build(plan))
+        steps = []
+
+        def train_step(stage: str):
+            t2 = time.perf_counter()
+            got = trainer.step(batch)
+            wall = time.perf_counter() - t2
+            want = ref.step(batch).loss
+            steps.append({"step": len(steps) + 1, "stage": stage,
+                          "loss": got.loss, "loss_one_device": want,
+                          "rel": abs(got.loss - want) / abs(want),
+                          "wall_s": wall, "end_s": time.perf_counter() - t0,
+                          "plan": trainer.plan.describe()})
+            tick()
+
+        # 1. steps on dp=2; the trainer's rank 0 reports its tokens/s
+        for _ in range(AR_STEPS[0]):
+            train_step("dp=2")
+        check(not ticks[-1]["pressure"],
+              f"AR1: pressure before the burst: {ticks[-1]['gauges']}")
+        rank0 = ray_tpu_torch.get(trainer.program.actors[0].__ray_call__
+                                  .remote(rank_probe, "read"), timeout=60)
+        deadline = time.monotonic() + 10
+        row = None
+        while time.monotonic() < deadline:
+            row = fleet_row(rank0["pid"], AR_POLICY["window_s"])
+            if row is not None and row["train_tokens_per_s"] > 0:
+                break
+            time.sleep(AR_TICK_S)
+        res["train_row"] = row
+        # 2. the burst, held at the gate while the arbiter watches
+        probe(replica, gate_burst, len(prompts) - 1, ar_held)
+        probe(replica, lambda engine: reset_launches())
+        streams = [[] for _ in prompts]
+        ttft = [None] * len(prompts)
+        errors = []
+
+        def client(i):
+            t2 = time.perf_counter()
+            try:
+                for tok in http_tokens(url, prompts[i]):
+                    if ttft[i] is None:
+                        ttft[i] = time.perf_counter() - t2
+                    streams[i].append(tok)
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                errors.append(e)
+
+        threads.append(threading.Thread(target=client, args=(0,)))
+        threads[0].start()
+        deadline = time.monotonic() + ACTOR_TIMEOUT_S
+        while not streams[0] and not errors \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        for i in range(1, len(prompts)):
+            threads.append(threading.Thread(target=client, args=(i,)))
+            threads[-1].start()
+        t_burst = time.perf_counter()
+        # 3. the arbiter preempts the train slice
+        pressure_at = None
+        deadline = time.monotonic() + AR_ACT_S
+        while time.monotonic() < deadline and not errors:
+            out = tick()
+            if out["pressure"] and pressure_at is None:
+                pressure_at = time.perf_counter()
+            if any(a.startswith("preempt:") for a in out["actions"]):
+                break
+            time.sleep(AR_TICK_S)
+        t_notice = time.perf_counter()
+        check(arb.preemptions == 1,
+              f"AR1: no preemption within {AR_ACT_S} s: {ticks[-3:]}")
+        res["burst_queue_depth_max"] = max(
+            (t["gauges"].get("queue_depth") or 0) for t in ticks)
+        res["replica_row"] = fleet_row(info["pid"], AR_POLICY["window_s"])
+        internal_kv._internal_kv_del(AR_HOLD_KEY)
+        # 4. the folded step
+        train_step("folded")
+        folded["done"] = True
+        t_folded = time.perf_counter()
+        # 5. the burst drains and the slice is released
+        for th in threads:
+            th.join(ACTOR_TIMEOUT_S)
+        check(not any(th.is_alive() for th in threads),
+              "AR1: a burst stream never ended")
+        if errors:
+            raise errors[0]
+        t_drained = time.perf_counter()
+        d = probe(replica, engine_drained)
+        # each prompt alone, meanwhile: the calm traffic of the ebb
+        box = {}
+        single = threading.Thread(target=lambda: box.update(out=probe(
+            replica, ar_single_streams, prompts, 48)))
+        single.start()
+        # 6. the ebb returns a slice
+        deadline = time.monotonic() + AR_ACT_S
+        while time.monotonic() < deadline:
+            out = tick()
+            if "return" in out["actions"]:
+                break
+            time.sleep(AR_TICK_S)
+        t_return = time.perf_counter()
+        check(arb.returns == 1,
+              f"AR1: no return within {AR_ACT_S} s: {ticks[-3:]}")
+        pump()                         # the returned slice comes UP
+        single.join(ACTOR_TIMEOUT_S)
+        check("out" in box, "AR1: the single-request streams never ended")
+        singles = box["out"]
+        divergences = confirm_divergences(
+            streams, singles,
+            lambda i, pos: probe(replica, engine_replay, prompts[i],
+                                 singles[i], pos, streams[i][pos]), "ar1")
+        # 7. the regrown steps
+        train_step("regrown")
+        t_regrown = time.perf_counter()
+        for _ in range(AR_STEPS[2] - 1):
+            train_step("regrown")
+        pump()
+        slices = {sid: i.state for sid, i in mgr.slices.items()}
+        path = os.path.join(api._head.session_dir, "dashboard.json")
+        with open(path) as f:
+            address = json.load(f)["address"]
+        with urllib.request.urlopen(address + "/api/v0/arbiter",
+                                    timeout=30) as r:
+            arbiter_rows = json.load(r)["rows"]
+        recorder.flush()
+        events = [e for e in list_task_events(limit=100_000)
+                  if e["ev"] in ("ARBITER_PREEMPT", "ARBITER_RETURN")]
+        recoveries = [r.asdict() for r in trainer.recoveries]
+        driver_launches = flash_counts()
+    finally:
+        controller.slice_arbiter = None
+        internal_kv._internal_kv_del(AR_HOLD_KEY)
+        for th in threads:
+            th.join(ACTOR_TIMEOUT_S)
+        serve.shutdown()
+        if trainer is not None:
+            trainer.shutdown()
+        if ref is not None:
+            ref.shutdown()
+        mgr.shutdown()
+        provider.shutdown()
+        del trainer, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    regrown_sid = next(iter(owned - {train_sid}), None)
+    res.update(
+        steps=steps, recoveries=recoveries, slices=slices,
+        train_sid=train_sid, serve_sid=serve_sid, regrown_sid=regrown_sid,
+        preemptions=arb.preemptions, returns=arb.returns,
+        preempt_reason=next((t["reason"] for t in ticks
+                             if any(a.startswith("preempt:")
+                                    for a in t["actions"])), None),
+        events=events, arbiter_rows=arbiter_rows,
+        pressure_to_notice_s=t_notice - (pressure_at or t_notice),
+        burst_to_notice_s=t_notice - t_burst,
+        notice_to_folded_step_s=t_folded - t_notice,
+        drained_to_return_s=t_return - t_drained,
+        return_to_regrown_step_s=t_regrown - t_return,
+        **ttft_stats(ttft), generated_tokens=sum(len(s) for s in streams),
+        prefill_chunks=d["stats"]["prefill_chunks"],
+        decode_steps=d["stats"]["decode_steps"],
+        paged_launches=d["launches"], launches=launches,
+        driver_launches=driver_launches,
+        stream_lengths=[len(t) for t in streams],
+        streams_equal=len(streams) - len(divergences),
+        divergences=divergences, ticks=len(ticks),
+        wall_s=time.perf_counter() - t0)
+    print("ar1 " + json.dumps(res), flush=True)
+    ar1_checks(res, scfg.n_layers)
+    return res
+
+
+def ar1_checks(res, n_layers: int) -> None:
+    """AR1's checks on its record."""
+    for st in res["steps"]:
+        check(math.isfinite(st["loss"]) and st["rel"] <= EL1_LOSS_REL,
+              f"AR1 step {st['step']} ({st['stage']}): loss {st['loss']} "
+              f"against the one-device {st['loss_one_device']} "
+              f"(rel {st['rel']})")
+    want_stages = ["dp=2"] * AR_STEPS[0] + ["folded"] * AR_STEPS[1] \
+        + ["regrown"] * AR_STEPS[2]
+    want_plans = ["spmd[dp=2 fp32]"] * AR_STEPS[0] \
+        + ["spmd[single-device fp32]"] * AR_STEPS[1] \
+        + ["spmd[dp=2 fp32]"] * AR_STEPS[2]
+    got = [(st["stage"], st["plan"]) for st in res["steps"]]
+    check(got == list(zip(want_stages, want_plans)),
+          f"AR1 steps ran on {got}")
+    rec = [(r["trigger"], r["from_plan"], r["to_plan"])
+           for r in res["recoveries"]]
+    check(rec == [("notice", "spmd[dp=2 fp32]", "spmd[single-device fp32]"),
+                  ("regrow", "spmd[single-device fp32]", "spmd[dp=2 fp32]")],
+          f"AR1 recoveries {rec}")
+    check(res["recoveries"][0]["steps_lost"] <= 1,
+          f"AR1: the fold lost {res['recoveries'][0]['steps_lost']} steps")
+    check(res["preemptions"] == res["returns"] == 1,
+          f"AR1: {res['preemptions']} preemptions, {res['returns']} returns")
+    check(res["preempt_reason"] == "queue-depth",
+          f"AR1: preempted for {res['preempt_reason']!r}")
+    evs = [(e["ev"], e.get("slice"), e.get("reason"))
+           for e in res["events"]]
+    check(evs == [("ARBITER_PREEMPT", res["train_sid"], "queue-depth"),
+                  ("ARBITER_RETURN", res["regrown_sid"], "pressure-ebbed")],
+          f"AR1 arbiter events {evs}")
+    # no regrown slice where no return came (checked above)
+    want = sorted(sid for sid in (res["serve_sid"], res["regrown_sid"])
+                  if sid is not None)
+    up = sorted(sid for sid, state in res["slices"].items() if state == "UP")
+    check(res["regrown_sid"] is not None and up == want,
+          f"AR1: UP slices {up}, not the serve and the regrown train slice")
+    rows = sorted(r["slice_id"] for r in res["arbiter_rows"])
+    check(res["regrown_sid"] is not None and rows == want,
+          f"AR1: /api/v0/arbiter lists {rows}")
+    train = res["train_row"] or {}
+    check((train.get("train_tokens_per_s") or 0) > 0,
+          f"AR1: the trainer's fleet row {train}")
+    replica = res["replica_row"] or {}
+    check((replica.get("queue_depth") or 0) >= AR_POLICY["queue_high"]
+          and res["burst_queue_depth_max"] >= AR_POLICY["queue_high"],
+          f"AR1: queue depth {replica.get('queue_depth')} in the replica's "
+          f"row, {res['burst_queue_depth_max']} at most in the arbiter's "
+          f"gauges, during the burst")
+    check(all(n == 48 for n in res["stream_lengths"]),
+          f"AR1 stream lengths {res['stream_lengths']} != 48")
+    check(all(v["near_tie"] for v in res["divergences"]),
+          f"AR1: burst streams leave the single-request ones away from a "
+          f"near tie: {res['divergences']}")
+    calls = res["prefill_chunks"] + res["decode_steps"]
+    check(res["paged_launches"] > 0
+          and res["paged_launches"] == n_layers * calls,
+          f"AR1 replica paged launches {res['paged_launches']} != "
+          f"{n_layers} x {calls}")
+    want = [AR_STEPS[0], None, AR_STEPS[2]]
+    check(len(res["launches"]) == 3 and len(res["launches"][1]) == 0,
+          f"AR1 built programs with ranks {[len(p) for p in res['launches']]}")
+    for p, ranks in enumerate(res["launches"]):
+        if want[p] is None:
+            continue
+        check(len(ranks) == 2, f"AR1 program {p} has {len(ranks)} ranks")
+        for j, r in enumerate(ranks):
+            for name, n in r["launches"].items():
+                check(n == want[p] * AR_LAYERS,
+                      f"AR1 program {p} rank {j}: {name} launched {n} "
+                      f"times, not {want[p] * AR_LAYERS}")
+    n_driver = (sum(AR_STEPS) + AR_STEPS[1]) * AR_LAYERS
+    for name, n in res["driver_launches"].items():
+        check(n == n_driver, f"AR1: the driver launched {name} {n} times "
+                             f"(the one-device plan and the folded "
+                             f"program), not {n_driver}")
+
+
+WF_GPUS = 0.5          # each of WF1's steps on the card: half of it
+
+
+@contextlib.contextmanager
+def one_cpu_thread(dev):
+    """On the CPU, one intra-op thread: the plain version's f32 matmuls
+    then add up in one order whatever the host's load, so two processes
+    agree bit for bit (the card's kernel does without this)."""
+    if dev.type != "cpu":
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def wf_make_qkv(seed: int, shape):
+    """WF1 step 1: GPT-J-6B-width q, k, v (bf16, (B, S, H, D)) drawn from
+    ``seed`` with numpy, on the card where the task has one."""
+    import numpy as np
+    import torch
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.standard_normal(shape, dtype=np.float32))
+                 .to(device=dev, dtype=torch.bfloat16) for _ in range(3))
+
+
+def wf_flash(qkv, log_path: str):
+    """WF1 step 2: the flash forward's wrapper, causal, on the card where
+    the task has one; its launches are appended to ``log_path`` (one JSON
+    line a call), so a resume that ran it again would show."""
+    import json
+    import os
+
+    import torch
+    from ray_tpu_torch.ops.flash_attention import (flash_delta, flash_dkdv,
+                                                   flash_dq, flash_fwd)
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    q, k, v = (t.to(dev) for t in qkv)
+    kernels = (flash_fwd, flash_delta, flash_dkdv, flash_dq)
+    for f in kernels:
+        f.kernel_launches = 0
+    with one_cpu_thread(dev):
+        o, _ = flash_fwd(q, k, v, causal=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    rec = {"launches": {f.__name__: f.kernel_launches for f in kernels},
+           "current": str(o.device), "pid": os.getpid()}
+    with open(log_path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    return o
+
+
+def wf_reduce(o, marker: str):
+    """WF1 step 3: the output's float64 sum and bytes' sha256, with the
+    output; the first attempt raises (it leaves ``marker``)."""
+    import hashlib
+    import os
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("WF1: the reduce's first attempt fails")
+    o = o.cpu()
+    return {"o": o, "checksum": float(o.double().sum()),
+            "sha256": hashlib.sha256(o.contiguous().view(torch.uint8)
+                                     .numpy().tobytes()).hexdigest()}
+
+
+def wf_after(ts):
+    return {"fired": ts}
+
+
+def phase_wf1(dev, card: str, seed: int):
+    """WF1: a durable workflow around the flash forward (see the module
+    docstring)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import api, workflow
+    t0 = time.perf_counter()
+    root = os.path.join(api._head.session_dir, "wf1")
+    os.makedirs(root, exist_ok=True)
+    workflow.init_storage(os.path.join(root, "storage"))
+    steps = [ray_tpu_torch.remote(num_gpus=WF_GPUS)(f)
+             for f in (wf_make_qkv, wf_flash, wf_reduce)]
+
+    def dag(name: str):
+        qkv = steps[0].bind(seed, tuple(JC_SHAPE))
+        o = steps[1].bind(qkv, os.path.join(root, f"{name}.launches"))
+        return steps[2].bind(o, os.path.join(root, f"{name}.marker"))
+
+    def logged(name: str):
+        with open(os.path.join(root, f"{name}.launches")) as f:
+            return [json.loads(line) for line in f]
+
+    res = {"card": card, "shape": list(JC_SHAPE), "gpus_a_step": WF_GPUS}
+    failed = None
+    t1 = time.perf_counter()
+    try:
+        workflow.run(dag("resumed"), workflow_id="wf1")
+    except Exception as e:  # noqa: BLE001 -- the reduce's first attempt
+        failed = f"{type(e).__name__}: {e}"
+    res["first_run_s"] = time.perf_counter() - t1
+    res["first_run_error"] = failed
+    res["status_after_failure"] = workflow.get_status("wf1")
+    res["launches_before_resume"] = logged("resumed")
+    t1 = time.perf_counter()
+    out = workflow.resume("wf1")
+    res["resume_s"] = time.perf_counter() - t1
+    res["launches_after_resume"] = logged("resumed")
+    res["status"] = workflow.get_status("wf1")
+    open(os.path.join(root, "straight.marker"), "w").close()
+    t1 = time.perf_counter()
+    straight = workflow.run(dag("straight"), workflow_id="wf1-straight")
+    res["straight_run_s"] = time.perf_counter() - t1
+    res["straight_launches"] = logged("straight")
+    stored = workflow.get_output("wf1")
+    res["stored_bit_equal_straight"] = bool(
+        torch.equal(stored["o"], straight["o"])
+        and stored["sha256"] == straight["sha256"] == out["sha256"])
+    with one_cpu_thread(dev):
+        ref = jc_flash(seed, str(dev), tuple(JC_SHAPE))[0].cpu()
+    res["bit_equal_driver"] = bool(torch.equal(stored["o"], ref))
+    res["checksum"], res["sha256"] = stored["checksum"], stored["sha256"]
+    res["listed"] = sorted(w for w, _ in workflow.list_all())
+    workflow.delete("wf1")
+    res["listed_after_delete"] = sorted(w for w, _ in workflow.list_all())
+    target = time.time() + 0.5
+    res["timer"] = workflow.run(ray_tpu_torch.remote(wf_after).bind(
+        workflow.wait_for_event(workflow.TimerListener, target)),
+        workflow_id="wf1-timer")
+    res["timer_target"] = target
+    res["timer_status"] = workflow.get_status("wf1-timer")
+    res["wall_s"] = time.perf_counter() - t0
+    print("wf1 " + json.dumps(res), flush=True)
+    wf1_checks(res, "cuda:0" if dev.type == "cuda" else "cpu")
+    return res
+
+
+def wf1_checks(res, current: str) -> None:
+    """WF1's checks on its record."""
+    check(res["first_run_error"] is not None
+          and "first attempt fails" in res["first_run_error"]
+          and res["status_after_failure"] == "FAILED",
+          f"WF1: the first run ended {res['status_after_failure']} "
+          f"({res['first_run_error']})")
+    logs = res["launches_before_resume"]
+    check(len(logs) == 1 and res["launches_after_resume"] == logs,
+          f"WF1: the flash step ran {len(logs)} time(s) before the resume "
+          f"and {len(res['launches_after_resume'])} after it")
+    for rec in logs + res["straight_launches"]:
+        check(rec["current"] == current,
+              f"WF1: the flash step ran on {rec['current']}, not {current}")
+        for name, n in rec["launches"].items():
+            want = 1 if name == "flash_fwd" else 0
+            check(n == want, f"WF1: the flash step launched {name} {n} "
+                             f"times, not {want}")
+    check(res["status"] == "SUCCESSFUL",
+          f"WF1: the resumed workflow is {res['status']}")
+    check(res["stored_bit_equal_straight"],
+          "WF1: the resumed workflow's stored output is not bit-equal to "
+          "a straight run's")
+    check(res["bit_equal_driver"],
+          "WF1: the workflow's output is not the driver's flash forward")
+    check({"wf1", "wf1-straight"} <= set(res["listed"])
+          and "wf1" not in res["listed_after_delete"],
+          f"WF1: listed {res['listed']}, after delete "
+          f"{res['listed_after_delete']}")
+    check(res["timer"] == {"fired": res["timer_target"]}
+          and res["timer_status"] == "SUCCESSFUL",
+          f"WF1: the timer step gave {res['timer']} "
+          f"({res['timer_status']})")
+
+
+CL_CMD_S = 300.0       # each command line call returns within this
+CL_GPUS = 0.5          # the submitted script's task: half the card
+
+
+def cl_config(session_dir: str):
+    """CL1's cluster: the local launcher's fake-slice provider, a head
+    counting the card, one slice of one host (JSON, which is YAML)."""
+    return {"cluster_name": "cl1",
+            "provider": {"type": "fake_slice", "session_dir": session_dir},
+            "head_node_type": "head",
+            "available_node_types": {
+                "head": {"resources": {"CPU": 2, "GPU": 1}}},
+            "slices": {"host": {"topology": "1x1", "count": 1,
+                                "host_resources": {"CPU": 1}}}}
+
+
+def cl_tree(pids):
+    """The pids and every descendant of theirs that live now."""
+    import psutil
+    out = set()
+    for pid in pids:
+        try:
+            p = psutil.Process(pid)
+            out.add(pid)
+            out.update(c.pid for c in p.children(recursive=True))
+        except psutil.Error:
+            pass
+    return out
+
+
+def gpu_pids():
+    """The pids ``nvidia-smi`` lists as holding the card (none where it
+    lists no process)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return set()
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def phase_cl1(dev, card: str, seed: int):
+    """CL1: the command line on the card's host (see the module
+    docstring)."""
+    import inspect
+
+    import psutil
+    from ray_tpu_torch import api
+    t0 = time.perf_counter()
+    root = os.path.join(api._head.session_dir, "cl1")
+    os.makedirs(root, exist_ok=True)
+    cfg_path = os.path.join(root, "cluster.yaml")
+    with open(cfg_path, "w") as f:
+        json.dump(cl_config(os.path.join(root, "session")), f)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    env.pop("RAY_TPU_TORCH_ADDRESS", None)
+    walls = {}
+
+    def cli(name, *args, address=None, ok=True):
+        e = dict(env, **({"RAY_TPU_TORCH_ADDRESS": address}
+                         if address else {}))
+        t1 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.cli",
+                            *args], capture_output=True, text=True, env=e,
+                           cwd=repo, timeout=CL_CMD_S)
+        walls[name] = round(walls.get(name, 0.0)
+                            + time.perf_counter() - t1, 3)
+        if ok:
+            check(p.returncode == 0, f"CL1: cli {' '.join(args)} exited "
+                  f"{p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+        return p
+
+    res = {"card": card, "config": cl_config("<session>")}
+    head_pid, tree = None, set()
+    before = set(psutil.pids())
+    try:
+        up = json.loads(cli("up", "up", "-y", cfg_path)
+                        .stdout.strip().splitlines()[-1])
+        head_pid, address = up["head_pid"], up["session_dir"]
+        res["up"] = up
+        script = os.path.join(root, "submit.py")
+        with open(script, "w") as f:
+            f.write(JC_JOB_SCRIPT.format(
+                flash=inspect.getsource(jc_flash), gpus=CL_GPUS, seed=seed,
+                device="cuda" if dev.type == "cuda" else "cpu",
+                shape=tuple(JC_SHAPE), tag="cl1-submit "))
+        res["submit"] = tagged(cli("submit", "submit", script,
+                                   address=address).stdout, "cl1-submit ")
+        jid = cli("job", "job", "submit", "--no-wait", "--",
+                  sys.executable, "-c", "print('cl1-job')",
+                  address=address).stdout.strip().splitlines()[-1]
+        deadline = time.monotonic() + CL_CMD_S
+        status = None
+        while time.monotonic() < deadline:
+            status = cli("job", "job", "status", jid,
+                         address=address).stdout.strip()
+            if status in ("SUCCEEDED", "FAILED", "STOPPED"):
+                break
+            time.sleep(0.5)
+        res["job"] = {"id": jid, "status": status}
+        res["status"] = cli("status", "status", address=address).stdout
+        deadline = time.monotonic() + CL_CMD_S
+        while True:
+            nodes = json.loads(cli("list", "list", "nodes",
+                                   address=address).stdout)
+            alive = [n for n in nodes if n.get("alive")]
+            if len(alive) >= 2 or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        res["nodes"] = [{"alive": n.get("alive"),
+                         "labels": n.get("labels"),
+                         "resources": n.get("resources_total")
+                         or n.get("resources")} for n in nodes]
+        tree = cl_tree([head_pid] + [
+            p.pid for p in psutil.process_iter(["cmdline"])
+            if p.pid not in before and "ray_tpu_torch.core.node" in
+            " ".join(p.info["cmdline"] or [])])
+    finally:
+        down = cli("down", "down", "-y", cfg_path, ok=False)
+    res["down"] = {"rc": down.returncode,
+                   "out": down.stdout.strip().splitlines()[-1:]}
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and (
+            not group_gone(head_pid) or any(psutil.pid_exists(p)
+                                            for p in tree)):
+        time.sleep(0.2)
+    res["head_group_gone"] = head_pid is not None and group_gone(head_pid)
+    res["left"] = sorted(p for p in tree if psutil.pid_exists(p))
+    res["left_on_gpu"] = sorted(tree & gpu_pids())
+    res["tree"] = len(tree)
+    # after down: the suite runs a runtime of its own; its PPO phase's
+    # learner (where gymnasium is installed) on the phase's device
+    micro = cli("microbenchmark", "microbenchmark", "--device",
+                "cuda" if dev.type == "cuda" else "cpu").stdout
+    res["microbenchmark"] = [json.loads(line) for line in micro.splitlines()
+                             if line.startswith('{"metric"')]
+    res["cli_walls_s"] = walls
+    res["wall_s"] = time.perf_counter() - t0
+    print("cl1 " + json.dumps(res), flush=True)
+    cl1_checks(res, "cuda:0" if dev.type == "cuda" else "cpu")
+    return res
+
+
+def cl1_checks(res, current: str) -> None:
+    """CL1's checks on its record."""
+    from ray_tpu_torch.scripts.perf import BASELINES
+    check(res["up"]["created"] and len(res["up"]["slices"]) == 1,
+          f"CL1: up gave {res['up']}")
+    sub = res["submit"] or {}
+    check(sub.get("current") == current,
+          f"CL1: the submitted script's task ran on {sub.get('current')}")
+    for name, n in (sub.get("launches") or {"flash_fwd": 0}).items():
+        want = 1 if name == "flash_fwd" else 0
+        check(n == want, f"CL1: the submitted script launched {name} {n} "
+                         f"times, not {want}")
+    check(res["job"]["status"] == "SUCCEEDED",
+          f"CL1: the job {res['job']} did not succeed")
+    check("GPU" in res["status"] and "Nodes: 2 alive" in res["status"],
+          f"CL1: status printed {res['status']!r}")
+    alive = [n for n in res["nodes"] if n["alive"]]
+    check(len(alive) == 2 and any(
+        (n["labels"] or {}).get("ray-tpu-slice-id") for n in alive),
+          f"CL1: list nodes gave {res['nodes']}")
+    got = {r["metric"] for r in res["microbenchmark"]}
+    check(set(BASELINES) <= got and all(
+        r["value"] > 0 for r in res["microbenchmark"]),
+          f"CL1: microbenchmark printed {sorted(got)}")
+    check(res["down"]["rc"] == 0, f"CL1: down gave {res['down']}")
+    check(res["head_group_gone"] and not res["left"]
+          and not res["left_on_gpu"] and res["tree"] >= 2,
+          f"CL1: after down the head's group is "
+          f"{'gone' if res['head_group_gone'] else 'alive'}, "
+          f"{res['left']} of its {res['tree']} processes are left, "
+          f"{res['left_on_gpu']} on the card")
+
+
+def ar_wf_cl_phases(dev, card: str, seed: int):
+    """AR1 and WF1 after JC1, on the caller's runtime where it shares
+    one, else each on a runtime of its own; CL1 beside them on a thread
+    of its own (its clusters are runtimes of their own). One after
+    another the three took 225.6 s of a 1111.1 s run on a slow host,
+    over the script's 900 s budget and near its 1200 s limit: so AR1's
+    and WF1's times, and the microbenchmark's rates, are taken under
+    each other's load."""
+    import threading
+    t0 = time.perf_counter()
+    out, errors = {}, []
+
+    def cl1():
+        t1 = time.perf_counter()
+        try:
+            out["CL1"] = phase_cl1(dev, card, seed)
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+        print(phase_wall("CL1", t1), flush=True)
+    beside = threading.Thread(target=cl1, name="CL1", daemon=True)
+    beside.start()
+    try:
+        for name, phase in (("AR1", phase_ar1), ("WF1", phase_wf1)):
+            out[name] = on_own_runtime(name, dev, phase, card, seed)
+    finally:
+        beside.join(CL_CMD_S * 4)
+    check(not beside.is_alive(), "CL1 never returned")
+    if errors:
+        raise errors[0]
+    print(phase_wall("AR1-CL1", t0, group=True), flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -7988,6 +8871,8 @@ def main(argv=None) -> int:
         trained = train_tune_phases(dev, card, args.seed)
         trained.update(data_tune_phases(dev, card, args.seed))
         dag_job = dag_job_phases(dev, card, args.seed)
+        later = ar_wf_cl_phases(dev, card, args.seed)
+    paged["arbiter_launches"] = later["AR1"]["paged_launches"]
     for rec in flash:
         rec["sharded_launches"] = [r["launches"][rec["name"]]
                                    for r in sharded["P1"]["ranks"]]
@@ -8019,6 +8904,16 @@ def main(argv=None) -> int:
         rec["job_launches"] = dag_job["JC1"]["job_launches"][rec["name"]]
         rec["client_launches"] = \
             dag_job["JC1"]["client_launches"][rec["name"]]
+        rec["arbiter_launches"] = {
+            "programs": [[r["launches"][rec["name"]] for r in prog]
+                         for prog in later["AR1"]["launches"]],
+            "driver": later["AR1"]["driver_launches"][rec["name"]]}
+        rec["workflow_launches"] = [
+            r["launches"][rec["name"]]
+            for r in later["WF1"]["launches_after_resume"]
+            + later["WF1"]["straight_launches"]]
+        rec["cli_launches"] = \
+            later["CL1"]["submit"]["launches"][rec["name"]]
 
     total = time.perf_counter() - t_start
     print(f"total wall: {total:.1f} s", flush=True)

@@ -281,11 +281,15 @@ def gather_to_numpy(tree, config, mesh, rules=None) -> Dict[str, Any]:
 
     def one(t, spec):
         t = t.detach().float()
+        parts = [int(np.prod([sizes[a] for a in spec_axes(spec[d])]))
+                 if d < len(spec) else 1 for d in range(t.dim())]
+        if all(k == 1 for k in parts):
+            # no axis of the mesh splits it: every rank holds it whole
+            # (replicas on the data axes), and every rank skips alike
+            return t.to("cpu", copy=True).numpy()
         if on_host:
             t = t.cpu()
         shards = _all_gather(t.contiguous(), world).cpu().numpy()
-        parts = [int(np.prod([sizes[a] for a in spec_axes(spec[d])]))
-                 if d < len(spec) else 1 for d in range(t.dim())]
         glob = tuple(n * k for n, k in zip(t.shape, parts))
         out = np.empty(glob, np.float32)
         for r in range(world.size):

@@ -9,8 +9,8 @@ real raylets on localhost). Node types map to slice hosts, and providers
 launch whole node managers (``python -m ray_tpu_torch.core.node``). A
 host's ``GPU`` count becomes the node's ``--num-gpus`` (CUDA devices are
 the port's ``GPU`` resource); the port's node has no ``--num-tpus``, so a
-``TPU`` entry stays a plain custom resource. The cloud providers (GCE,
-GKE) are ROADMAP Queue 1 item 11.
+``TPU`` entry stays a plain custom resource. The cloud providers are
+``gce.py`` and ``gke.py``.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 (``core/scheduler.py``'s ``SLICE_LABEL`` and ``set_draining``, the
 controller's ``_reschedule_pgs_on_nodes``, ``core/chaos.py``'s
 ``maintenance`` schedule, the ``SLICE_*`` events and gauges); a slice is
-a gang of hosts of the port's nodes, and the v2 autoscaler it composes
-with in the JAX package is ROADMAP Queue 1 item 11.
+a gang of hosts of the port's nodes; it composes with the v2
+autoscaler (``v2.py``) as in the JAX package.
 
 A TPU pod slice is the atomic multi-host unit everything multi-host
 rides on: its host VMs share one ICI domain, come up together, and are

@@ -44,7 +44,15 @@ logger = logging.getLogger(__name__)
 @dataclass
 class ObjectEntry:
     object_id: ObjectID
-    owner: Optional[bytes] = None          # identity of owning process
+    #: two owners: ``owner`` is the process a fetch asks for the value
+    #: (for a task's result, the process that reported it); ``owned_by``
+    #: is the process whose refs own the object (the putter, or the
+    #: caller of the task that made it), whose death frees the object if
+    #: no live process counts it. They differ only for a task's result;
+    #: ``owned_by`` is set through ``Controller._set_owned_by``, which
+    #: keeps its index.
+    owner: Optional[bytes] = None
+    owned_by: Optional[bytes] = None
     inline: Optional[bytes] = None         # small-object payload
     size: int = 0
     locations: Set[bytes] = field(default_factory=set)   # node_id binaries
@@ -224,6 +232,9 @@ class Controller:
         self.peers: Dict[bytes, dict] = {}          # identity -> {kind, node_id}
         self.nodes: Dict[bytes, NodeInfo] = {}      # node_id binary -> NodeInfo
         self.objects: Dict[bytes, ObjectEntry] = {}
+        #: the objects of ``objects`` by ``owned_by``, so that a process's
+        #: death releases its own without a walk of the table
+        self._owned: Dict[bytes, Set[bytes]] = {}
         self.actors: Dict[bytes, ActorInfo] = {}
         self.named_actors: Dict[Tuple[str, str], bytes] = {}
         # callers long-polling for an actor's worker address (direct calls)
@@ -677,9 +688,26 @@ class Controller:
             self.objects[object_id_b] = e
         return e
 
+    def _set_owned_by(self, e: ObjectEntry, who: Optional[bytes]) -> None:
+        if e.owned_by == who:
+            return
+        self._unindex_owned(e)
+        e.owned_by = who
+        if who is not None:
+            self._owned.setdefault(who, set()).add(e.object_id.binary())
+
+    def _unindex_owned(self, e: ObjectEntry) -> None:
+        held = self._owned.get(e.owned_by) if e.owned_by else None
+        if held is not None:
+            held.discard(e.object_id.binary())
+            if not held:
+                del self._owned[e.owned_by]
+
     def _h_put_object(self, identity: bytes, m: dict) -> None:
         e = self._entry(m["object_id"])
         e.owner = e.owner or identity
+        if e.owned_by is None:
+            self._set_owned_by(e, identity)
         if m.get("inline") is not None:
             e.inline = m["inline"]
             e.size = len(e.inline)
@@ -842,7 +870,20 @@ class Controller:
                 tid, f"object {ObjectID(b).hex()[:12]} lost in transfer")
 
     def _h_ref_deltas(self, identity: bytes, m: dict) -> None:
-        self.refs.apply_deltas(m["deltas"])
+        self.refs.apply_deltas(m["deltas"], holder=identity)
+
+    def _release_dead_holder(self, identity: bytes) -> None:
+        """A process died: release the refs it held, and the objects it
+        owned that no count holds (their first deltas died with it). The
+        usual grace window applies, so a borrower's +1 still in flight
+        keeps its object."""
+        self.refs.release_holder(identity)
+        for b in self._owned.pop(identity, ()):
+            e = self.objects.get(b)
+            if e is not None and e.owned_by == identity \
+                    and self.refs.count(e.object_id) <= 0 \
+                    and self.refs.force_release(b):
+                self._queue_refcount_zero(e.object_id)
 
     def _h_lease_workers(self, identity: bytes, m: dict) -> None:
         """Grant idle workers to a driver for direct task submission.
@@ -1086,6 +1127,8 @@ class Controller:
             self.refs.cancel_release(b)
             return
         e = self.objects.pop(b, None)
+        if e is not None:
+            self._unindex_owned(e)
         # Unrecoverable (no entry, or entry with no way to materialize):
         # fail the waiters loudly rather than stranding them.
         for tid in list(self.dep_waiters.pop(b, ())):
@@ -1587,6 +1630,7 @@ class Controller:
                     continue
                 e = self._entry(r["object_id"])
                 e.owner = m.get("owner", identity)
+                self._set_owned_by(e, e.owner)
                 e.size = r.get("size", 0)
                 if r.get("inline") is not None:
                     e.inline = r["inline"]
@@ -1721,8 +1765,22 @@ class Controller:
                             self._send(node.identity, P.FREE_OBJECT,
                                        {"object_id": rb})
                     continue
+            if owner is not None and self.refs.is_dead(owner) \
+                    and self.refs.count(ObjectID(r["object_id"])) <= 0 \
+                    and not self.local_waiters.get(r["object_id"]) \
+                    and not self.dep_waiters.get(r["object_id"]):
+                # its owner died before this record and no live process
+                # counts a ref to it (a borrower's +1 keeps it, as in
+                # _release_dead_holder): free it at the producing node
+                if r.get("node_id"):
+                    node = self.nodes.get(r["node_id"])
+                    if node is not None:
+                        self._send(node.identity, P.FREE_OBJECT,
+                                   {"object_id": r["object_id"]})
+                continue
             e = self._entry(r["object_id"])
             e.owner = m.get("owner_identity", identity)
+            self._set_owned_by(e, owner)
             e.size = r.get("size", 0)
             if r.get("inline") is not None:
                 e.inline = r["inline"]
@@ -2334,6 +2392,8 @@ class Controller:
             # counted, so those must not decrement)
             node.starting_workers = max(0, node.starting_workers - 1)
         self.peers.pop(worker_identity, None)
+        if worker_identity:
+            self._release_dead_holder(worker_identity)
         aid = self.worker_actors.pop(worker_identity, None)
         # close any lease first: its single resource allocation is released
         # here, so per-task failure handling must not release again

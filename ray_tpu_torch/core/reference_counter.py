@@ -219,10 +219,26 @@ class GlobalRefTable:
         self._released: "OrderedDict[bytes, None]" = OrderedDict()
         self._released_cap = 65536
         self._on_zero = on_zero
+        #: what each process's deltas net to, by object: the refs it
+        #: holds as far as the controller heard. A dead process's are
+        #: released (:meth:`release_holder`), and its late deltas dropped.
+        self._held: Dict[bytes, Dict[bytes, int]] = {}
+        self._dead: "OrderedDict[bytes, None]" = OrderedDict()
 
-    def apply_deltas(self, deltas: Dict[bytes, int]) -> None:
+    def apply_deltas(self, deltas: Dict[bytes, int],
+                     holder: Optional[bytes] = None) -> None:
         zeroed = []
         with self._lock:
+            if holder is not None:
+                if holder in self._dead:
+                    return   # released at its death
+                held = self._held.setdefault(holder, {})
+                for key, d in deltas.items():
+                    n = held.get(key, 0) + d
+                    if n:
+                        held[key] = n
+                    else:
+                        held.pop(key, None)
             for key, d in deltas.items():
                 n = self._counts.get(key, 0) + d
                 if d >= 0:
@@ -243,6 +259,21 @@ class GlobalRefTable:
                     self._released.pop(key, None)
         for oid in zeroed:
             self._on_zero(oid)
+
+    def release_holder(self, holder: bytes) -> None:
+        """A process died: drop every count its deltas still hold, as
+        though it had dropped each ref, and ignore what it sent that
+        arrives later."""
+        with self._lock:
+            held = self._held.pop(holder, {})
+            self._dead[holder] = None
+            while len(self._dead) > 4096:
+                self._dead.popitem(last=False)
+        self.apply_deltas({k: -n for k, n in held.items() if n > 0})
+
+    def is_dead(self, holder: bytes) -> bool:
+        with self._lock:
+            return holder in self._dead
 
     def cancel_release(self, object_id_b: bytes) -> None:
         """Undo a zero-event's tombstone: the controller decided the

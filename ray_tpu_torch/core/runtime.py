@@ -280,24 +280,28 @@ class Runtime:
         self._pump = threading.Thread(target=self._pump_loop,
                                       name=f"{kind}-pump", daemon=True)
         self._pump.start()
-        if kind == "driver":
-            # liveness poke: an idle driver otherwise never speaks, so a
-            # restarted controller could never ask it to RECONNECT (and
-            # its in-flight submissions would hang forever)
-            threading.Thread(target=self._ping_loop, name="driver-ping",
-                             daemon=True).start()
+        threading.Thread(target=self._tick_loop, name=f"{kind}-tick",
+                         daemon=True).start()
 
-    def _ping_loop(self) -> None:
+    def _tick_loop(self) -> None:
         while not self._stopped.wait(2.0):
-            self._send(P.PING, {})
-            # GC latency bound: pending ref deltas below the batch
-            # threshold still reach the controller within one period
+            if self.kind == "driver":
+                # liveness poke: an idle driver otherwise never speaks, so
+                # a restarted controller could never ask it to RECONNECT
+                # (and its in-flight submissions would hang forever)
+                self._send(P.PING, {})
+            # GC latency bound, in every process: the deferred decrements
+            # of dropped refs and the pending deltas below the batch
+            # threshold reach the controller within one period, whether
+            # the process is idle or busy (a worker that dropped an
+            # actor's return held its last decrement for good)
             try:
                 self.reference_counter.flush()
             except Exception:
                 pass
-            self.recorder.maybe_flush()
-            self.metrics_reporter.maybe_report()
+            if self.kind == "driver":
+                self.recorder.maybe_flush()
+                self.metrics_reporter.maybe_report()
 
     @property
     def current_task_id(self) -> TaskID:

@@ -341,8 +341,9 @@ class _SPMDProgram(TrainProgram):
             import ray_tpu_torch
             from ray_tpu_torch.models.training import tree_map
             from ray_tpu_torch.parallel.dryrun import RANK_TIMEOUT_S
-            # every rank gathers (a collective); rank 0's arrays view the
-            # store's memory, so they are copied while the refs live
+            # every rank gathers (a collective) and rank 0 returns the
+            # state; its arrays view the store's memory, so they are
+            # copied while the refs live
             refs = [a.__ray_call__.remote(_rank_save) for a in self.actors]
             out = ray_tpu_torch.get(refs, timeout=RANK_TIMEOUT_S)[0]
             out = dict(out, params=tree_map(np.copy, out["params"]),
@@ -401,10 +402,13 @@ def _rank_step(rank, batch) -> Dict[str, float]:
             "step": int(p["state"]["step"])}
 
 
-def _rank_save(rank) -> Dict[str, Any]:
+def _rank_save(rank) -> Optional[Dict[str, Any]]:
     """The canonical state gathered from every rank's shards (a
-    collective: every rank calls it); the flat moments of the sharded
-    update are first joined back into this rank's param shards."""
+    collective: every rank calls it), returned by rank 0 (None on the
+    others); the flat moments of the sharded update are first joined
+    back into this rank's param shards."""
+    import torch.distributed as dist
+
     from ray_tpu_torch._bridge import gather_to_numpy
     from ray_tpu_torch.models.training import (_get, _paths, leaf_plans)
     from ray_tpu_torch.models.transformer import set_leaf
@@ -424,11 +428,13 @@ def _rank_save(rank) -> Dict[str, Any]:
                 set_leaf(shards, path,
                          flat[:local.numel()].view(local.shape))
             moments[name] = shards
-    return {"params": gather_to_numpy(params, b.config, mesh, b.rules),
-            "opt_state": {"count": int(opt["count"]), **{
-                n: gather_to_numpy(t, b.config, mesh, b.rules)
-                for n, t in moments.items()}},
-            "step": int(st["step"])}
+    out = {"params": gather_to_numpy(params, b.config, mesh, b.rules),
+           "opt_state": {"count": int(opt["count"]), **{
+               n: gather_to_numpy(t, b.config, mesh, b.rules)
+               for n, t in moments.items()}},
+           "step": int(st["step"])}
+    # the other ranks' copies would only cross the store to be dropped
+    return out if dist.get_rank() == 0 else None
 
 
 def _rank_load(rank, state) -> None:

@@ -4,24 +4,14 @@ port's slice manager (``ray_tpu_torch.autoscaler``), loaded by
 bundle planner of the port's scheduler, the pure scaling planner, the
 in-memory ``FakeSliceProvider`` and the ``SliceManager`` lifecycle against
 a stub controller. ``tests/autoscaler/test_slice_e2e.py`` (slow in the
-JAX package) is not loaded. Also: what the port leaves out of
-``autoscaler/`` raises naming ROADMAP Queue 1 item 11, and the fake
-providers start the port's node manager with a host's ``GPU`` count."""
-
-import pytest
+JAX package) is not loaded: its non-slow twins are in
+``tests/test_torch_scripts_cli.py``. Also: the fake providers start the
+port's node manager with a host's ``GPU`` count."""
 
 from test_torch_runtime_loader import FIXTURES, load_core_tests
 
 globals().update(FIXTURES)
 globals().update(load_core_tests("autoscaler/test_slices.py"))
-
-
-@pytest.mark.parametrize("name", ["gce", "gke", "launcher", "arbiter", "v2",
-                                  "SliceArbiter", "AutoscalerV2"])
-def test_what_is_not_ported_raises_naming_item_11(name):
-    import ray_tpu_torch.autoscaler as auto
-    with pytest.raises(NotImplementedError, match="item 11"):
-        getattr(auto, name)
 
 
 def test_fake_hosts_start_the_ports_node_with_their_gpus(monkeypatch,

@@ -868,3 +868,152 @@ def test_a_group_mismatch_prints_leaf_checksums_and_names_the_leaf(capsys):
         == [False, False, True]
     assert "(4, 3), 'float32'" in leaves[1]
     assert any("worker ids ['w0', 'w1']" in line for line in out)
+
+
+# ------------------------------------------------- AR1, WF1, CL1 checks
+_FLASH = ("flash_fwd", "flash_delta", "flash_dkdv", "flash_dq")
+
+
+def _ar1_record():
+    """A record AR1's checks pass: the card's, as the phase builds it."""
+    n = chip_smoke.AR_LAYERS
+    dp2, one = "spmd[dp=2 fp32]", "spmd[single-device fp32]"
+    stages = ["dp=2"] * chip_smoke.AR_STEPS[0] \
+        + ["folded"] * chip_smoke.AR_STEPS[1] \
+        + ["regrown"] * chip_smoke.AR_STEPS[2]
+    steps = [{"step": k + 1, "stage": st, "loss": 11.0 - k,
+              "loss_one_device": 11.0 - k, "rel": 1e-4,
+              "plan": one if st == "folded" else dp2}
+             for k, st in enumerate(stages)]
+    rank = [{"launches": {f: c * n for f in _FLASH}, "pid": 7}
+            for c in (chip_smoke.AR_STEPS[0], chip_smoke.AR_STEPS[2])]
+    return {
+        "steps": steps,
+        "recoveries": [{"trigger": "notice", "from_plan": dp2,
+                        "to_plan": one, "steps_lost": 0},
+                       {"trigger": "regrow", "from_plan": one,
+                        "to_plan": dp2, "steps_lost": 0}],
+        "preemptions": 1, "returns": 1, "preempt_reason": "queue-depth",
+        "train_sid": "t0", "serve_sid": "s0", "regrown_sid": "t1",
+        "events": [{"ev": "ARBITER_PREEMPT", "slice": "t0",
+                    "reason": "queue-depth"},
+                   {"ev": "ARBITER_RETURN", "slice": "t1",
+                    "reason": "pressure-ebbed"}],
+        "slices": {"t0": "RELEASED", "s0": "UP", "t1": "UP"},
+        "arbiter_rows": [{"slice_id": "s0"}, {"slice_id": "t1"}],
+        "train_row": {"train_tokens_per_s": 5000.0},
+        "replica_row": {"queue_depth": 15.0}, "burst_queue_depth_max": 15.0,
+        "stream_lengths": [48] * 16, "divergences": [],
+        "prefill_chunks": 40, "decode_steps": 60, "paged_launches": 100 * n,
+        "launches": [[rank[0], rank[0]], [], [rank[1], rank[1]]],
+        "driver_launches": {f: (sum(chip_smoke.AR_STEPS)
+                                + chip_smoke.AR_STEPS[1]) * n
+                            for f in _FLASH}}
+
+
+def _set(rec, path, value):
+    *head, last = path
+    for k in head:
+        rec = rec[k]
+    rec[last] = value
+
+
+@pytest.mark.parametrize("path,value", [
+    (("steps", 3, "rel"), 3e-3),                        # EL1's bound
+    (("steps", 2, "plan"), "spmd[dp=2 fp32]"),          # never folded
+    (("recoveries", 0, "steps_lost"), 2),
+    (("recoveries", 1, "trigger"), "failure"),
+    (("preemptions",), 2),
+    (("returns",), 0),
+    (("preempt_reason",), "ttft-p99"),
+    (("events", 1, "slice"), "t9"),
+    (("slices", "t0"), "UP"),                           # not released
+    (("arbiter_rows", 1, "slice_id"), "t0"),
+    (("train_row",), {"train_tokens_per_s": 0.0}),
+    (("replica_row", "queue_depth"), 3.0),
+    (("stream_lengths", 5), 47),
+    (("divergences",), [{"near_tie": False}]),
+    (("paged_launches",), 99),
+    (("launches", 2, 1, "launches", "flash_dq"), 0),
+    (("driver_launches", "flash_fwd"), 0),
+])
+def test_ar1_checks_fail_on_a_wrong_record(path, value):
+    n = chip_smoke.AR_LAYERS
+    chip_smoke.ar1_checks(_ar1_record(), n)
+    bad = _ar1_record()
+    _set(bad, path, value)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.ar1_checks(bad, n)
+
+
+def _wf1_record():
+    log = [{"launches": {f: int(f == "flash_fwd") for f in _FLASH},
+            "current": "cuda:0", "pid": 5}]
+    return {"first_run_error": "TaskError: WF1: the reduce's first "
+                               "attempt fails",
+            "status_after_failure": "FAILED",
+            "launches_before_resume": log, "launches_after_resume": list(log),
+            "straight_launches": [dict(log[0], pid=6)],
+            "status": "SUCCESSFUL", "stored_bit_equal_straight": True,
+            "bit_equal_driver": True, "listed": ["wf1", "wf1-straight"],
+            "listed_after_delete": ["wf1-straight"],
+            "timer": {"fired": 12.5}, "timer_target": 12.5,
+            "timer_status": "SUCCESSFUL"}
+
+
+@pytest.mark.parametrize("path,value", [
+    (("first_run_error",), None),
+    (("status_after_failure",), "SUCCESSFUL"),
+    (("launches_after_resume",), [{"launches": {"flash_fwd": 1},
+                                   "current": "cuda:0"}] * 2),
+    (("straight_launches", 0, "current"), "cpu"),
+    (("straight_launches", 0, "launches", "flash_fwd"), 0),
+    (("status",), "FAILED"),
+    (("stored_bit_equal_straight",), False),
+    (("bit_equal_driver",), False),
+    (("listed_after_delete",), ["wf1", "wf1-straight"]),
+    (("timer",), {"fired": 12.0}),
+])
+def test_wf1_checks_fail_on_a_wrong_record(path, value):
+    chip_smoke.wf1_checks(_wf1_record(), "cuda:0")
+    bad = _wf1_record()
+    _set(bad, path, value)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.wf1_checks(bad, "cuda:0")
+
+
+def _cl1_record():
+    from ray_tpu_torch.scripts.perf import BASELINES
+    return {"up": {"created": True, "slices": ["slice-host-1"]},
+            "submit": {"current": "cuda:0", "launches": {
+                f: int(f == "flash_fwd") for f in _FLASH}},
+            "job": {"id": "j", "status": "SUCCEEDED"},
+            "status": "Nodes: 2 alive / 2 total\nResources:\n  GPU: 1/1",
+            "nodes": [{"alive": True, "labels": {}},
+                      {"alive": True,
+                       "labels": {"ray-tpu-slice-id": "slice-host-1"}}],
+            "microbenchmark": [{"metric": k, "value": 1.0}
+                               for k in BASELINES],
+            "down": {"rc": 0}, "head_group_gone": True, "left": [],
+            "left_on_gpu": [], "tree": 6}
+
+
+@pytest.mark.parametrize("path,value", [
+    (("up", "slices"), []),
+    (("submit", "current"), "cpu"),
+    (("submit", "launches", "flash_fwd"), 2),
+    (("job", "status"), "FAILED"),
+    (("status",), "Nodes: 1 alive / 1 total\nResources:\n  GPU: 1/1"),
+    (("nodes", 1, "labels"), {}),
+    (("microbenchmark",), [{"metric": "tasks_sync_per_s", "value": 1.0}]),
+    (("down", "rc"), 1),
+    (("head_group_gone",), False),
+    (("left",), [1234]),
+    (("left_on_gpu",), [1234]),
+])
+def test_cl1_checks_fail_on_a_wrong_record(path, value):
+    chip_smoke.cl1_checks(_cl1_record(), "cuda:0")
+    bad = _cl1_record()
+    _set(bad, path, value)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.cl1_checks(bad, "cuda:0")

@@ -1,16 +1,12 @@
-"""``ray_tpu_torch.dag`` on the CPU: the JAX package's DAG bodies of
-``tests/dag/test_dag_workflow.py`` on the port (loaded by
-``tests/test_torch_runtime_loader.py``), the DAG's results against
+"""``ray_tpu_torch.dag`` on the CPU: the JAX package's DAG and workflow
+bodies of ``tests/dag/test_dag_workflow.py`` on the port, every one
+(loaded by ``tests/test_torch_runtime_loader.py``;
+``tests/dag/test_workflow_events.py`` is loaded by
+``tests/test_torch_workflow.py``), the DAG's results against
 ``ray_tpu.dag``'s on the same inputs, tensors through a channel against
 ``put``/``get``, and a compiled two-stage chain over the port's
 ``stage_forward``/``stage_loss`` at ``gptj-tiny`` in f32 against the JAX
 package's stage functions at 1e-5.
-
-Left out, until ROADMAP Queue 1 item 11's last slice ports
-``workflow/``: the three workflow bodies of ``test_dag_workflow.py``
-(the module's ``from ray_tpu import workflow`` is dropped with them)
-and every body of ``tests/dag/test_workflow_events.py``
-(``WORKFLOW_EVENTS``), which is not loaded.
 """
 
 import dataclasses
@@ -23,27 +19,8 @@ import torch
 
 from test_torch_runtime_loader import FIXTURES, load_core_tests, ray_session
 
-_WORKFLOW = "workflow/ waits for ROADMAP Queue 1 item 11's last slice"
-
-#: bodies left out, each with its reason
-LEAVE_OUT = {
-    "test_workflow_run_and_skip_completed": _WORKFLOW,
-    "test_workflow_resume_after_failure": _WORKFLOW,
-    "test_workflow_list_and_delete": _WORKFLOW,
-}
-
-#: ``tests/dag/test_workflow_events.py``: not loaded, each body left out
-WORKFLOW_EVENTS = {
-    "test_wait_for_event_completes_on_delivery": _WORKFLOW,
-    "test_http_event_provider_delivers": _WORKFLOW,
-    "test_timer_listener": _WORKFLOW,
-    "test_event_survives_cluster_restart": _WORKFLOW,
-}
-
 globals().update(FIXTURES)
-globals().update(load_core_tests(
-    "dag/test_dag_workflow.py", LEAVE_OUT,
-    edits=[("from ray_tpu_torch import workflow\n", "")]))
+globals().update(load_core_tests("dag/test_dag_workflow.py"))
 globals()["ray_session"] = ray_session
 
 #: a DAG run on a runtime must finish within this
@@ -257,12 +234,3 @@ def test_compiled_two_stage_chain_equals_jax_stage_functions(
         assert float(n) == float(jn)
         assert float(loss) == pytest.approx(float(jl), rel=1e-5, abs=1e-5)
 
-
-def test_every_workflow_events_body_is_named_as_left_out():
-    import ast
-    from test_torch_runtime_loader import jax_test_path
-    tree = ast.parse(jax_test_path("dag/test_workflow_events.py")
-                     .read_text())
-    bodies = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)
-              and n.name.startswith("test_")}
-    assert bodies == set(WORKFLOW_EVENTS)

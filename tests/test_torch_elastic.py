@@ -277,9 +277,11 @@ def test_a_shut_down_trainer_gives_the_store_back(runtime):
     would hold the recovery's frames, the trainer and its host snapshot,
     for as long as the entry lives). And the store's live bytes come back
     to within 1 MB of what they were before it was built (the recoveries
-    move some 20 MB through it here); the runtime frees an object after
+    move some 20 MB through it here, more than 10 MB live at the run's
+    peak); the runtime frees an object after
     its grace window, so the check waits for it."""
     import gc
+    import threading
     import weakref
 
     from ray_tpu_torch.autoscaler import (FakeSliceProvider, SliceManager,
@@ -304,6 +306,16 @@ def test_a_shut_down_trainer_gives_the_store_back(runtime):
     pump()
     gc.collect()
     before = _store_bytes()
+    # the live bytes' peak over the run: a superseded snapshot is freed
+    # a flush and a grace window after it is dropped, sooner than the
+    # run's end when steps are slow, so the end alone can miss it
+    peak, stop = [0], threading.Event()
+
+    def sample():
+        while not stop.wait(0.05):
+            peak[0] = max(peak[0], _store_bytes() - before)
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
     t = ElasticTrainer(ParallelPlan(pp=2, dp=2, n_microbatches=2), cfg,
                        learning_rate=1e-3, snapshot_interval=8,
                        slice_manager=mgr)
@@ -318,8 +330,10 @@ def test_a_shut_down_trainer_gives_the_store_back(runtime):
             t.step(b)
         assert [(r.trigger, r.steps_lost) for r in t.recoveries] == \
             [("notice", 0), ("failure", 3)]
-        held = _store_bytes() - before
+        held = max(peak[0], _store_bytes() - before)
     finally:
+        stop.set()
+        sampler.join()
         streaming.wait_any = orig
         t.shutdown()
         mgr.shutdown()

@@ -6,8 +6,10 @@ bf16 KV hand-off, tracing included), takes a train step, serves an
 ``LLMServer`` through ``serve.run``, trains rllib, runs trainers and
 tuners (PBT among them), streams a ``ray_tpu_torch.data`` pipeline
 into a trainer, compiles and runs a two-stage DAG, submits a job through
-the dashboard and drives a task through a ``ray://`` client with all of
-them made unimportable."""
+the dashboard, drives a task through a ``ray://`` client, runs the slice
+arbiter's preempt-fold-return-regrow loop, resumes a workflow and brings
+a cluster up and down from the command line with all of them made
+unimportable."""
 
 import ast
 import json
@@ -632,3 +634,176 @@ def test_dag_job_and_client_run_with_jax_and_ray_tpu_unimportable():
         assert not leaked, leaked
         print("OK")
     """)
+
+
+def test_arbiter_workflow_and_cli_run_with_jax_and_ray_tpu_unimportable(
+        tmp_path):
+    """The slice arbiter preempts an ``ElasticTrainer(ParallelPlan(dp=2))``
+    slice under sustained pressure, the trainer folds to dp=1, the ebb
+    returns a slice and the trainer regrows, at a tiny size; a workflow
+    whose last task fails once is resumed; ``cli up``/``down`` bring a
+    local cluster up and down: with the JAX packages unimportable in
+    every interpreter (a ``sitecustomize`` on the path)."""
+    (tmp_path / "sitecustomize.py").write_text(textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "optax", "flax", "ray_tpu",
+                     "ml_dtypes"):
+            sys.modules[name] = None      # any import of them now fails
+    """))
+    _run(f"""
+        import json, os, subprocess, sys
+        assert sys.modules["jax"] is None and sys.modules["ray_tpu"] is None
+        import numpy as np
+        import torch
+        import ray_tpu_torch
+        from ray_tpu_torch import workflow
+        from ray_tpu_torch.autoscaler import (
+            ArbiterPolicy, FakeSliceProvider, SliceArbiter, SliceManager,
+            SliceTypeConfig)
+        from ray_tpu_torch.core.events import FlightRecorder
+        from ray_tpu_torch.models.transformer import TransformerConfig
+        from ray_tpu_torch.parallel.elastic import ElasticTrainer
+        from ray_tpu_torch.parallel.plan import ParallelPlan
+
+        class Ctl:
+            def __init__(self):
+                self.scheduler = self
+                self.recorder = FlightRecorder("iso", capacity=1024)
+
+            def set_draining(self, node_id, flag):
+                pass
+
+            def call_on_loop(self, fn, timeout=None):
+                return fn()
+
+            def _reschedule_pgs_on_nodes(self, node_bs):
+                return 0
+
+            def _maybe_schedule(self, force=False):
+                pass
+
+        class Clock:
+            t = 1000.0
+
+            def __call__(self):
+                return self.t
+
+        ray_tpu_torch.init(num_cpus=8, _num_initial_workers=0)
+        try:
+            ctl, clock, gauges = Ctl(), Clock(), {{"queue_depth": 0.0}}
+            prov = FakeSliceProvider(provider_config={{"max_slices": 2}})
+            mgr = SliceManager(ctl, prov, [SliceTypeConfig(
+                "pod", "1x1", {{"CPU": 1}})], idle_timeout_s=3600.0,
+                drain_deadline_s=0.0)
+            arb = SliceArbiter(mgr, policy=ArbiterPolicy(
+                queue_high=4.0, queue_low=1.0, sustain_s=2.0, ebb_s=4.0),
+                gauges_fn=lambda: dict(gauges), now_fn=clock)
+            train = mgr.acquire_slice("pod")
+            arb.claim(train, owner="train", kind="train", priority=0)
+            serve_sid = mgr.acquire_slice("pod")
+            arb.claim(serve_sid, owner="serve", kind="serve", priority=10)
+            owned = {{train}}
+            arb.register_on_return(lambda i: owned.add(i["slice_id"]))
+
+            def pump(busy=True):
+                alive = {{h for s in prov.non_terminated_nodes()
+                         for h in prov.internal_ids(s)}}
+                mgr.update({{"demand": [], "slice_demand": [],
+                            "busy_nodes": alive if busy else set(),
+                            "alive_nodes": alive}})
+            pump()
+            cfg = TransformerConfig(
+                vocab_size=128, d_model=32, n_layers=2, n_heads=2,
+                head_dim=16, d_ff=64, max_seq_len=32, rotary_dim=8,
+                block_style="gptj", dtype=torch.float32, remat=False,
+                ce_chunk_size=8)
+            rng = np.random.default_rng(1)
+            batch = {{"input_ids": rng.integers(0, 128, (4, 16))}}
+            trainer = ElasticTrainer(
+                ParallelPlan(dp=2), cfg, learning_rate=1e-3,
+                telemetry_interval_s=0, slice_manager=mgr,
+                slice_filter=lambda s: s in owned, device="cpu")
+            ref = ParallelPlan().build(cfg, learning_rate=1e-3,
+                                       telemetry_interval_s=0,
+                                       device="cpu")
+            try:
+                def step():
+                    a, b = trainer.step(batch).loss, ref.step(batch).loss
+                    assert abs(a - b) <= 1e-4 * abs(b), (a, b)
+                step()
+                gauges["queue_depth"] = 9.0
+                arb.update()
+                clock.t += 2.5
+                assert arb.update()["actions"] == ["preempt:" + train]
+                step()
+                assert trainer.plan.dp == 1
+                pump(busy=False)
+                gauges["queue_depth"] = 0.0
+                arb.update()
+                clock.t += 4.5
+                assert arb.update()["actions"] == ["return"]
+                pump()
+                step()
+                assert trainer.plan.dp == 2
+                assert [r.trigger for r in trainer.recoveries] == [
+                    "notice", "regrow"]
+            finally:
+                trainer.shutdown()
+                ref.shutdown()
+                mgr.shutdown()
+                prov.shutdown()
+
+            root = {str(tmp_path / "wf")!r}
+            workflow.init_storage(root)
+            marker = os.path.join(root, "marker")
+
+            @ray_tpu_torch.remote
+            def double(x):
+                return 2 * x
+
+            @ray_tpu_torch.remote
+            def last(x, marker):
+                if not os.path.exists(marker):
+                    open(marker, "w").close()
+                    raise RuntimeError("first attempt")
+                return x + 1
+
+            try:
+                workflow.run(last.bind(double.bind(20), marker),
+                             workflow_id="iso")
+                raise AssertionError("the first attempt did not fail")
+            except Exception as e:  # noqa: BLE001
+                assert "first attempt" in str(e), e
+            assert workflow.get_status("iso") == "FAILED"
+            assert workflow.resume("iso") == 41
+            assert workflow.get_status("iso") == "SUCCESSFUL"
+        finally:
+            ray_tpu_torch.shutdown()
+
+        cfg_path = {str(tmp_path / "cluster.yaml")!r}
+        with open(cfg_path, "w") as f:
+            json.dump({{"cluster_name": "iso",
+                       "provider": {{"type": "fake_slice", "session_dir":
+                                    {str(tmp_path / "cluster")!r}}},
+                       "head_node_type": "head",
+                       "available_node_types": {{"head": {{"resources":
+                                                           {{"CPU": 1}}}}}},
+                       "slices": {{"pod": {{"topology": "1x1",
+                                           "count": 1}}}}}}, f)
+        cli = [sys.executable, "-m", "ray_tpu_torch.scripts.cli"]
+        up = subprocess.run(cli + ["up", "-y", cfg_path], capture_output=True,
+                            text=True, timeout=180)
+        assert up.returncode == 0, up.stdout + up.stderr
+        out = json.loads(up.stdout.strip().splitlines()[-1])
+        assert len(out["slices"]) == 1 and out["created"], out
+        down = subprocess.run(cli + ["down", "-y", cfg_path],
+                              capture_output=True, text=True, timeout=180)
+        assert down.returncode == 0, down.stdout + down.stderr
+        gone = json.loads(down.stdout.strip().splitlines()[-1])
+        assert gone["terminated"] == out["slices"], gone
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "ray_tpu", "ml_dtypes")
+                  and sys.modules[m] is not None]
+        assert not leaked, leaked
+        print("OK")
+    """, timeout=300, PYTHONPATH=os.pathsep.join([str(tmp_path), str(ROOT)]))

@@ -19,7 +19,11 @@ each ``tests/test_torch_data_<name>.py`` that loads bodies
 ``tests/test_torch_dag.py``, ``tests/test_torch_dashboard.py``,
 ``tests/test_torch_ray_client.py`` and ``tests/test_torch_experimental.py``
 load ``"dag/test_dag_workflow.py"``, ``"dashboard/test_*.py"``,
-``"util/test_ray_client.py"`` and ``"util/test_iter_misc.py"``:
+``"util/test_ray_client.py"`` and ``"util/test_iter_misc.py"``, and
+``tests/test_torch_workflow.py``, ``tests/test_torch_util_*.py`` and
+``tests/test_torch_autoscaler_*.py`` load ``"dag/test_workflow_events.py"``,
+``"util/test_state_metrics_mp.py"``, ``"util/test_joblib_logmon_env.py"``
+and the ``"autoscaler/test_*.py"`` files but the slow slice e2e one:
 the source is
 read, ``ray_tpu`` is rewritten to ``ray_tpu_torch`` on word boundaries
 and ``RAY_TPU_<NAME>`` environment variables to ``RAY_TPU_TORCH_<NAME>``,
@@ -245,7 +249,13 @@ FIXTURES = {"ray_start_regular": ray_start_regular,
     "autoscaler/test_slices.py", "parallel/test_elastic.py",
     "train/test_trainer.py", "tune/test_tune.py", "tune/test_callbacks.py",
     "tune/test_new_schedulers.py", "dag/test_dag_workflow.py",
-    "util/test_ray_client.py", "util/test_iter_misc.py"] + sorted(
+    "util/test_ray_client.py", "util/test_iter_misc.py",
+    "dag/test_workflow_events.py", "util/test_state_metrics_mp.py",
+    "util/test_joblib_logmon_env.py", "autoscaler/test_arbiter.py",
+    "autoscaler/test_autoscaler_v2.py", "autoscaler/test_gce_launcher.py",
+    "autoscaler/test_gce_transport.py", "autoscaler/test_gke_provider.py",
+    "autoscaler/test_launcher_config.py",
+    "autoscaler/test_colocation_e2e.py"] + sorted(
     f"data/{p.name}" for p in (JAX_TESTS / "data").glob("test_*.py")) + sorted(
     f"dashboard/{p.name}" for p in (JAX_TESTS / "dashboard").glob("test_*.py")))
 def test_rewrite_leaves_no_jax_package_import(filename):
